@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels of the port, with their plain twins.
+
+block_spgemm — DBCSR's filtered batched block GEMM (the paper's hot spot),
+CUDA C++ in ``csrc/block_spgemm.cu``.
+
+Each kernel has a plain-torch oracle in ref.py and a public wrapper in
+ops.py.  Kernels are built at first use on a CUDA tensor, never at import.
+"""

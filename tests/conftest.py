@@ -98,3 +98,10 @@ except ImportError:
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips without one (run on the card)",
+    )
