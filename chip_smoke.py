@@ -14,11 +14,35 @@ Phases, each raising on failure:
    nb = 512, bs = 23, occupancy 0.10 decay (the paper's H2O-DFT-LS blocks
    and occupancy, cut to one card), checked against the plain version;
    kernel, plain and library (dense ``torch.matmul``) times and the bound;
-   then the kernel alone on a full 512^3 product list (the later sweeps);
+   then the kernel alone on a full 512^3 product list (the later sweeps),
+   with the dense ``torch.matmul`` of the full-fill matrix beside it;
 4. the full-width purification through ``repro_torch.launch.purify``,
    with the kernel's launch count set to 0 just before and read just
    after: sweeps, occupancy trajectory, wall time, launches, trace(P)
-   against the float64 eigenvalue count, max |P^2 - P|.
+   against the float64 eigenvalue count, max |P^2 - P|;
+5. the flash-attention kernel against its plain version and the
+   ``ref.attention_ref`` oracle on the card: f32 / bf16, causal on and
+   off, windows 32 / 128, softcap 50, GQA 8:2, ragged 200, sq != skv,
+   d 64 / 128; the launch counter must rise by one per call;
+6. the whole reduced olmo-1b (f32) on the card against the same model on
+   the CPU, from the same parameters: prefill and four decode steps with
+   per-slot positions, logits within 1e-4;
+7. full-width serving of olmo-1b (16 layers, d_model 2048, bf16) through
+   ``repro_torch.launch.serve.run``: 16 requests through 8 slots, 2,048-
+   token prompts, 64 new tokens each, both kernels' counts set to 0 just
+   before and read just after; every request gets 64 tokens in the
+   vocabulary, the flash kernel runs once per layer per prefill round, the
+   prefill logits are finite and the first token of every request is their
+   argmax, and request 0 served equals request 0 generated alone;
+8. where the serving time goes: one prefill round (8 x 2,048 tokens) and
+   16 decode steps of the same model under ``torch.profiler``: device
+   time by kernel group (flash, cuBLAS matmuls, the rest), the top
+   kernels, and the device's idle share of each window;
+9. the flash kernel at the serving shape (b 8, h 16, s 2048, d 128, bf16,
+   causal) against its plain version (bf16 with a row's limit shrinking
+   as 1 / sqrt(its keys), and the f32 instance on the same inputs at
+   1e-4), timed beside the plain version,
+   ``scaled_dot_product_attention`` (the library figure) and the bound.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2
@@ -38,13 +62,33 @@ ROOT = Path(__file__).resolve().parent
 NB, BS, OCC, SEED = 512, 23, 0.10, 0
 THRESHOLD, FILTER_EPS = 1e-9, 1e-8
 # published H100 SXM peaks (data sheet, 700 W): f32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, bf16 dense tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # kernel vs plain / oracle: f32 up to summation order; bf16 one output
 # rounding of unit-scaled blocks (the reference's _DTYPE_TOL)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 IDEMPOTENCY_TOL = 1e-3  # max |P^2 - P|, as the reference's own test
+# flash kernel vs plain / oracle: f32 up to summation order; bf16 the
+# kernel's rounding of p to bf16 before P.V (the TPU kernel's), which the
+# plain loop skips — the reference's own bf16 tolerance
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# at the serving shape the late rows average ~2,000 keys and their outputs
+# are ~0.04, below FLASH_TOL's bf16 limit.  There the kernel's f32 instance
+# on the same inputs is held to the f32 limit, and the bf16 limit of a row
+# that keeps n keys is atol / sqrt(n) + rtol |plain|: the kernel's rounding
+# of p (2^-9 relative per term) moves a row's average of n keys by about
+# 2^-9 max|v| / sqrt(n) <= 1.1e-2 / sqrt(n), and one output rounding is
+# under 2^-8 relative
+FLASH_SERVE_TOL_BF16 = dict(atol=3e-2, rtol=2e-2)
+MODEL_TOL = 1e-4  # reduced f32 model, CUDA vs CPU logits
+# the serving cell: olmo-1b at full width; 8 slots x 2,048-token prompts
+# + 64 new tokens (the repo's prefill_32k / decode_32k cut to fit the run)
+SERVE_ARGV = ["--arch", "olmo-1b", "--batch", "8", "--prompt-len", "2048",
+              "--max-new", "64", "--max-len", "2176", "--queue", "16",
+              "--seed", str(SEED)]
+FLASH_SHAPE = dict(b=8, h=16, s=2048, d=128)  # one prefill round's layer
 
 
 def _time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -196,13 +240,20 @@ def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
     full_ms = _time_ms(lambda: K.block_spgemm_runs(
         x.blocks, x.blocks, st_full.ik, runs_full, ni=NB, nj=NB), reps=3)
     full_bound_ms, full_by = _bound(ok_full, BS, 4)
+    del ok_full, st_full, runs_full
+    xd = x.to_dense()  # at full fill the dense product is the same product
+    full_library_ms = _time_ms(lambda: torch.matmul(xd, xd), reps=5,
+                               warmup=1)
     print(f"[3] full fill: products {n_full}, list build {build_ms:.4f} ms, "
           f"kernel {full_ms:.4f} ms, bound {full_bound_ms:.4f} ({full_by}), "
-          f"{2.0 * n_full * BS**3 / full_ms / 1e9:.3f} TFLOP/s", flush=True)
-    del x, ok_full, st_full, runs_full
+          f"{2.0 * n_full * BS**3 / full_ms / 1e9:.3f} TFLOP/s; library "
+          f"(torch.matmul dense f32) {full_library_ms:.4f} ms, kernel / "
+          f"library {full_ms / full_library_ms:.2f}x", flush=True)
+    del x, xd
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                full_ms=full_ms, full_library_ms=full_library_ms)
 
 
 def phase_purify(torch, K, purify) -> int:
@@ -232,6 +283,300 @@ def phase_purify(torch, K, purify) -> int:
     return launches
 
 
+def _tree_to(tree, dev):
+    """Nested dicts / lists of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+# (b, h, hkv, sq, skv, d, causal, window, softcap)
+FLASH_CASES = (
+    (1, 2, 2, 256, 256, 64, True, None, None),
+    (1, 2, 2, 256, 256, 64, False, None, None),
+    (1, 2, 2, 256, 256, 64, True, 32, None),
+    (1, 2, 2, 256, 256, 128, True, 128, None),
+    (1, 2, 2, 256, 256, 64, True, None, 50.0),
+    (2, 8, 2, 256, 256, 128, True, None, None),
+    (2, 4, 4, 200, 200, 64, True, None, None),
+    (2, 4, 4, 200, 200, 128, False, None, None),
+    (1, 4, 2, 128, 384, 128, True, None, None),
+    (1, 4, 2, 384, 128, 64, False, None, None),
+    (1, 2, 1, 333, 333, 128, True, 100, 30.0),
+)
+
+
+def phase_flash_vs_plain(torch, np, FA, ref) -> float:
+    """Phase 5: the flash kernel against its plain version and the oracle;
+    returns the max |err| against the plain version."""
+    rng = np.random.default_rng(SEED)
+    worst, bad, cases = 0.0, [], 0
+    for case in FLASH_CASES:
+        b, h, hkv, sq, skv, d, causal, window, softcap = case
+        amp = 4.0 if softcap else 1.0  # logits large enough to meet the cap
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape) * a)
+                       .to("cuda", dt) for shape, a in (
+                           ((b, h, sq, d), amp), ((b, hkv, skv, d), amp),
+                           ((b, hkv, skv, d), 1.0)))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            before = FA.launches
+            got = FA.flash_attention(q, k, v, **kw)
+            if FA.launches != before + 1:
+                bad.append((case, dtype, "no launch"))
+            plain = FA.flash_attention_plain(q, k, v, **kw)
+            rep = h // hkv
+            oracle = ref.attention_ref(q, k.repeat_interleave(rep, 1),
+                                       v.repeat_interleave(rep, 1), **kw)
+            for i, want in enumerate((plain, oracle)):
+                good, err = _close(got, want, FLASH_TOL[dtype])
+                if i == 0:
+                    worst = max(worst, err)
+                if not good:
+                    bad.append((case, dtype, err))
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"[5] flash kernel vs plain and oracle: {cases} cases, max |err| "
+          f"vs plain {worst:.3e}, tolerances {FLASH_TOL}", flush=True)
+    if bad:
+        raise AssertionError(f"flash kernel disagrees: {bad}")
+    return worst
+
+
+def phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch) -> float:
+    """Phase 6: reduced olmo-1b (f32), the same parameters on the card and
+    on the CPU: prefill and four decode steps with per-slot positions."""
+    cfg = get_arch("olmo-1b").reduced()
+    p_cpu = T.init_params(cfg, SEED, device="cpu")
+    dev = "cuda"
+    p_dev = _tree_to(p_cpu, dev)
+    rng = np.random.default_rng(SEED)
+    batch, plen, max_len = 4, 200, 256
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, plen)))
+    c_cpu = T.init_cache(cfg, batch, max_len, device="cpu")
+    c_dev = T.init_cache(cfg, batch, max_len, device=dev)
+    before = FA.launches
+    l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(dev), c_dev)
+    launched = FA.launches - before
+    l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
+    worst = float((l_dev.cpu() - l_cpu).abs().max())
+    pos = torch.tensor([plen, plen - 7, plen - 50, plen - 1])
+    for _ in range(4):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1)))
+        l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(dev), c_dev,
+                                     pos.to(dev))
+        l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
+        worst = max(worst, float((l_dev.cpu() - l_cpu).abs().max()))
+        pos = pos + 1
+    print(f"[6] reduced olmo-1b f32 ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}), cuda vs cpu: prefill + 4 decode steps, max "
+          f"|logit err| {worst:.3e} (tolerance {MODEL_TOL}), flash launches "
+          f"in the prefill {launched}", flush=True)
+    if launched != cfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernel {launched}"
+                             f" times for {cfg.n_layers} layers")
+    if not worst <= MODEL_TOL:
+        raise AssertionError(f"model on cuda vs cpu: {worst}")
+    return worst
+
+
+def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
+    """Phase 7: the serving path at full width, through the entry point;
+    returns the report, and a second engine with the same model and the
+    first round's prompts for phase 8."""
+    K.launches = 0
+    FA.launches = 0
+    st = serve.run(argv)
+    launches = FA.launches
+    spgemm_launches = K.launches
+    n_rounds = len(st["prefill_s"])
+    print(f"[7] serve: {st['requests']} requests, {st['tokens']} tokens, "
+          f"wall {st['wall_s']:.3f} s, {st['tokens_per_s']:.1f} tok/s, "
+          f"prefill s per round {[round(x, 4) for x in st['prefill_s']]}, "
+          f"decode ms/step median {st['decode_ms_median']:.4f}, refills "
+          f"{st['refills']}, flash launches {launches} "
+          f"({st['n_layers']} layers x {n_rounds} prefill rounds), "
+          f"block_spgemm launches {spgemm_launches}, peak memory "
+          f"{st['peak_mem_gib']} GiB", flush=True)
+    if launches == 0:
+        raise AssertionError("serving never launched the flash kernel")
+    if launches != st["n_layers"] * n_rounds:
+        raise AssertionError(f"flash launches {launches} != layers x "
+                             f"prefill rounds {st['n_layers']} x {n_rounds}")
+    if not st["ok"]:
+        raise AssertionError("a request got too few tokens or a token "
+                             "outside the vocabulary")
+    # the same model again (same seed, same device): the prefill logits
+    # of the first round, and request 0 generated alone
+    _, cfg, engine, prompts = serve.build(argv)
+    n = engine.batch
+    toks = torch.from_numpy(np.stack(prompts[:n])).to(engine.device,
+                                                      torch.long)
+    cache = T.init_cache(cfg, n, engine.max_len, device=engine.device)
+    logits, cache = T.prefill(cfg, engine.params, toks, cache)
+    del cache
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    first = logits[:, -1].argmax(-1).tolist()
+    got_first = [o[0] for o in st["outputs"][:n]]
+    solo = engine.generate([prompts[0]])[0]
+    same = solo == st["outputs"][0]
+    print(f"[7] prefill logits finite, max |logit| "
+          f"{float(logits.float().abs().max()):.3f}; first tokens "
+          f"{'equal' if first == got_first else 'DIFFER'} to their argmax; "
+          f"request 0 served {'equals' if same else 'DIFFERS from'} "
+          f"request 0 generated alone", flush=True)
+    if first != got_first:
+        raise AssertionError(f"first tokens {got_first} != argmax {first}")
+    if not same:
+        raise AssertionError(f"served {st['outputs'][0]} != generated {solo}")
+    st["flash_launches"] = launches
+    return st, engine, toks
+
+
+def _kernel_group(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash"
+    # cuBLAS: nvjet_* (its Hopper GEMMs), gemv*, cutlass / xmma / sm90_*
+    if any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass", "xmma",
+                               "sm90_")):
+        return "matmul"
+    return "other"
+
+
+def _profile_window(torch, fn) -> tuple[float, dict, int, list]:
+    """(wall ms, device ms by kernel group, kernel launches, top kernels)
+    of ``fn`` under torch.profiler; one stream, so kernel times add up to
+    the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.device_time_total
+        groups[_kernel_group(e.key)] += us / 1e3
+        kernels.append((us / 1e3, e.count, e.key))
+    n_launches = sum(c for _, c, _ in kernels)
+    return wall_ms, groups, n_launches, sorted(kernels, reverse=True)[:6]
+
+
+def phase_breakdown(torch, T, engine, toks, n_decode: int = 16) -> None:
+    """Phase 8: device time by kernel group and idle share, for one
+    prefill round and ``n_decode`` decode steps (greedy, synchronised
+    each step as ``serve`` is)."""
+    cfg, n = engine.cfg, toks.shape[0]
+    cache = T.init_cache(cfg, n, engine.max_len, device=engine.device)
+    box = {}
+
+    def prefill():
+        box["logits"], _ = T.prefill(cfg, engine.params, toks, cache)
+
+    def decode():
+        tok = box["logits"][:, -1].argmax(-1)
+        pos = torch.full((n,), toks.shape[1], device=engine.device)
+        for _ in range(n_decode):
+            logits, _ = T.decode_step(cfg, engine.params, tok[:, None],
+                                      cache, pos)
+            tok = logits[:, -1].argmax(-1)
+            tok.tolist()  # the host reads each step's tokens
+            pos = pos + 1
+
+    for name, fn, steps in (("prefill", prefill, 1),
+                            ("decode", decode, n_decode)):
+        wall, groups, n_launches, top = _profile_window(torch, fn)
+        busy = sum(groups.values())
+        if busy <= 0:
+            raise AssertionError(f"the profiler saw no device time in {name}")
+        idle = 1.0 - busy / wall
+        per = ", ".join(f"{k} {v / steps:.4f}" for k, v in groups.items())
+        unit = "round" if steps == 1 else "step"
+        print(f"[8] {name} ({steps} x): wall {wall / steps:.4f} ms, device "
+              f"busy {busy / steps:.4f} ms, idle share {idle:.4f}, "
+              f"{n_launches / steps:.0f} kernels per {unit}; device ms per "
+              f"{unit}: {per}", flush=True)
+        for ms, count, key in top:
+            print(f"[8]   {ms / steps:9.4f} ms  x{count // steps:<5d} "
+                  f"{key[:90]}", flush=True)
+    del cache, box
+
+
+def _flash_bound(b, h, s, d, itemsize, causal=True) -> tuple[float, str]:
+    """Least time: 4 d operations per kept (q, k) pair at the bf16 tensor
+    rate, or q, k, v read once and o written once at the memory rate."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    t_ops = 4.0 * d * pairs / PEAK_BF16_FLOPS
+    t_bytes = 4.0 * b * h * s * d * itemsize / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_flash_serving_shape(torch, np, FA) -> dict:
+    """Phase 9: the kernel at one prefill layer's shape, checked, timed.
+
+    The bf16 kernel against the plain version, with a row's limit
+    atol / sqrt(keys of the row) + rtol |plain|, and the kernel's f32
+    instance on the same inputs cast to f32 against the plain version at
+    1e-4: both instances share the kv walk, and the f32 check sees a wrong
+    walk in the long late rows, whose outputs are small."""
+    b, h, s, d = (FLASH_SHAPE[k] for k in "bhsd")
+    rng = np.random.default_rng(SEED + 2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d),
+                                                    dtype=np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    keys = torch.arange(1, s + 1, device="cuda", dtype=torch.float32)
+    errs = {}
+    for dtype, atol, rtol in (
+            ("bfloat16", FLASH_SERVE_TOL_BF16["atol"] / keys.sqrt()[:, None],
+             FLASH_SERVE_TOL_BF16["rtol"]),
+            ("float32", FLASH_TOL["float32"], FLASH_TOL["float32"])):
+        x = [t.to(getattr(torch, dtype)) for t in (q, k, v)]
+        got = FA.flash_attention(*x, causal=True)
+        plain = FA.flash_attention_plain(*x, causal=True)
+        diff = (got.float() - plain.float()).abs()
+        ratio = diff / (atol + rtol * plain.float().abs())
+        errs[dtype] = float(diff.max())
+        late = slice(3 * s // 4, None)  # the last quarter of the rows
+        print(f"[9] {dtype} kernel vs plain: max |err| {errs[dtype]:.3e} "
+              f"(last quarter of rows {float(diff[:, :, late].max()):.3e}); "
+              f"worst |err| / limit {float(ratio.max()):.4f} (last quarter "
+              f"{float(ratio[:, :, late].max()):.4f})", flush=True)
+        if not float(ratio.max()) <= 1.0:
+            raise AssertionError(f"flash kernel vs plain at the serving "
+                                 f"shape, {dtype}: max |err| {errs[dtype]}")
+        del x, got, plain, diff, ratio
+    err = errs["bfloat16"]
+    ms = _time_ms(lambda: FA.flash_attention(q, k, v, causal=True), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                         causal=True),
+                        reps=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=10,
+                          warmup=2)
+    bound_ms, bound_by = _flash_bound(b, h, s, d, 2)
+    tflops = 4.0 * d * b * h * (s * (s + 1) // 2) / ms / 1e9
+    print(f"[9] flash at b={b} h={h} s={s} d={d} bf16 causal: kernel vs "
+          f"plain max |err| {err:.3e}; times (ms, median of CUDA events): "
+          f"kernel {ms:.4f}  plain {plain_ms:.4f}  library(sdpa) "
+          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}); kernel "
+          f"{tflops:.3f} TFLOP/s on the kept pairs", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -243,11 +588,14 @@ def main() -> int:
     from repro_torch.core import bsm as B
     from repro_torch.core import engine as E
     from repro_torch.core import local_mm as lm
+    from repro_torch.configs import get_arch
     from repro_torch.core import plan
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_spgemm as K
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import stacks as S
-    from repro_torch.launch import purify
+    from repro_torch.launch import purify, serve
+    from repro_torch.models import transformer as T
 
     # full f32 in every matmul the checks compare against
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -262,15 +610,24 @@ def main() -> int:
     print(f"[1] device {name} | {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     build_s = _build.build()
-    for line in _build.ptxas_log.get("block_spgemm", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1]   {line.strip()}")
+    for src in _build.SOURCES:
+        for line in _build.ptxas_log.get(src, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1]   {src}: {line.strip()}")
     print(f"[1] kernel build {build_s:.2f} s into "
           f"{_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
 
     phase_kernel_vs_plain(torch, np, K, S, ref, lm, B)
     m = phase_full_width_multiply(torch, K, S, B, E, plan)
     launches = phase_purify(torch, K, purify)
+    print(f"[4] phases 1-4 in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_flash_vs_plain(torch, np, FA, ref)
+    phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch)
+    served, engine, toks = phase_serve(torch, np, T, K, FA, serve)
+    phase_breakdown(torch, T, engine, toks)
+    del engine, toks
+    torch.cuda.empty_cache()
+    f = phase_flash_serving_shape(torch, np, FA)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -279,8 +636,15 @@ def main() -> int:
         launches=launches, max_abs_err=m["max_abs_err"], ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=m["library_ms"],
+    ), dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:25",
+        launches=served["flash_launches"], max_abs_err=f["max_abs_err"],
+        ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+        bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[5] all phases passed in {time.perf_counter() - t0:.1f} s",
+    print(f"[10] all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

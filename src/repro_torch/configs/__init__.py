@@ -1,0 +1,59 @@
+"""repro_torch.configs — the architecture registry of the port.
+
+``get_arch(name)`` returns the full published config, with the aliases of
+the JAX package's registry.  Only the architectures the port can run are
+registered: the dense attention decoders.  A name the JAX package knows
+but the port cannot run yet raises ``NotImplementedError`` naming the
+ROADMAP item that ports its missing part; an unknown name raises
+``KeyError``, as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ArchConfig
+
+ARCH_IDS = (
+    "gemma2_27b",
+    "qwen2_72b",
+    "olmo_1b",
+    "qwen1_5_4b",
+)
+
+# known to the JAX package, not runnable here yet: what each one lacks
+UNPORTED = {
+    "pixtral_12b": "ROADMAP.md Queue A item 13 (vision prefix)",
+    "llama4_maverick_400b_a17b": "ROADMAP.md Queue A item 13 (MoE)",
+    "deepseek_moe_16b": "ROADMAP.md Queue A item 13 (MoE)",
+    "whisper_large_v3": "ROADMAP.md Queue A item 13 (whisper encoder)",
+    "jamba_v0_1_52b": "ROADMAP.md Queue A item 13 (mamba, MoE)",
+    "rwkv6_7b": "ROADMAP.md Queue A item 13 (rwkv6)",
+}
+
+_ALIASES = {
+    "pixtral-12b": "pixtral_12b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "whisper-large-v3": "whisper_large_v3",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "gemma2-27b": "gemma2_27b",
+    "qwen2-72b": "qwen2_72b",
+    "olmo-1b": "olmo_1b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "rwkv6-7b": "rwkv6_7b",
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if key in UNPORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: {UNPORTED[key]}")
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; one of {sorted(_ALIASES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{key}")
+    return mod.CONFIG
+
+
+def all_archs() -> dict[str, ArchConfig]:
+    return {aid: get_arch(aid) for aid in ARCH_IDS}

@@ -1,8 +1,10 @@
-"""Carry block-sparse matrices between the JAX package and the port.
+"""Carry data between the JAX package and the port.
 
 Both sides meet at numpy: ``bsm_from_arrays`` builds the port's matrix from
 ``np.asarray`` of each field of the reference's ``BlockSparseMatrix``, and
-``bsm_to_numpy`` goes the other way.  No jax import here.
+``bsm_to_numpy`` goes the other way; ``params_from_jax`` and
+``cache_from_jax`` turn the reference LM's parameter and KV-cache pytrees
+(leaves as numpy) into the port's per-layer layout.  No jax import here.
 
 JAX's bf16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; they cross as float32 and are cast to
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.config import resolve_device
+from repro_torch.config import ArchConfig, resolve_device
 from repro_torch.core.bsm import BlockSparseMatrix
 
 
@@ -41,3 +43,39 @@ def bsm_to_numpy(m: BlockSparseMatrix) -> tuple[np.ndarray, np.ndarray, np.ndarr
     if blocks.dtype == torch.bfloat16:
         blocks = blocks.to(torch.float32)
     return (blocks.cpu().numpy(), m.mask.cpu().numpy(), m.norms.cpu().numpy())
+
+
+def _tree_to_tensors(tree, device, index=None):
+    """Nested dicts of arrays -> nested dicts of tensors, optionally taking
+    ``leaf[index]`` of every leaf (one repetition of a stacked block)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_tensors(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return _to_tensor(a if index is None else a[index], device)
+
+
+def _unstack_blocks(cfg: ArchConfig, stacked, device) -> list:
+    """The reference stacks pattern position i's blocks over the
+    repetitions r and runs layer r * period + i; the port keeps one dict
+    per layer, in that order."""
+    period = len(stacked)
+    reps = cfg.n_layers // period
+    return [_tree_to_tensors(stacked[i], device, r)
+            for r in range(reps) for i in range(period)]
+
+
+def params_from_jax(cfg: ArchConfig, params, *, device=None) -> dict:
+    """The port's parameters from the reference's ``init_params`` pytree
+    (bit-exact; bf16 crosses as float32)."""
+    dev = resolve_device(device)
+    return {
+        "embed": _tree_to_tensors(params["embed"], dev),
+        "blocks": _unstack_blocks(cfg, params["blocks"], dev),
+        "final_norm": _tree_to_tensors(params["final_norm"], dev),
+    }
+
+
+def cache_from_jax(cfg: ArchConfig, cache, *, device=None) -> dict:
+    """The port's per-layer KV cache from the reference's stacked one."""
+    return {"blocks": _unstack_blocks(cfg, cache["blocks"],
+                                      resolve_device(device))}

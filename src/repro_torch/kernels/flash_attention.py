@@ -1,0 +1,231 @@
+"""Hopper kernel: flash attention (online softmax, causal / window / softcap).
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
+_flash_kernel`` (launched there by ``flash_attention_single``, vmapped over
+batch and heads by ``repro/kernels/ops.py::flash_attention``).  The kernel
+is CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``, built by
+``nvcc`` at first use (``kernels/_build.py``) and bound with ``ctypes``.
+
+The TPU kernel carries its running max, sum and accumulator in VMEM across
+a sequential kv grid axis; CUDA blocks run in no order, so one CTA owns a
+(batch, head, 64-row q tile), walks the kv tiles itself with that state in
+registers, and writes its rows once.  Grouped-query heads read their kv
+head as ``h // (h // hkv)``: no repeated K/V is materialised.  Any
+sequence lengths: ragged tile edges are masked in the kernel (the TPU
+kernel asserted divisible lengths; the JAX model pads instead).
+
+What bounds it on the H100: operations (about 4 d per kept (q, k) pair,
+hundreds of operations per byte moved); this first kernel runs them as f32
+FMAs on the CUDA cores, fed from shared memory.  The ``.cu`` file's note
+says more.
+
+Beside the kernel, in this module: ``flash_attention_plain``, the same
+function in plain PyTorch — the online-softmax loop of the JAX model's
+``chunked_attention`` in f32, over (q chunk, kv chunk) tiles.  The two
+differ in one rounding: the kernel, like the TPU kernel, rounds p to v's
+dtype before P.V, the plain loop keeps p in f32 (equal at f32, about 1e-2
+apart at bf16).  Both give p = 0 to masked logits, so a row that keeps no
+key gives zeros, as ``ref.attention_ref`` does.  ``flash_attention`` runs
+the plain version only for tensors on the CPU; for CUDA tensors it launches
+the kernel or raises.  ``launches`` counts kernel launches, and nothing
+else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches = 0  # kernel launches since the last reset (a plain counter)
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (b, h, s, d), got {tuple(q.shape)}"
+                         f", {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)}, {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if h % k.shape[1] != 0:
+        raise ValueError(f"kv heads {k.shape[1]} do not divide heads {h}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"devices differ: {q.device}, {k.device}, "
+                         f"{v.device}")
+
+
+def _keep_mask(qpos, kpos, skv, causal, window):
+    keep = (kpos < skv)[None, :].expand(qpos.shape[0], -1)
+    if causal:
+        keep = keep & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        keep = keep & (kpos[None, :] > qpos[:, None] - window)
+    return keep
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, hkv, skv, d)
+    v: torch.Tensor,  # (b, hkv, skv, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax chunked attention in f32, the kernel's function.
+
+    The JAX model zero-pads ragged lengths up to the chunk and masks the
+    padded keys; slicing the ragged last chunk gives the same result.
+    GQA groups the query heads over their kv head (no repeat).  Full f32
+    on CUDA needs TF32 off (``torch.backends.cuda.matmul.allow_tf32``
+    False, PyTorch's default).
+    """
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    dev = q.device
+    qg = q.reshape(b, hkv, g, sq, d)
+    out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=dev)
+    for q0 in range(0, sq, q_chunk):
+        qi = qg[:, :, :, q0:q0 + q_chunk].float()
+        cq = qi.shape[3]
+        qpos = q0 + q_offset + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq, 1), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, cq, 1), device=dev)
+        acc = torch.zeros((b, hkv, g, cq, d), device=dev)
+        for k0 in range(0, skv, kv_chunk):
+            ki = k[:, :, None, k0:k0 + kv_chunk].float()
+            vi = v[:, :, None, k0:k0 + kv_chunk].float()
+            s = torch.matmul(qi, ki.transpose(-1, -2)) * scale
+            if softcap is not None:
+                s = torch.tanh(s / softcap) * softcap
+            kpos = k0 + torch.arange(ki.shape[3], device=dev)
+            keep = _keep_mask(qpos, kpos, skv, causal, window)
+            s = torch.where(keep, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(keep, torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p, vi)
+            m = m_new
+        safe = torch.where(l == 0.0, 1.0, l)
+        out[:, :, :, q0:q0 + cq] = (acc / safe).to(q.dtype)
+    return out.reshape(b, h, sq, d)
+
+
+def _launcher():
+    from repro_torch.kernels import _build
+
+    fn = _build.load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 4 + [i] * 7 + [ll] * 12
+                       + [ctypes.c_float, i, i, ctypes.c_float, i, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only).
+
+    Takes strided (b, h, s, d) views with a unit last stride, so the
+    projections' transposed heads need no copy; the output is a
+    (b, h, sq, d) view of a (b, sq, h, d) buffer, so merging the heads
+    afterwards is free.  Launches on PyTorch's current stream without
+    synchronising; raises if the launch is refused.
+    """
+    global launches
+    _check(q, k, v)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if scale is None:
+        scale = d**-0.5
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, h, hkv, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(causal),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), int(q_offset),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
+                           f"{err} (q {tuple(q.shape)}, kv {tuple(k.shape)},"
+                           f" dtype {q.dtype})")
+    launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, hkv, skv, d)
+    v: torch.Tensor,  # (b, hkv, skv, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Batched multi-head attention with GQA (hkv | h): the CUDA kernel for
+    CUDA tensors (its own tiles), the plain version over ``q_chunk`` x
+    ``kv_chunk`` tiles for CPU tensors.
+
+    The kernel reads kv head ``h // (h // hkv)`` for query head h, where
+    the reference repeats K/V ``h // hkv`` times; the result is the same.
+    The reference's ``bq`` / ``bkv`` / ``interpret`` have no twin."""
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                     q_offset=q_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, not "
+                         f"{dev}")
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap, scale=scale,
+                                q_offset=q_offset)

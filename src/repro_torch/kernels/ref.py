@@ -1,7 +1,6 @@
 """Plain-torch oracles for the kernels (the correctness references).
 
-The twin of ``repro/kernels/ref.py``.  ``attention_ref`` arrives with the
-attention kernel's slice.
+The twin of ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -40,3 +39,42 @@ def block_spgemm_ref(
         b_blocks.to(torch.float32),
     )
     return c.to(out_dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,  # (sq, d)
+    k: torch.Tensor,  # (skv, d)
+    v: torch.Tensor,  # (skv, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Single-head attention oracle with causal/sliding-window masking and
+    logit soft-capping (gemma2-style tanh cap), in f32.
+
+    q_offset: absolute position of q[0] relative to k[0] (for decode where
+    the query block sits at the end of the KV range).  Fully masked rows
+    (possible with tiny windows) give zeros, not NaN.  Leading batch/head
+    dims broadcast.
+    """
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    if scale is None:
+        scale = d**-0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    return torch.matmul(p, v.float()).to(q.dtype)

@@ -1,1 +1,1 @@
-"""repro_torch.launch — the port's entry points (purification)."""
+"""repro_torch.launch — the port's entry points (purification, serving)."""

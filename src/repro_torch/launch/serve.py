@@ -1,0 +1,141 @@
+"""Serving driver: batched prefill + decode with the slot engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+
+Builds the model (``--arch``, random weights from ``--seed``, drawn on the
+device), runs synthetic prompts through the ``ServingEngine`` (one static
+``generate`` round, or ``--queue N`` requests drained through continuous
+slot batching) and reports: wall seconds, prefill seconds per round,
+per-step decode times, tokens, tokens/s, requests, refills, launches of
+the flash-attention kernel, and peak device memory on CUDA.  Runs on CUDA
+unless ``--device cpu`` is given, and raises without a CUDA device.  Exits
+1 when a request got a token outside the vocabulary or too few tokens.
+
+The reference's ``--moe-impl`` and ``--tuning-db`` (MoE serving dispatch)
+are not offered yet (ROADMAP.md Queue A item 14).
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--queue", type=int, default=0,
+                    help="drain N requests through continuous batching "
+                         "(0 = one static generate round)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                    "PyTorch path)")
+    return ap
+
+
+def build(argv=None):
+    """(args, cfg, engine, prompts) for the given flags: the model drawn on
+    the device from ``--seed``, and the prompts from a numpy generator with
+    the same seed."""
+    import numpy as np
+
+    from repro_torch.config import resolve_device
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import GenerationConfig, ServingEngine
+
+    args = _parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = T.init_params(cfg, args.seed, device=dev)
+    gen = GenerationConfig(max_new_tokens=args.max_new,
+                           temperature=args.temperature, seed=args.seed)
+    engine = ServingEngine(cfg, params, batch=args.batch,
+                           max_len=args.max_len, gen=gen)
+    rng = np.random.default_rng(args.seed)
+    n_req = args.queue if args.queue > 0 else args.batch
+    prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
+               for _ in range(n_req)]
+    return args, cfg, engine, prompts
+
+
+def run(argv=None) -> dict:
+    """Serve the synthetic requests and return the report (also printed)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    args, cfg, engine, prompts = build(argv)
+    dev = engine.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads (hd {cfg.hd}), {cfg.dtype}, "
+          f"{cfg.param_count() / 1e9:.3f} B params; device {name}; batch "
+          f"{args.batch}, prompt {args.prompt_len}, max_new {args.max_new},"
+          f" max_len {args.max_len}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = flash.launches
+    t0 = time.perf_counter()
+    if args.queue > 0:
+        outs = engine.serve(prompts)
+        st = engine.last_serve_stats
+        prefill_s = [p["wall_s"] for p in st["prefills"]]
+        decode_s = [s["decode_s"] for s in st["steps"]]
+        n_refills = st["n_refills"]
+    else:
+        outs = engine.generate(prompts)
+        prefill_s, decode_s, n_refills = [], [], 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    n_tokens = sum(len(o) for o in outs)
+    want = args.max_new
+    if args.queue > 0:  # serve stops a request where the cache ends
+        want = min(want, args.max_len - args.prompt_len - 1)
+    ok = all(len(o) == want and all(0 <= t < cfg.vocab for t in o)
+             for o in outs)
+    report = dict(
+        ok=ok, arch=cfg.name, device=name, n_layers=cfg.n_layers,
+        requests=len(prompts), tokens=n_tokens, wall_s=wall,
+        tokens_per_s=n_tokens / wall, prefill_s=prefill_s,
+        decode_ms=[1e3 * s for s in decode_s],
+        decode_ms_median=(1e3 * statistics.median(decode_s)
+                          if decode_s else None),
+        refills=n_refills, flash_launches=flash.launches - launches0,
+        peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                      if dev.type == "cuda" else None),
+        outputs=outs,
+    )
+    pf = ", ".join(f"{s:.4f}" for s in prefill_s)
+    print(f"[serve] {len(prompts)} requests, {n_tokens} tokens in "
+          f"{wall:.3f} s ({n_tokens / wall:.1f} tok/s), refills "
+          f"{n_refills}, prefill s per round [{pf}], decode ms/step median "
+          f"{report['decode_ms_median']}, flash launches "
+          f"{report['flash_launches']}, peak memory "
+          f"{report['peak_mem_gib']} GiB", flush=True)
+    for i, o in enumerate(outs[: min(4, len(outs))]):
+        print(f"[serve] req{i}: {o[:12]}{'...' if len(o) > 12 else ''}")
+    if not ok:
+        print("[serve] FAILED: a request got too few tokens or a token "
+              "outside the vocabulary", flush=True)
+    return report
+
+
+def main(argv=None) -> int:
+    return 0 if run(argv)["ok"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

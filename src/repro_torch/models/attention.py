@@ -1,0 +1,131 @@
+"""Attention: GQA projections, chunked (flash) attention, decode attention.
+
+The torch twin of ``repro/models/attention.py``.  Paths:
+  * prefill — ``chunked_attention``: on CUDA tensors the hand-written flash
+    kernel (``kernels/csrc/flash_attention.cu``), the Pallas kernel's port,
+    which is what the reference's docstring has replace the jnp loop on
+    hardware; on CPU tensors the same online-softmax loop in plain PyTorch
+    (``kernels/flash_attention.py::flash_attention_plain``);
+  * decode — ``decode_attention``: one query row per slot against the KV
+    cache, plain matmuls as in the reference (no kernel there either).
+
+Features: GQA (kv groups), qkv bias (qwen), sliding window + logit softcap
+(gemma2), rope on/off.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models.layers import _normal, apply_rope
+
+NEG_INF = FA.NEG_INF
+
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype,
+                   cross: bool = False) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": _normal(gen, (d, h * hd), d**-0.5, dtype),
+        "wk": _normal(gen, (d, hkv * hd), d**-0.5, dtype),
+        "wv": _normal(gen, (d, hkv * hd), d**-0.5, dtype),
+        "wo": _normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias and not cross:
+        dev = gen.device
+        p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((hkv * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((hkv * hd,), dtype=dtype, device=dev)
+    return p
+
+
+def qkv_proj(cfg: ArchConfig, p: dict, x: torch.Tensor, positions=None):
+    """x (B, S, d) -> q (B, h, S, hd), k/v (B, hkv, S, hd) (head-transposed
+    views; rope makes them contiguous)."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.view(b, s, h, hd).transpose(1, 2)
+    k = k.view(b, s, hkv, hd).transpose(1, 2)
+    v = v.view(b, s, hkv, hd).transpose(1, 2)
+    if cfg.rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def out_proj(cfg: ArchConfig, p: dict, attn: torch.Tensor) -> torch.Tensor:
+    b, h, s, hd = attn.shape
+    return attn.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"]
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,  # (B, Hkv, Skv, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax attention with f32 state, any sequence lengths.
+
+    CUDA tensors launch the flash kernel (its own tiles; ``q_chunk`` and
+    ``kv_chunk`` shape only the plain loop); CPU tensors run the plain
+    loop.  Never the plain loop on a CUDA tensor.
+    """
+    return FA.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k_cache: torch.Tensor,  # (B, Hkv, Smax, D)
+    v_cache: torch.Tensor,
+    length,  # int, 0-d or (B,) tensor: number of valid cache positions
+    *,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-step decode attention over a (masked) KV cache.
+
+    Scores in f32 as the reference's f32-accumulated einsum (q and K are
+    cast up, exact for bf16); p is rounded to the cache dtype for P.V and
+    the result cast to q's dtype, as there.
+    """
+    b, h, _, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(smax, device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    if length.dim() == 0:
+        msk = kpos < length
+        if window is not None:
+            msk &= kpos > length - 1 - window
+        s = s.masked_fill(~msk, NEG_INF)
+    else:
+        # per-slot cache fill levels (continuous-batching refill)
+        msk = kpos[None, :] < length[:, None]  # (B, Smax)
+        if window is not None:
+            msk &= kpos[None, :] > length[:, None] - 1 - window
+        s = s.masked_fill(~msk[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, h, 1, d).to(q.dtype)

@@ -1,0 +1,152 @@
+"""Shared model primitives: norms, rope, MLPs, embeddings.
+
+The torch twin of ``repro/models/layers.py``.  Parameters are plain dicts
+of tensors with the reference's names and layouts; ``init_*`` draw on the
+generator's device.  ``chunked_cross_entropy`` is training and is not
+ported yet (ROADMAP.md Queue A item 15).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ArchConfig
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """N(0, 1) * scale drawn in f32 on the generator's device, then cast."""
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, d: int, *, device) -> dict:
+    if cfg.norm == "rmsnorm":  # gemma-style (1 + w)
+        return {"w": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((d,), dtype=torch.float32, device=device),
+                "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "nonparametric_ln":
+        return {}
+    raise ValueError(cfg.norm)
+
+
+def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """In f32, cast back: rmsnorm eps 1e-6 times (1 + w); layer norms eps
+    1e-5 with the population variance."""
+    x32 = x.float()
+    if cfg.norm == "rmsnorm":
+        var = (x32 * x32).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + 1e-6) * (1.0 + p["w"])
+    else:
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        y = (x32 - mu) * torch.rsqrt(var + 1e-5)
+        if cfg.norm == "layernorm":
+            y = y * p["w"] + p["b"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, *, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, hd), positions (S,) or (B, S); rotates split halves.
+
+    Batched positions (B, S) keep their batch dim aligned with x's leading
+    axis and broadcast over the head axes in between (per-slot decode
+    positions).
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    ang = positions[..., :, None].float() * freqs  # (..., S, hd/2)
+    if positions.dim() == 1:
+        while ang.dim() < x.dim():
+            ang = ang[None]
+    else:
+        while ang.dim() < x.dim():
+            ang = ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, *, device=None) -> torch.Tensor:
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, d: int, ff: int,
+             dtype) -> dict:
+    p = {
+        "w_in": _normal(gen, (d, ff), d**-0.5, dtype),
+        "w_out": _normal(gen, (ff, d), ff**-0.5, dtype),
+    }
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = _normal(gen, (d, ff), d**-0.5, dtype)
+    return p
+
+
+def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """swiglu / geglu / gelu; gelu is the tanh form (``jax.nn.gelu``'s
+    default)."""
+    h = x @ p["w_in"]
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * h
+    elif cfg.mlp == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def init_embed(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
+    p = {"tok": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype)}
+    if not cfg.tie_embeddings:
+        p["out"] = _normal(gen, (cfg.vocab, cfg.d_model), cfg.d_model**-0.5,
+                           dtype)
+    return p
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def logits_matmul(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x @ W^T with W the output table (the token table when tied), then
+    the optional tanh cap."""
+    w = p.get("out", p["tok"])
+    logits = x @ w.T
+    if cfg.final_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits

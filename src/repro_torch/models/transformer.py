@@ -1,0 +1,238 @@
+"""The LM stack for dense attention decoders: init, prefill, decode.
+
+The torch twin of ``repro/models/transformer.py`` for its attention mixers
+with dense MLPs (olmo, qwen, gemma2: ``post_norm``, ``qkv_bias``, sliding
+``window``, ``attn_softcap``, ``final_softcap``).  The reference stacks each
+pattern position's blocks over the repetitions and scans them; PyTorch
+runs eagerly, so here ``params["blocks"]`` is a plain list with one dict
+per layer, in layer order (layer ``l`` has kind ``layer_kinds()[l %
+period]``), and the cache likewise.  ``interop.params_from_jax`` unstacks
+the reference's pytree into this layout.
+
+The cache is updated in place (``prefill`` and ``decode_step`` return the
+same dict they were given), where the reference returns a new pytree: it
+saves a copy of every layer's K/V per step.
+
+Not ported yet, each raising ``NotImplementedError``: MoE layers, mamba
+and rwkv6 mixers, the whisper encoder and the vision prefix (ROADMAP.md
+Queue A item 13), and the training loss (item 15).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.config import ArchConfig, resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for the parts of ``cfg`` the port has
+    no code for yet, naming the ROADMAP item that ports them."""
+    missing = []
+    if cfg.moe is not None:
+        missing.append("MoE")
+    if cfg.mixer == "mamba_hybrid":
+        missing.append("mamba")
+    if cfg.mixer == "rwkv6":
+        missing.append("rwkv6")
+    if cfg.encoder is not None:
+        missing.append("whisper encoder")
+    if cfg.frontend == "vision":
+        missing.append("vision prefix")
+    if not cfg.rope:
+        missing.append("absolute sinusoidal positions (whisper)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
+            "Queue A item 13)")
+    if cfg.dtype not in _DTYPES:
+        raise TypeError(f"{cfg.name}: dtype {cfg.dtype!r}, expected one of "
+                        f"{sorted(_DTYPES)}")
+
+
+def model_dtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def layer_kinds(cfg: ArchConfig) -> list[dict]:
+    """The kind of every layer, in order (the pattern repeated)."""
+    kinds = cfg.layer_kinds()
+    return [kinds[i % len(kinds)] for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    dev = gen.device
+    p: Params = {"ln1": L.init_norm(cfg, cfg.d_model, device=dev),
+                 "attn": A.init_attention(cfg, gen, dtype)}
+    if cfg.post_norm:
+        p["post_ln1"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    p["ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    p["mlp"] = L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.post_norm:
+        p["post_ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    return p
+
+
+def init_params(cfg: ArchConfig, generator, *, device=None) -> Params:
+    """Random parameters drawn on ``device`` (CUDA unless asked otherwise).
+
+    ``generator`` is a ``torch.Generator`` on that device or an int seed.
+    The draws differ from the reference's ``jax.random`` ones; parity tests
+    carry the reference's parameters across with ``params_from_jax``.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(generator))
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, parameters on {dev}")
+    dtype = model_dtype(cfg)
+    return {
+        "embed": L.init_embed(cfg, gen, dtype),
+        "blocks": [_init_block(cfg, gen, dtype) for _ in range(cfg.n_layers)],
+        "final_norm": L.init_norm(cfg, cfg.d_model, device=dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device) -> Params:
+    """Zeroed K/V cache, one {"k", "v"} of (batch, hkv, max_len, hd) per
+    layer, in the model dtype."""
+    check_supported(cfg)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    dtype = model_dtype(cfg)
+    return {"blocks": [
+        {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _norm_res(cfg, p, name, post_name, x, sub):
+    """Pre-norm residual, with gemma2-style sandwich post-norm."""
+    y = sub(L.apply_norm(cfg, p[name], x))
+    if cfg.post_norm:
+        y = L.apply_norm(cfg, p[post_name], y)
+    return x + y
+
+
+def _update_kv(cache_k, cache_v, k, v, position) -> None:
+    """Write new K/V in place at ``position`` (decode) or [0, S) (prefill).
+
+    A vector position (B,) writes each batch slot's single new row at its
+    own fill level — continuous-batching refill desynchronizes the slots.
+    """
+    pos = torch.as_tensor(position)
+    if pos.dim() == 0:
+        p0 = int(pos)
+        cache_k[:, :, p0:p0 + k.shape[2]] = k
+        cache_v[:, :, p0:p0 + v.shape[2]] = v
+        return
+    pos = pos.to(cache_k.device)
+    bidx = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k[bidx, :, pos, :] = k[:, :, 0, :]
+    cache_v[bidx, :, pos, :] = v[:, :, 0, :]
+
+
+def _prefill_block(cfg, kind, p, x, cache, positions):
+    xn = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = A.qkv_proj(cfg, p["attn"], xn, positions)
+    if cache is not None:
+        _update_kv(cache["k"], cache["v"], k, v, 0)
+    o = A.chunked_attention(q, k, v, causal=True, window=kind.get("window"),
+                            softcap=cfg.attn_softcap)
+    y = A.out_proj(cfg, p["attn"], o)
+    if cfg.post_norm:
+        y = L.apply_norm(cfg, p["post_ln1"], y)
+    x = x + y
+    return _norm_res(cfg, p, "ln2", "post_ln2", x,
+                     lambda xn: L.apply_mlp(cfg, p["mlp"], xn))
+
+
+def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
+    """Single-token decode body; updates ``cache`` in place."""
+    xn = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = A.qkv_proj(cfg, p["attn"], xn, rope_pos)
+    _update_kv(cache["k"], cache["v"], k, v, position)
+    o = A.decode_attention(q, cache["k"], cache["v"], length,
+                           window=kind.get("window"),
+                           softcap=cfg.attn_softcap)
+    y = A.out_proj(cfg, p["attn"], o)
+    if cfg.post_norm:
+        y = L.apply_norm(cfg, p["post_ln1"], y)
+    x = x + y
+    return _norm_res(cfg, p, "ln2", "post_ln2", x,
+                     lambda xn: L.apply_mlp(cfg, p["mlp"], xn))
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def _run_blocks(cfg, params, tokens, cache):
+    x = L.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    caches = cache["blocks"] if cache is not None else [None] * cfg.n_layers
+    for kind, p, c in zip(layer_kinds(cfg), params["blocks"], caches):
+        x = _prefill_block(cfg, kind, p, x, c, positions)
+    return L.apply_norm(cfg, params["final_norm"], x)
+
+
+def forward(cfg: ArchConfig, params: Params,
+            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill forward over (B, S) tokens: (final hidden (B, S, d), MoE aux
+    loss — zero, since the port has no MoE layers yet)."""
+    check_supported(cfg)
+    x = _run_blocks(cfg, params, tokens, None)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            cache: Params) -> tuple[torch.Tensor, Params]:
+    """Run the prompt, write its K/V into the cache at [0, S), return the
+    last position's logits (B, 1, V) and the (updated) cache."""
+    x = _run_blocks(cfg, params, tokens, cache)
+    logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
+    return logits, cache
+
+
+def decode_step(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                cache: Params, position) -> tuple[torch.Tensor, Params]:
+    """One serving step: (logits (B, 1, V), the cache updated in place).
+
+    ``tokens`` is (B, 1).  ``position`` is the write offset (the fill
+    level): an int / 0-d tensor for all slots, or a (B,) tensor of
+    per-slot levels (continuous batching refills slots mid-stream).
+    """
+    x = L.embed_tokens(params["embed"], tokens)
+    pv = torch.as_tensor(position, device=x.device)
+    rope_pos = pv[:, None] if pv.dim() else pv.reshape(1)
+    for kind, p, c in zip(layer_kinds(cfg), params["blocks"],
+                          cache["blocks"]):
+        x = _apply_block_decode(cfg, kind, p, x, c, position, rope_pos,
+                                pv + 1)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return L.logits_matmul(cfg, params["embed"], x), cache

@@ -1,0 +1,254 @@
+"""Batched serving engine: prefill + decode against the model's KV cache.
+
+The torch twin of ``repro/serving/engine.py``.  Slot-based continuous
+batching: the engine owns ``batch`` slots; requests occupy a slot through
+prefill and greedy/temperature decode, and finished slots are refilled
+from the queue without draining the batch (the decode step always runs the
+full batch — finished slots just carry padding).
+
+Two entry points:
+
+* ``generate`` — one fully-batched round: prompts in (left-padded to the
+  longest, the pads attended as in the reference), continuations out;
+* ``serve`` — drain a request queue through the slots: eos / length
+  exhaustion frees a slot, the next queued request prefills into it, and
+  decode proceeds with per-slot cache positions (``decode_step`` takes a
+  (B,) position vector).  Per-step wall times, occupancy and refill
+  counts land in ``last_serve_stats``.
+
+Where the reference runs one full-batch prefill per refill (a TPU program
+must keep its shapes) and splices the fresh rows in, PyTorch runs eagerly,
+so a refill prefills only the refilled slots' prompts and copies their
+rows into the live cache: the same rows, with no work on the others.
+
+Every prefill goes through ``models.attention.chunked_attention``, so on a
+CUDA device through the flash kernel.  Serving dispatch for MoE
+(``set_dispatch``) is not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.models import transformer as T
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 == greedy
+    eos_token: int | None = None
+    seed: int = 0
+
+
+@dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray
+    arrival: int = 0  # decode-step index at which the request exists
+    out: list[int] = field(default_factory=list)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        params,
+        *,
+        batch: int,
+        max_len: int,
+        gen: GenerationConfig = GenerationConfig(),
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.batch = batch
+        self.max_len = max_len
+        self.gen = gen
+        self.device = params["embed"]["tok"].device
+        self._gen = torch.Generator(device=self.device).manual_seed(gen.seed)
+        self.last_serve_stats: dict = {}
+
+    def set_dispatch(self, spec) -> None:
+        """The MoE ``spgemm`` dispatch spec of the reference; the port has
+        no MoE layers yet."""
+        raise NotImplementedError(
+            "serving dispatch for the MoE spgemm impl is not ported yet "
+            "(ROADMAP.md Queue A item 14)")
+
+    # -- sampling ----------------------------------------------------------
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        last = logits[:, -1]
+        if self.gen.temperature <= 0.0:
+            return torch.argmax(last, dim=-1)
+        probs = torch.softmax(last.float() / self.gen.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(toks).to(self.device, torch.long)
+
+    # -- one fully-batched generation round --------------------------------
+    def generate(self, prompts: list[np.ndarray]) -> list[list[int]]:
+        """Generate for up to ``batch`` prompts (left-padded to equal)."""
+        if len(prompts) > self.batch:
+            raise ValueError(f"{len(prompts)} prompts for {self.batch} slots")
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((self.batch, plen), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p  # left-pad
+
+        cache = T.init_cache(self.cfg, self.batch, self.max_len,
+                             device=self.device)
+        logits, cache = T.prefill(self.cfg, self.params, self._tokens(toks),
+                                  cache)
+        next_tok = self._sample(logits)
+
+        outs: list[list[int]] = [[] for _ in range(self.batch)]
+        done = np.zeros(self.batch, bool)
+        position = plen
+        for _ in range(self.gen.max_new_tokens):
+            for i, t in enumerate(next_tok.tolist()):
+                if i < len(prompts) and not done[i]:
+                    outs[i].append(t)
+                    if self.gen.eos_token is not None and t == self.gen.eos_token:
+                        done[i] = True
+            if done[: len(prompts)].all():
+                break
+            logits, cache = T.decode_step(self.cfg, self.params,
+                                          next_tok[:, None], cache, position)
+            next_tok = self._sample(logits)
+            position += 1
+        return outs[: len(prompts)]
+
+    # -- continuous batching -----------------------------------------------
+    def _refill(self, queue, active, cache, next_tok, pos_dev, plen,
+                step: int, prefills: list):
+        """Prefill queued requests into free slots and copy their rows in.
+
+        Only the refilled slots' prompts are prefilled (the reference runs
+        the full batch); their fresh K/V rows replace the live cache's.
+        """
+        free = [i for i, r in enumerate(active) if r is None]
+        slots: list[int] = []
+        rows: list[np.ndarray] = []
+        for slot in free:
+            if not queue or queue[0].arrival > step:
+                break
+            req = queue.popleft()
+            row = np.zeros(plen, np.int32)
+            row[plen - len(req.prompt):] = req.prompt
+            rows.append(row)
+            active[slot] = req
+            slots.append(slot)
+        if not slots:
+            return 0
+        _sync(self.device)
+        t0 = time.perf_counter()
+        fresh = T.init_cache(self.cfg, len(slots), self.max_len,
+                             device=self.device)
+        logits, fresh = T.prefill(self.cfg, self.params,
+                                  self._tokens(np.stack(rows)), fresh)
+        first = self._sample(logits)
+        idx = torch.tensor(slots, device=self.device)
+        for live, new in zip(cache["blocks"], fresh["blocks"]):
+            for name in live:
+                live[name][idx] = new[name]
+        next_tok[idx] = first
+        pos_dev[idx] = plen
+        _sync(self.device)
+        prefills.append({"step": step, "slots": len(slots),
+                         "wall_s": time.perf_counter() - t0})
+        return len(slots)
+
+    def serve(self, prompts: list[np.ndarray],
+              arrivals: list[int] | None = None) -> list[list[int]]:
+        """Drain a request queue through the ``batch`` slots.
+
+        ``arrivals`` (optional, decode-step units, non-decreasing) holds
+        request i back until that step.  Returns the generated token lists
+        in request order; per-step wall times (``wall_s``, refill
+        included, and ``decode_s``, the decode step alone), occupancy,
+        refill counts and per-refill prefill times land in
+        ``last_serve_stats``.
+        """
+        if arrivals is None:
+            arrivals = [0] * len(prompts)
+        if len(arrivals) != len(prompts):
+            raise ValueError(f"{len(arrivals)} arrivals for {len(prompts)} "
+                             "prompts")
+        plen = max(len(p) for p in prompts)
+        if plen + 1 >= self.max_len:
+            raise ValueError(f"prompt length {plen} leaves no room in "
+                             f"max_len {self.max_len}")
+        limit = min(self.gen.max_new_tokens, self.max_len - plen - 1)
+
+        queue = deque(
+            _Request(i, np.asarray(p, np.int32), arrival=int(a))
+            for i, (p, a) in enumerate(zip(prompts, arrivals))
+        )
+        active: list[_Request | None] = [None] * self.batch
+        results: dict[int, list[int]] = {}
+        cache = T.init_cache(self.cfg, self.batch, self.max_len,
+                             device=self.device)
+        next_tok = torch.zeros((self.batch,), dtype=torch.long,
+                               device=self.device)
+        pos_dev = torch.zeros((self.batch,), dtype=torch.long,
+                              device=self.device)
+
+        step = 0
+        steps: list[dict] = []
+        prefills: list[dict] = []
+        n_refills = 0
+        while queue or any(r is not None for r in active):
+            t0 = time.perf_counter()
+            filled = self._refill(queue, active, cache, next_tok, pos_dev,
+                                  plen, step, prefills)
+            n_refills += 1 if filled else 0
+            occupied = [i for i, r in enumerate(active) if r is not None]
+            if not occupied:
+                # idle gap before the next arrival: jump the clock
+                step = max(step + 1, queue[0].arrival if queue else step + 1)
+                continue
+            t1 = time.perf_counter()
+            logits, cache = T.decode_step(self.cfg, self.params,
+                                          next_tok[:, None], cache, pos_dev)
+            sampled = self._sample(logits)
+            host_prev = next_tok.tolist()  # waits for the device
+            _sync(self.device)
+            t2 = time.perf_counter()
+            # the token decoded THIS step is the one that was in next_tok
+            for i in occupied:
+                req = active[i]
+                tok = host_prev[i]
+                req.out.append(tok)
+                eos = (self.gen.eos_token is not None
+                       and tok == self.gen.eos_token)
+                if eos or len(req.out) >= limit:
+                    results[req.rid] = req.out
+                    active[i] = None
+            next_tok = sampled
+            pos_dev = torch.clamp(pos_dev + 1, max=self.max_len - 1)
+            steps.append({
+                "step": step,
+                "occupancy": len(occupied) / self.batch,
+                "wall_s": t2 - t0,
+                "decode_s": t2 - t1,
+                "refilled": filled,
+            })
+            step += 1
+        self.last_serve_stats = {
+            "steps": steps,
+            "prefills": prefills,
+            "n_refills": n_refills,
+            "n_requests": len(prompts),
+        }
+        return [results[i] for i in range(len(prompts))]

@@ -1,5 +1,5 @@
-"""Checks that need the card: the CUDA kernel against its plain version,
-the launch counter, and the slice on CUDA tensors.  Marked ``gpu``; each
+"""Checks that need the card: each CUDA kernel against its plain version
+and oracle, the launch counters, and the slices on CUDA tensors.  Marked ``gpu``; each
 test skips without a CUDA device.  On the card (no jax needed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -10,11 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import bsm as B
 from repro_torch.core import engine as E
 from repro_torch.core import signiter as S
 from repro_torch.kernels import block_spgemm as K
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref, stacks
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import GenerationConfig, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -72,3 +76,94 @@ def test_multiply_and_density_matrix_on_cuda(cuda):
     assert stats.converged and K.launches - before == 2 * stats.iterations
     w = torch.linalg.eigvalsh(h.to_dense().double())
     assert abs(float(S.trace(p)) - int((w < 0).sum())) < 0.05
+
+
+# kernel vs plain: f32 up to summation order; bf16 the kernel's rounding of
+# p to bf16 before P.V (the TPU kernel's), which the plain loop skips —
+# the reference's own bf16 tolerance (tests/test_kernels.py)
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# (b, h, hkv, sq, skv, d, causal, window, softcap)
+FLASH_CASES = [
+    (1, 1, 1, 128, 128, 64, True, None, None),
+    (1, 1, 1, 128, 128, 64, False, None, None),
+    (1, 2, 2, 256, 256, 64, True, 32, None),
+    (1, 2, 2, 256, 256, 64, True, 128, None),
+    (1, 1, 1, 128, 128, 64, True, None, 50.0),
+    (2, 8, 2, 128, 128, 32, True, None, None),
+    (2, 4, 4, 200, 200, 64, True, None, None),
+    (1, 2, 1, 128, 256, 128, True, None, None),
+    (1, 2, 1, 256, 128, 128, False, None, None),
+    (2, 4, 2, 333, 333, 128, True, 100, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain_and_oracle(cuda, case, dtype):
+    b, h, hkv, sq, skv, d, causal, window, softcap = case
+    rng = np.random.default_rng(1)
+    scale_in = 4.0 if softcap else 1.0
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, d)) * scale_in)
+    k = torch.from_numpy(rng.standard_normal((b, hkv, skv, d)) * scale_in)
+    v = torch.from_numpy(rng.standard_normal((b, hkv, skv, d)))
+    q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.launches == before + 1
+    plain = FA.flash_attention_plain(q, k, v, **kw)
+    rep = h // hkv
+    oracle = ref.attention_ref(q, k.repeat_interleave(rep, 1),
+                               v.repeat_interleave(rep, 1), **kw)
+    tol = FLASH_TOL[dtype]
+    for want in (plain, oracle):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_reduced_model_cuda_matches_cpu(cuda):
+    """The same parameters on the card and the CPU: prefill (one flash
+    launch per layer) and decode steps with per-slot positions, logits
+    within 1e-4 (f32)."""
+    cfg = get_arch("olmo-1b").reduced()
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    p_dev = _to(p_cpu, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 150)))
+    c_cpu = T.init_cache(cfg, 3, 200, device="cpu")
+    c_dev = T.init_cache(cfg, 3, 200, device=cuda)
+    before = FA.launches
+    l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(cuda), c_dev)
+    assert FA.launches - before == cfg.n_layers
+    l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([150, 140, 149])
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)))
+        l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(cuda), c_dev,
+                                     pos.to(cuda))
+        l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
+        torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+        pos = pos + 1
+
+
+def test_serving_launches_flash_per_layer_per_prefill(cuda):
+    cfg = get_arch("olmo-1b").reduced()
+    eng = ServingEngine(cfg, T.init_params(cfg, 1, device=cuda), batch=2,
+                        max_len=64, gen=GenerationConfig(max_new_tokens=4))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 20) for _ in range(5)]
+    before = FA.launches
+    outs = eng.serve(prompts)
+    rounds = len(eng.last_serve_stats["prefills"])
+    assert rounds == 3 and FA.launches - before == cfg.n_layers * rounds
+    assert [len(o) for o in outs] == [4] * 5
+    assert outs[4] == eng.generate([prompts[4]])[0]

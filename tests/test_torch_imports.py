@@ -1,8 +1,12 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``."""
+``chip_smoke.py`` imports jax or the JAX package ``repro``, and importing
+a module of the port loads neither."""
 from __future__ import annotations
 
+import json
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -31,3 +35,42 @@ def test_pattern_catches_what_it_must():
         assert FORBIDDEN.search(line), line
     for line in good:
         assert not FORBIDDEN.search(line), line
+
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py")
+    if p.name != "__init__.py")
+
+
+_LOADED_BY = """\
+import importlib, json, sys
+seen, out = set(), {}
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+    bad = sorted(m for m in sys.modules if m not in seen and (
+        m == "jax" or m.startswith("jax.") or m == "repro"
+        or m.startswith("repro.")))
+    seen.update(bad)
+    out[name] = bad
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def loaded_by():
+    """One fresh interpreter imports every module in turn and records, for
+    each, the jax / JAX-package modules that first appeared with it."""
+    proc = subprocess.run([sys.executable, "-c", _LOADED_BY, *MODULES],
+                          capture_output=True, text=True, timeout=300,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_loads_no_jax(module, loaded_by):
+    """Importing the module puts neither jax nor the JAX package into
+    ``sys.modules``."""
+    assert loaded_by[module] == [], f"{module} loaded {loaded_by[module]}"
