@@ -7,23 +7,30 @@ Phases, each raising on failure:
 
 1. the device (name, and name / power limit from nvidia-smi) and the
    kernel build (``nvcc`` into ``build/kernels/``), with its seconds;
-2. the CUDA kernel against its plain PyTorch version and the ``ref``
-   oracle on the card, over block shapes, f32 / bf16, occupancy and the
-   on-the-fly threshold (capacity 0 included);
+2. the block-SpGEMM kernel against its plain PyTorch version and the
+   ``ref`` oracle on the card, over block shapes (rectangular and above
+   the 96-wide panel included), f32 / bf16, occupancy and the on-the-fly
+   threshold (capacity 0 included), on a 5 x 6 x 4 grid and on a 9 x 6 x 7
+   grid with ragged group edges and scaled blocks that the threshold
+   filters in part;
 3. a full-width multiply, ``engine.multiply(H, H, backend="cuda")`` at
    nb = 512, bs = 23, occupancy 0.10 decay (the paper's H2O-DFT-LS blocks
    and occupancy, cut to one card), checked against the plain version;
    kernel, plain and library (dense ``torch.matmul``) times and the bound;
    then the kernel alone on a full 512^3 product list (the later sweeps),
-   with the dense ``torch.matmul`` of the full-fill matrix beside it;
+   with the list build (group masks included) and the dense
+   ``torch.matmul`` of the full-fill matrix beside it;
 4. the full-width purification through ``repro_torch.launch.purify``,
    with the kernel's launch count set to 0 just before and read just
    after: sweeps, occupancy trajectory, wall time, launches, trace(P)
    against the float64 eigenvalue count, max |P^2 - P|;
-5. the flash-attention kernel against its plain version and the
-   ``ref.attention_ref`` oracle on the card: f32 / bf16, causal on and
-   off, windows 32 / 128, softcap 50, GQA 8:2, ragged 200, sq != skv,
-   d 64 / 128; the launch counter must rise by one per call;
+5. the flash-attention kernels (bf16 on the tensor cores, f32 SIMT)
+   against their plain version and the ``ref.attention_ref`` oracle on the
+   card: causal on and off, windows 16 / 32 / 64 / 100 / 128, softcaps
+   30 / 50, GQA 8:2, ragged 200 / 333, sq != skv, d 32 / 64 / 128; the
+   launch counter must rise by one per call; then bf16 layouts: the
+   projections' head-transposed views (no copy), a seq stride TMA cannot
+   take (one counted copy per tensor) and a query offset;
 6. the whole reduced olmo-1b (f32) on the card against the same model on
    the CPU, from the same parameters: prefill and four decode steps with
    per-slot positions, logits within 1e-4;
@@ -31,7 +38,8 @@ Phases, each raising on failure:
    ``repro_torch.launch.serve.run``: 16 requests through 8 slots, 2,048-
    token prompts, 64 new tokens each, both kernels' counts set to 0 just
    before and read just after; every request gets 64 tokens in the
-   vocabulary, the flash kernel runs once per layer per prefill round, the
+   vocabulary, the flash kernel runs once per layer per prefill round on
+   the projections' views as they are (no TMA copy), the
    prefill logits are finite and the first token of every request is their
    argmax, and request 0 served equals request 0 generated alone;
 8. where the serving time goes: one prefill round (8 x 2,048 tokens) and
@@ -40,7 +48,7 @@ Phases, each raising on failure:
    kernels, and the device's idle share of each window;
 9. the flash kernel at the serving shape (b 8, h 16, s 2048, d 128, bf16,
    causal) against its plain version (bf16 with a row's limit shrinking
-   as 1 / sqrt(its keys), and the f32 instance on the same inputs at
+   as 1 / sqrt(its keys), and the f32 kernel on the same inputs at
    1e-4), timed beside the plain version,
    ``scaled_dot_product_attention`` (the library figure) and the bound.
 
@@ -131,13 +139,20 @@ def _bound(ok, bs: int, itemsize: int) -> tuple[float, str]:
                                        else "bytes")
 
 
+# (ni, nk, nj, block scales): unit blocks, and a grid with ragged group
+# edges (9 x 7 blocks against 4 x 4 groups) whose blocks are scaled by
+# 10^U(-2, 0), so threshold 0.05 filters part of a group's products
+SPGEMM_GRIDS = ((5, 6, 4, False), (9, 6, 7, True))
+
+
 def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
     """Phase 2: kernel against plain version and oracle; returns max err."""
     rng = np.random.default_rng(SEED)
-    ni, nk, nj = 5, 6, 4
     worst, cases, bad = 0.0, 0, []
-    for shape in ((4, 4, 4), (8, 8, 8), (23, 23, 23), (64, 64, 64),
-                  (128, 128, 128), (4, 16, 8)):
+    for shape, (ni, nk, nj, scaled) in (
+            (shape, grid) for grid in SPGEMM_GRIDS
+            for shape in ((4, 4, 4), (8, 8, 8), (23, 23, 23), (64, 64, 64),
+                          (128, 128, 128), (4, 16, 8), (30, 7, 25))):
         bs_r, bs_k, bs_c = shape
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -145,6 +160,9 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
                 for thr in (0.0, 0.05):
                     a = rng.standard_normal((ni, nk, bs_r, bs_k)) / np.sqrt(bs_k)
                     b = rng.standard_normal((nk, nj, bs_k, bs_c)) / np.sqrt(bs_k)
+                    if scaled:
+                        a *= 10.0 ** rng.uniform(-2, 0, (ni, nk, 1, 1))
+                        b *= 10.0 ** rng.uniform(-2, 0, (nk, nj, 1, 1))
                     am = torch.from_numpy(rng.random((ni, nk)) < occ).cuda()
                     bm = torch.from_numpy(rng.random((nk, nj)) < occ).cuda()
                     ta = torch.from_numpy(a.astype(np.float32)).cuda().to(dt)
@@ -159,7 +177,8 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
                     before = K.launches
                     got = K.block_spgemm_stacks(ta, tb, stacks, ni=ni, nj=nj)
                     if K.launches != before + (1 if n else 0):
-                        bad.append((shape, dtype, occ, thr, "no launch"))
+                        bad.append((shape, (ni, nk, nj), dtype, occ, thr,
+                                    "no launch"))
                     plain = K.block_spgemm_stacks_plain(ta, tb, stacks,
                                                         ni=ni, nj=nj)
                     oracle = ref.block_spgemm_ref(ta, tb, ok)
@@ -167,7 +186,8 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
                         good, err = _close(got, want, TOL[dtype])
                         worst = max(worst, err)
                         if not good:
-                            bad.append((shape, dtype, occ, thr, err))
+                            bad.append((shape, (ni, nk, nj), dtype, occ, thr,
+                                        err))
                     cases += 1
     torch.cuda.synchronize()
     print(f"[2] kernel vs plain and oracle: {cases} cases, max |err| "
@@ -186,11 +206,10 @@ def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
                    filter_eps=FILTER_EPS)
     ok = S.pair_cube(h.mask, h.mask, h.norms, h.norms, THRESHOLD)
     stacks, n = plan.get_product_stacks(ok)  # the multiply's cached list
-    runs = K.tile_runs(stacks)
+    gm = _group_masks(K, stacks)
 
     def kernel():
-        return K.block_spgemm_runs(h.blocks, h.blocks, stacks.ik, runs,
-                                   ni=NB, nj=NB)
+        return K.block_spgemm_groups(h.blocks, h.blocks, gm, ni=NB, nj=NB)
 
     def plain():
         return K.block_spgemm_stacks_plain(h.blocks, h.blocks, stacks,
@@ -222,29 +241,31 @@ def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
           f"{plain_ms:.4f}  library(torch.matmul dense f32) {library_ms:.4f} "
           f" bound {bound_ms:.4f} ({bound_by}); kernel "
           f"{2.0 * n * BS**3 / ms / 1e9:.3f} TFLOP/s", flush=True)
-    del dense, stacks, runs, c, ok
+    del dense, stacks, gm, c, ok
     # the later sweeps: X fills to 100 %, the full 512^3 list
     x = B.random_bsm(SEED + 1, nb=NB, bs=BS, pattern="dense", device="cuda")
 
     def list_build():
         # what each multiply does before the kernel: filter cube, count,
-        # compaction and tile runs (three host syncs)
+        # compaction and group masks (three host syncs)
         ok = S.pair_cube(x.mask, x.mask, x.norms, x.norms, THRESHOLD)
         st = S.compact_pair_mask(
             ok, capacity=S.bucket_capacity(S.product_count(ok)))
-        return ok, st, K.tile_runs(st)
+        return ok, st, _group_masks(K, st)
 
-    ok_full, st_full, runs_full = list_build()
+    ok_full, st_full, gm_full = list_build()
     n_full = int(st_full.valid.sum())
     build_ms = _time_ms(list_build, reps=3)
-    full_ms = _time_ms(lambda: K.block_spgemm_runs(
-        x.blocks, x.blocks, st_full.ik, runs_full, ni=NB, nj=NB), reps=3)
+    masks_ms = _time_ms(lambda: _group_masks(K, st_full), reps=3)
+    full_ms = _time_ms(lambda: K.block_spgemm_groups(
+        x.blocks, x.blocks, gm_full, ni=NB, nj=NB), reps=3)
     full_bound_ms, full_by = _bound(ok_full, BS, 4)
-    del ok_full, st_full, runs_full
+    del ok_full, st_full, gm_full
     xd = x.to_dense()  # at full fill the dense product is the same product
     full_library_ms = _time_ms(lambda: torch.matmul(xd, xd), reps=5,
                                warmup=1)
-    print(f"[3] full fill: products {n_full}, list build {build_ms:.4f} ms, "
+    print(f"[3] full fill: products {n_full}, list build {build_ms:.4f} ms "
+          f"(of which group masks {masks_ms:.4f} ms), "
           f"kernel {full_ms:.4f} ms, bound {full_bound_ms:.4f} ({full_by}), "
           f"{2.0 * n_full * BS**3 / full_ms / 1e9:.3f} TFLOP/s; library "
           f"(torch.matmul dense f32) {full_library_ms:.4f} ms, kernel / "
@@ -254,6 +275,13 @@ def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 full_ms=full_ms, full_library_ms=full_library_ms)
+
+
+def _group_masks(K, stacks):
+    """The per-group k masks the kernel walks, for NB x NB blocks of BS."""
+    tile = K.kernel_tile(BS, BS)
+    return K.group_masks(stacks, ni=NB, nk=NB, nj=NB, g_r=tile.g_r,
+                         g_c=tile.g_c)
 
 
 def phase_purify(torch, K, purify) -> int:
@@ -305,6 +333,10 @@ FLASH_CASES = (
     (1, 4, 2, 128, 384, 128, True, None, None),
     (1, 4, 2, 384, 128, 64, False, None, None),
     (1, 2, 1, 333, 333, 128, True, 100, 30.0),
+    (2, 8, 2, 200, 200, 32, True, None, None),
+    (1, 8, 2, 200, 328, 64, True, 64, None),
+    (1, 4, 2, 333, 200, 128, False, None, 30.0),
+    (2, 8, 2, 256, 256, 32, True, 16, 50.0),
 )
 
 
@@ -338,6 +370,28 @@ def phase_flash_vs_plain(torch, np, FA, ref) -> float:
                 if not good:
                     bad.append((case, dtype, err))
             cases += 1
+    # layouts: the projections' head-transposed views (TMA reads them as
+    # they are), a seq stride of d + 4 elements (not 16-byte units: the
+    # wrapper copies each), and a query offset
+    b, h, hkv, s, d = 2, 8, 2, 200, 128
+    for name, pad, transposed, q_offset, copies in (
+            ("transposed", 0, True, 0, 0), ("stride d+4", 4, False, 0, 3),
+            ("q_offset 56", 0, False, 56, 0)):
+        def make(heads, a=1.0):
+            x = rng.standard_normal((b, s, heads, d + pad)) * a
+            x = torch.from_numpy(x).to("cuda", torch.bfloat16)
+            x = x.transpose(1, 2)  # (b, heads, s, d + pad)
+            return x[..., :d] if transposed or pad else x.contiguous()
+        q, k, v = make(h), make(hkv), make(hkv)
+        kw = dict(causal=True, q_offset=q_offset)
+        before = FA.copies
+        got = FA.flash_attention(q, k, v, **kw)
+        plain = FA.flash_attention_plain(q, k, v, **kw)
+        good, err = _close(got, plain, FLASH_TOL["bfloat16"])
+        worst = max(worst, err)
+        if not good or FA.copies - before != copies:
+            bad.append((name, err, FA.copies - before))
+        cases += 1
     torch.cuda.synchronize()
     print(f"[5] flash kernel vs plain and oracle: {cases} cases, max |err| "
           f"vs plain {worst:.3e}, tolerances {FLASH_TOL}", flush=True)
@@ -389,9 +443,11 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
     first round's prompts for phase 8."""
     K.launches = 0
     FA.launches = 0
+    FA.copies = 0
     st = serve.run(argv)
     launches = FA.launches
     spgemm_launches = K.launches
+    copies = FA.copies
     n_rounds = len(st["prefill_s"])
     print(f"[7] serve: {st['requests']} requests, {st['tokens']} tokens, "
           f"wall {st['wall_s']:.3f} s, {st['tokens_per_s']:.1f} tok/s, "
@@ -399,13 +455,16 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
           f"decode ms/step median {st['decode_ms_median']:.4f}, refills "
           f"{st['refills']}, flash launches {launches} "
           f"({st['n_layers']} layers x {n_rounds} prefill rounds), "
-          f"block_spgemm launches {spgemm_launches}, peak memory "
-          f"{st['peak_mem_gib']} GiB", flush=True)
+          f"block_spgemm launches {spgemm_launches}, flash input copies "
+          f"{copies}, peak memory {st['peak_mem_gib']} GiB", flush=True)
     if launches == 0:
         raise AssertionError("serving never launched the flash kernel")
     if launches != st["n_layers"] * n_rounds:
         raise AssertionError(f"flash launches {launches} != layers x "
                              f"prefill rounds {st['n_layers']} x {n_rounds}")
+    if copies:
+        raise AssertionError(f"the projections' views reached the flash "
+                             f"kernel through {copies} copies")
     if not st["ok"]:
         raise AssertionError("a request got too few tokens or a token "
                              "outside the vocabulary")
@@ -438,7 +497,7 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_fwd" in name:
+    if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
         return "flash"
     # cuBLAS: nvjet_* (its Hopper GEMMs), gemv*, cutlass / xmma / sm90_*
     if any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass", "xmma",
@@ -523,14 +582,23 @@ def _flash_bound(b, h, s, d, itemsize, causal=True) -> tuple[float, str]:
                                        else "bytes")
 
 
+def flash_serve_limit(plain, keys, atol: float, rtol: float):
+    """Phase 9's limit on |kernel - plain| for each output of a (b, h, s,
+    d) result whose row i keeps ``keys[i]`` keys: atol / sqrt(keys) +
+    rtol |plain| (``keys`` a (s,) float tensor)."""
+    return atol / keys.sqrt()[:, None] + rtol * plain.float().abs()
+
+
 def phase_flash_serving_shape(torch, np, FA) -> dict:
     """Phase 9: the kernel at one prefill layer's shape, checked, timed.
 
-    The bf16 kernel against the plain version, with a row's limit
-    atol / sqrt(keys of the row) + rtol |plain|, and the kernel's f32
-    instance on the same inputs cast to f32 against the plain version at
-    1e-4: both instances share the kv walk, and the f32 check sees a wrong
-    walk in the long late rows, whose outputs are small."""
+    The bf16 tensor-core kernel against the plain version, each output
+    within ``flash_serve_limit`` (FLASH_SERVE_TOL_BF16): the limit shrinks
+    as 1 / sqrt(the row's keys), so it alone fails a kernel that walks the
+    wrong kv tiles of the long late rows, whose outputs are small (a
+    stand-in whose rows from 200 on lose their keys past 192 fails it:
+    tests/test_torch_flash_attention.py).  Then the SIMT f32 kernel on the
+    same inputs cast to f32 against the plain version at 1e-4."""
     b, h, s, d = (FLASH_SHAPE[k] for k in "bhsd")
     rng = np.random.default_rng(SEED + 2)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d),
@@ -538,15 +606,16 @@ def phase_flash_serving_shape(torch, np, FA) -> dict:
                .to("cuda", torch.bfloat16) for _ in range(3))
     keys = torch.arange(1, s + 1, device="cuda", dtype=torch.float32)
     errs = {}
-    for dtype, atol, rtol in (
-            ("bfloat16", FLASH_SERVE_TOL_BF16["atol"] / keys.sqrt()[:, None],
-             FLASH_SERVE_TOL_BF16["rtol"]),
-            ("float32", FLASH_TOL["float32"], FLASH_TOL["float32"])):
+    for dtype, tol in (("bfloat16", FLASH_SERVE_TOL_BF16),
+                       ("float32", dict(atol=FLASH_TOL["float32"],
+                                        rtol=FLASH_TOL["float32"]))):
         x = [t.to(getattr(torch, dtype)) for t in (q, k, v)]
         got = FA.flash_attention(*x, causal=True)
         plain = FA.flash_attention_plain(*x, causal=True)
         diff = (got.float() - plain.float()).abs()
-        ratio = diff / (atol + rtol * plain.float().abs())
+        if dtype == "float32":  # one limit for every row
+            keys = torch.ones_like(keys)
+        ratio = diff / flash_serve_limit(plain, keys, **tol)
         errs[dtype] = float(diff.max())
         late = slice(3 * s // 4, None)  # the last quarter of the rows
         print(f"[9] {dtype} kernel vs plain: max |err| {errs[dtype]:.3e} "

@@ -26,10 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.block_spgemm import (
-    block_spgemm_stacks_plain,
-    kernel_tile,
-)
+from repro_torch.kernels.block_spgemm import PANEL, block_spgemm_stacks_plain
 from repro_torch.kernels.stacks import (
     ProductStacks,
     bucket_capacity,
@@ -89,7 +86,7 @@ def local_stage_cost(
     ``dense`` pays the whole cube; the compacted backends pay the
     surviving products (``capacity``, else ``fill`` times the cube) times
     the gather overhead; ``cuda`` adds the operand re-reads of its output
-    sub-tiles (``tile`` defaults to the kernel's own, ``kernel_tile``) and
+    sub-tiles (``tile`` defaults to the kernel's own, at most ``PANEL``) and
     the working-set pressure terms."""
     itemsize = float(torch.empty((), dtype=dtype).element_size())
     speed = _DTYPE_SPEEDUP.get(int(itemsize), 1.0)
@@ -109,8 +106,7 @@ def local_stage_cost(
     if backend == "stacks":
         return LocalCost(flops, cap * per_product, compute)
     if tile is None:
-        r, ty, tx = kernel_tile(bs_r, bs_c)
-        tile = (min(ty * r, bs_r), bs_k, min(tx * r, bs_c))
+        tile = (min(bs_r, PANEL), bs_k, min(bs_c, PANEL))
     tm, tk, tn = tile
     n_tm, n_tn = -(-bs_r // tm), -(-bs_c // tn)
     hbm = cap * (n_tn * bs_r * bs_k + n_tm * bs_k * bs_c

@@ -6,17 +6,21 @@ CUDA C++ for ``sm_90a`` in ``csrc/block_spgemm.cu``, built by ``nvcc`` at
 first use (``kernels/_build.py``) and bound with ``ctypes``.
 
 The TPU kernel carries one accumulator across a k-run on a sequential
-grid; CUDA blocks run in parallel and in no order.  So the wrapper turns
-the product list into per-output-tile runs (``tile_runs``: a row pointer
-over the valid entries, built with torch ops on the device) and the kernel
-gives each CTA one (non-empty output tile, tm sub-tile, tn sub-tile), which
-walks its run with the f32 accumulator in registers and writes once.
+grid; CUDA blocks run in parallel and in no order.  So one CTA owns a
+group of ``g_r x g_c`` output blocks (``kernel_tile``: 4 x 4 for the
+paper's 23 x 23 blocks) and walks k in increasing order with the f32
+accumulators in registers, staging each A_ik and B_kj of the group once
+per k for the whole group.  The wrapper turns the product list into
+per-group k masks (``group_masks``: one ``(n_groups, nk)`` int32 array, bit
+``(i % g_r) * g_c + j % g_c`` set for each surviving product, built with
+torch ops on the list's device) and launches one CTA per group with a
+survivor (one host sync, for their number).
 
 What bounds it on the H100: f32 FMA issue on the CUDA cores (67 TFLOP/s
-peak; f32 parity with the reference rules out TF32) and the shared-memory
-loads that feed them — the bytes of a product's two small blocks are few
-against its 2 * bs^3 operations.  The source note in the ``.cu`` file says
-what the design does about it.
+peak; f32 parity with the reference rules out TF32) and what feeds them —
+a small block pair does about 11.5 FMAs per word read, so the design
+reuses each staged block across a group.  The source note in the ``.cu``
+file says more.
 
 Beside the kernel, in this module: ``block_spgemm_stacks_plain``, the same
 function in plain PyTorch (gather, f32 ``bmm``, ``index_add_`` — the
@@ -51,15 +55,40 @@ _F8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
             if hasattr(torch, n))
 
 
-class TileRuns(NamedTuple):
-    """Per-output-tile k-runs of a product list (int32, one entry per
-    non-empty output tile, in list order): the tile's block coordinates
-    and the [run_start, run_start + run_len) slice of the list."""
+# the kernel's CTA covers a PANEL x PANEL panel of output (16 x 8 threads,
+# MICRO = (6 rows, 12 columns) each); a group edge has at most GROUP_MAX
+# blocks (16 mask bits)
+PANEL = 96
+MICRO = (6, 12)
+GROUP_MAX = 4
 
-    tile_ia: torch.Tensor
-    tile_ij: torch.Tensor
-    run_start: torch.Tensor
-    run_len: torch.Tensor
+
+class KernelTile(NamedTuple):
+    """What one CTA covers, per axis (rows, then columns): ``g_*`` output
+    blocks of a group, each at a panel stride ``stride_*`` (the block edge
+    rounded up to a multiple of the thread's micro-tile edge, 6 rows or 12
+    columns, so a micro-tile lies in one block pair), and ``n_sub_*``
+    sub-tiles of ``PANEL`` for a block edge above ``PANEL`` (then one
+    block per CTA)."""
+
+    g_r: int
+    g_c: int
+    stride_r: int
+    stride_c: int
+    n_sub_r: int
+    n_sub_c: int
+
+
+class GroupMasks(NamedTuple):
+    """A product list as the kernel walks it: ``masks`` (n_groups, nk)
+    int32, where group ``(i // g_r) * n_gc + j // g_c`` has bit
+    ``(i % g_r) * g_c + j % g_c`` set at k for each valid product
+    (i, k, j); ``groups`` (int32, ascending) the groups with one."""
+
+    masks: torch.Tensor
+    groups: torch.Tensor
+    g_r: int
+    g_c: int
 
 
 def _check_operands(a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> None:
@@ -87,30 +116,46 @@ def _check_operands(a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> None:
                          f" vs {b_blocks.device}")
 
 
-def kernel_tile(bs_r: int, bs_c: int) -> tuple[int, int, int]:
-    """(r, ty, tx): the register micro-tile edge and the thread-block shape
-    the kernel runs for one block shape.  Blocks up to 24 x 24 take r = 3
-    on at most 8 x 8 threads; larger ones r = 4 on at most 16 x 16 threads
-    over 64 x 64 sub-tiles (the ``.cu`` file instantiates exactly these)."""
-    r, cap = (3, 24) if max(bs_r, bs_c) <= 24 else (4, 64)
-    return r, -(-min(bs_r, cap) // r), -(-min(bs_c, cap) // r)
+def kernel_tile(bs_r: int, bs_c: int) -> KernelTile:
+    """The kernel's group and panel layout for one block shape.  A block
+    edge up to ``PANEL`` is stacked ``min(PANEL // stride, GROUP_MAX)``
+    times into the panel (4 x 23-row blocks at stride 24 fill 96 rows); a
+    larger edge is cut into ``PANEL`` sub-tiles."""
+
+    def edge(bs: int, micro: int) -> tuple[int, int, int]:
+        if bs > PANEL:
+            return 1, PANEL, -(-bs // PANEL)
+        stride = micro * -(-bs // micro)
+        return min(PANEL // stride, GROUP_MAX), stride, 1
+
+    g_r, stride_r, n_sub_r = edge(bs_r, MICRO[0])
+    g_c, stride_c, n_sub_c = edge(bs_c, MICRO[1])
+    return KernelTile(g_r, g_c, stride_r, stride_c, n_sub_r, n_sub_c)
 
 
-def tile_runs(stacks: ProductStacks) -> TileRuns:
-    """Row pointer over the valid entries of a product list, on its device
-    (one sync, for the number of non-empty tiles).  The list is sorted by
-    output tile, so each tile's products are one contiguous run."""
-    starts = torch.nonzero((stacks.first == 1) & (stacks.valid == 1))
-    starts = starts.squeeze(1)
-    n_valid = stacks.valid.sum().view(1)
-    ends = torch.cat([starts[1:], n_valid])[: starts.numel()]
-    i32 = torch.int32
-    return TileRuns(
-        tile_ia=stacks.ia[starts],
-        tile_ij=stacks.ij[starts],
-        run_start=starts.to(i32),
-        run_len=(ends - starts).to(i32),
-    )
+def group_masks(stacks: ProductStacks, *, ni: int, nk: int, nj: int,
+                g_r: int, g_c: int) -> GroupMasks:
+    """Per-group k masks of a product list, on the list's device (any
+    device; one sync, for the groups with a survivor).
+
+    One accumulating ``index_add_`` of ``valid << bit`` over the whole
+    list: each (group, k, bit) occurs at most once among the valid
+    entries, so the sum is the OR, and padding (valid 0) adds nothing."""
+    n_gr, n_gc = -(-ni // g_r), -(-nj // g_c)
+    if n_gr * n_gc * nk >= 2**31:
+        raise ValueError(f"{n_gr * n_gc} groups x {nk} k's overflow the "
+                         "int32 mask index")
+    dev = stacks.ia.device
+    flat = torch.zeros(n_gr * n_gc * nk, dtype=torch.int32, device=dev)
+    if stacks.capacity:
+        ia, ij = stacks.ia, stacks.ij
+        group = (ia // g_r) * n_gc + ij // g_c
+        bit = torch.bitwise_left_shift(stacks.valid,
+                                       (ia % g_r) * g_c + ij % g_c)
+        flat.index_add_(0, group * nk + stacks.ik, bit)
+    masks = flat.view(n_gr * n_gc, nk)
+    groups = torch.nonzero(masks.any(1)).squeeze(1).to(torch.int32)
+    return GroupMasks(masks, groups, g_r, g_c)
 
 
 def _launcher():
@@ -119,25 +164,25 @@ def _launcher():
     fn = _build.load("block_spgemm").block_spgemm_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [ctypes.c_longlong] + [i] * 9 + [vp]
+        fn.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 13 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def block_spgemm_runs(
+def block_spgemm_groups(
     a_blocks: torch.Tensor,  # (ni, nk, bs_r, bs_k), CUDA
     b_blocks: torch.Tensor,  # (nk, nj, bs_k, bs_c), CUDA
-    ik: torch.Tensor,  # (capacity,) int32: the list's k indices
-    runs: TileRuns,
+    gm: GroupMasks,
     *,
     ni: int,
     nj: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel over prepared tile runs (CUDA tensors only).
+    """Launch the CUDA kernel over prepared group masks (CUDA tensors
+    only).
 
-    The output starts at zero, so tiles without a run stay zero.  Launches
-    on PyTorch's current stream without synchronising; raises if the
-    launch is refused.
+    The output starts at zero, so blocks without a product stay zero.
+    Launches on PyTorch's current stream without synchronising; raises if
+    the launch is refused.
     """
     global launches
     _check_operands(a_blocks, b_blocks)
@@ -148,30 +193,38 @@ def block_spgemm_runs(
     _, nj_b, _, bs_c = b_blocks.shape
     if (ni_a, nj_b) != (ni, nj):
         raise ValueError(f"grid ({ni_a}, {nj_b}) != (ni={ni}, nj={nj})")
+    tile = kernel_tile(bs_r, bs_c)
+    if (gm.g_r, gm.g_c) != tile[:2]:
+        raise ValueError(f"masks grouped {gm.g_r} x {gm.g_c}, the kernel "
+                         f"takes {tile.g_r} x {tile.g_c} for blocks "
+                         f"({bs_r}, {bs_c})")
+    n_groups = -(-ni // tile.g_r) * -(-nj // tile.g_c)
+    if tuple(gm.masks.shape) != (n_groups, nk):
+        raise ValueError(f"masks {tuple(gm.masks.shape)} != {(n_groups, nk)}")
     for name, t in (("a_blocks", a_blocks), ("b_blocks", b_blocks),
-                    ("ik", ik), *zip(runs._fields, runs)):
+                    ("masks", gm.masks), ("groups", gm.groups)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, operands on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t is not a_blocks and t is not b_blocks and t.dtype != torch.int32:
+    for name, t in (("masks", gm.masks), ("groups", gm.groups)):
+        if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     out = torch.zeros((ni, nj, bs_r, bs_c), dtype=a_blocks.dtype, device=dev)
-    n_tiles = runs.run_start.shape[0]
-    if n_tiles == 0:
+    n_active = gm.groups.shape[0]
+    if n_active == 0:
         return out
-    r, ty, tx = kernel_tile(bs_r, bs_c)
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(
             a_blocks.data_ptr(), b_blocks.data_ptr(), out.data_ptr(),
-            ik.data_ptr(), *(t.data_ptr() for t in runs),
-            n_tiles, nk, nj, bs_r, bs_k, bs_c, _DTYPE_CODE[a_blocks.dtype],
-            r, ty, tx, torch.cuda.current_stream(dev).cuda_stream,
+            gm.masks.data_ptr(), gm.groups.data_ptr(), n_active, ni, nk, nj,
+            bs_r, bs_k, bs_c, *tile, _DTYPE_CODE[a_blocks.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
-                           f"{err} (tiles={n_tiles}, blocks=({bs_r}, {bs_k},"
+                           f"{err} (groups={n_active}, blocks=({bs_r}, {bs_k},"
                            f" {bs_c}), dtype={a_blocks.dtype})")
     launches += 1
     return out
@@ -232,8 +285,11 @@ def block_spgemm_stacks(
     if dev.type != "cuda":
         raise ValueError(f"block_spgemm runs on cpu or cuda tensors, not "
                          f"{dev}")
-    return block_spgemm_runs(a_blocks.contiguous(), b_blocks.contiguous(),
-                             stacks.ik, tile_runs(stacks), ni=ni, nj=nj)
+    nk, bs_r = a_blocks.shape[1], a_blocks.shape[2]
+    tile = kernel_tile(bs_r, b_blocks.shape[3])
+    gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r, g_c=tile.g_c)
+    return block_spgemm_groups(a_blocks.contiguous(), b_blocks.contiguous(),
+                               gm, ni=ni, nj=nj)
 
 
 def block_spgemm(

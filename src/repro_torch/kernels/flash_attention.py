@@ -2,22 +2,27 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 _flash_kernel`` (launched there by ``flash_attention_single``, vmapped over
-batch and heads by ``repro/kernels/ops.py::flash_attention``).  The kernel
-is CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``, built by
+batch and heads by ``repro/kernels/ops.py::flash_attention``).  The kernels
+are CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``, built by
 ``nvcc`` at first use (``kernels/_build.py``) and bound with ``ctypes``.
 
 The TPU kernel carries its running max, sum and accumulator in VMEM across
 a sequential kv grid axis; CUDA blocks run in no order, so one CTA owns a
-(batch, head, 64-row q tile), walks the kv tiles itself with that state in
-registers, and writes its rows once.  Grouped-query heads read their kv
-head as ``h // (h // hkv)``: no repeated K/V is materialised.  Any
-sequence lengths: ragged tile edges are masked in the kernel (the TPU
-kernel asserted divisible lengths; the JAX model pads instead).
+(batch, head, q tile), walks the kv tiles that hold a kept key itself with
+that state in registers, and writes its rows once.  Grouped-query heads
+read their kv head as ``h // (h // hkv)``: no repeated K/V is
+materialised.  Any sequence lengths: ragged tile edges are masked in the
+kernel (the TPU kernel asserted divisible lengths; the JAX model pads).
 
 What bounds it on the H100: operations (about 4 d per kept (q, k) pair,
-hundreds of operations per byte moved); this first kernel runs them as f32
-FMAs on the CUDA cores, fed from shared memory.  The ``.cu`` file's note
-says more.
+hundreds of operations per byte moved).  bf16 inputs run on the tensor
+cores: ``wgmma`` for both products (P from registers), K/V tiles through a
+two-stage TMA ring.  f32 inputs run a SIMT kernel of f32 FMAs (TF32 would
+break the 1e-4 parity with the reference).  The ``.cu`` file's note says
+more.  TMA needs a bf16 view with a 16-byte-aligned base and (batch, head,
+seq) strides that are multiples of 8 elements; the wrapper copies a view
+that has neither into a fresh contiguous tensor and counts it in
+``copies`` (the projections' head-transposed views need no copy).
 
 Beside the kernel, in this module: ``flash_attention_plain``, the same
 function in plain PyTorch — the online-softmax loop of the JAX model's
@@ -37,6 +42,7 @@ import ctypes
 import torch
 
 launches = 0  # kernel launches since the last reset (a plain counter)
+copies = 0  # bf16 inputs copied to meet TMA's alignment (a plain counter)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
@@ -127,6 +133,23 @@ def flash_attention_plain(
     return out.reshape(b, h, sq, d)
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """TMA takes a bf16 view with a 16-byte-aligned base and (batch, head,
+    seq) strides of whole 16-byte units (a size-1 axis takes any)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+               if n > 1)
+
+
+def _axis_strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, seq) strides in elements; a size-1 axis, whose stride
+    is never used, gets a positive multiple of 8 that TMA accepts."""
+    fill = 8 * -(-t.numel() // 8)
+    return [st if n > 1 else fill for n, st in zip(t.shape[:3],
+                                                    t.stride()[:3])]
+
+
 def _launcher():
     from repro_torch.kernels import _build
 
@@ -150,15 +173,17 @@ def flash_attention_cuda(
     scale: float | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only).
+    """Launch the CUDA kernel (CUDA tensors only): the tensor-core kernel
+    for bf16, the SIMT kernel for f32.
 
     Takes strided (b, h, s, d) views with a unit last stride, so the
-    projections' transposed heads need no copy; the output is a
-    (b, h, sq, d) view of a (b, sq, h, d) buffer, so merging the heads
+    projections' transposed heads need no copy (a bf16 view that TMA
+    cannot read is copied once, and counted in ``copies``); the output is
+    a (b, h, sq, d) view of a (b, sq, h, d) buffer, so merging the heads
     afterwards is free.  Launches on PyTorch's current stream without
     synchronising; raises if the launch is refused.
     """
-    global launches
+    global launches, copies
     _check(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -174,7 +199,17 @@ def flash_attention_cuda(
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        fixed = []
+        for t in (q, k, v):
+            if not _tma_ready(t):
+                t = t.clone(memory_format=torch.contiguous_format)
+                copies += 1
+            fixed.append(t)
+        q, k, v = fixed
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     if scale is None:
         scale = d**-0.5
@@ -183,16 +218,18 @@ def flash_attention_cuda(
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, hkv, sq, skv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *_axis_strides(q), *_axis_strides(k), *_axis_strides(v),
             *out.stride()[:3], float(scale), int(causal),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap), int(q_offset),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, kv {tuple(k.shape)},"
-                           f" dtype {q.dtype})")
+        what = (f"tensor map refused, CUresult {err - 1000}" if err >= 1000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {what} "
+                           f"(q {tuple(q.shape)}, kv {tuple(k.shape)}, dtype "
+                           f"{q.dtype})")
     launches += 1
     return out
 

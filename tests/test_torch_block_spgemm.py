@@ -1,7 +1,7 @@
 """The block-SpGEMM kernel module on the CPU: its plain version against the
 JAX reference (the Pallas kernel in interpret mode and the ``ref``
 oracle), the wrapper's dispatch and checks, and the pure-Python parts the
-CUDA launch depends on (tile runs, thread-block shapes).
+CUDA launch depends on (the per-group k masks, the group layout).
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
@@ -12,14 +12,18 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.bsm import random_bsm
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.stacks import bucket_capacity
+from repro_torch import interop
+from repro_torch.core import bsm as B
 from repro_torch.kernels import block_spgemm as K
 from repro_torch.kernels import ops, ref, stacks
 
@@ -108,49 +112,164 @@ def test_wrapper_checks():
     with pytest.raises(ValueError):
         ops.block_spgemm(ta, tb, tok[:, :, :1])
     st = stacks.compact_pair_mask(tok, capacity=8)
+    gm = K.group_masks(st, ni=2, nk=3, nj=2, g_r=4, g_c=4)
     with pytest.raises(ValueError, match="CUDA"):  # the launcher is CUDA-only
-        K.block_spgemm_runs(ta, tb, st.ik, K.tile_runs(st), ni=2, nj=2)
+        K.block_spgemm_groups(ta, tb, gm, ni=2, nj=2)
+
+
+def _bits(gm, ni, nj):
+    """Every set bit of the group masks as an (i, k, j) triple."""
+    n_gc = -(-nj // gm.g_c)
+    found = []
+    masks = gm.masks.numpy()
+    for g, k in zip(*np.nonzero(masks)):
+        m = int(masks[g, k])
+        for bit in range(gm.g_r * gm.g_c):
+            if m >> bit & 1:
+                i = (g // n_gc) * gm.g_r + bit // gm.g_c
+                j = (g % n_gc) * gm.g_c + bit % gm.g_c
+                found.append((i, int(k), j))
+    return found
 
 
 @pytest.mark.parametrize("capacity", ["exact", "padded", "tight"])
 def test_tile_runs_cover_the_valid_list(capacity):
+    """The kernel's walk (the per-group k masks) covers the valid entries
+    of the list: each once, as one bit of one group's mask at its k, and
+    nothing else — padding and the entries a tight capacity dropped appear
+    nowhere; the active groups are exactly those with a bit."""
     _, _, ok = _operands(5, 5, 6, 4, (2, 2, 2), 0.5)
     n = int(ok.sum())
     cap = {"exact": bucket_capacity(n), "padded": 4 * bucket_capacity(n),
            "tight": n - 5}[capacity]
     st = stacks.compact_pair_mask(torch.from_numpy(ok), capacity=cap)
-    runs = K.tile_runs(st)
-    for t in runs:
-        assert t.dtype == torch.int32
-    ia, ij = st.ia.numpy(), st.ij.numpy()
-    tile, valid, ik = st.tile.numpy(), st.valid.numpy(), st.ik.numpy()
-    n_valid = int(valid.sum())
-    # numpy walk of the valid entries: one run per distinct tile, in order
-    want = []
-    for p in range(n_valid):
-        if p == 0 or tile[p] != tile[p - 1]:
-            want.append([ia[p], ij[p], p, 0])
-        want[-1][3] += 1
-    got = np.stack([t.numpy() for t in runs], axis=1)
-    np.testing.assert_array_equal(got, np.array(want).reshape(-1, 4))
-    # each run lists exactly the surviving k's of its tile, ascending
-    for i, j, s, ln in got:
-        if capacity != "tight" or s + ln < n_valid:
-            np.testing.assert_array_equal(ik[s:s + ln], np.flatnonzero(ok[i, :, j]))
+    gm = K.group_masks(st, ni=5, nk=6, nj=4, g_r=2, g_c=3)
+    assert gm.masks.dtype == torch.int32 and gm.groups.dtype == torch.int32
+    assert tuple(gm.masks.shape) == (3 * 2, 6)
+    valid = st.valid.numpy() == 1
+    want = sorted(zip(st.ia.numpy()[valid], st.ik.numpy()[valid],
+                      st.ij.numpy()[valid]))
+    got = _bits(gm, 5, 4)
+    assert sorted(got) == want and len(set(got)) == len(got)
+    np.testing.assert_array_equal(
+        gm.groups.numpy(), np.flatnonzero(gm.masks.numpy().any(1)))
 
 
 @pytest.mark.parametrize("bs_r,bs_c", [(4, 4), (8, 8), (23, 23), (24, 24),
                                        (4, 8), (25, 25), (64, 64), (128, 128),
                                        (4, 128), (30, 7)])
 def test_kernel_tile_fits_the_cuda_instantiations(bs_r, bs_c):
-    r, ty, tx = K.kernel_tile(bs_r, bs_c)
-    tmax, max_threads = {3: (24, 64), 4: (64, 256)}[r]
-    assert ty * r <= tmax and tx * r <= tmax
-    assert ty * tx <= max_threads
-    # the sub-tiles cover the block; a block within one sub-tile has one
-    assert -(-bs_r // (ty * r)) * ty * r >= bs_r
-    if bs_r <= tmax and bs_c <= tmax:
-        assert ty * r >= bs_r and tx * r >= bs_c
+    """The layout obeys the launcher's checks (``csrc/block_spgemm.cu``):
+    per axis, g blocks at a stride that is a multiple of the micro-tile
+    edge (6 rows, 12 columns), at least the block edge, within the 96-wide
+    panel, at most 16 mask bits; an edge above 96 takes one block in
+    ceil(edge / 96) sub-tiles."""
+    t = K.kernel_tile(bs_r, bs_c)
+    assert t.g_r * t.g_c <= 16
+    for bs, g, stride, n_sub, micro in (
+            (bs_r, t.g_r, t.stride_r, t.n_sub_r, K.MICRO[0]),
+            (bs_c, t.g_c, t.stride_c, t.n_sub_c, K.MICRO[1])):
+        assert g >= 1 and stride % micro == 0 and g * stride <= K.PANEL
+        if bs > K.PANEL:
+            assert (g, stride, n_sub) == (1, K.PANEL, -(-bs // K.PANEL))
+        else:
+            assert stride >= bs and n_sub == 1
+            # as many blocks as fit, up to GROUP_MAX
+            assert g == min(K.PANEL // stride, K.GROUP_MAX)
+
+
+def _walk_group_masks(a, b, gm, ni, nj):
+    """Plain evaluator of the kernel's walk: every active group, its k's
+    with a non-zero mask in increasing order, and every set bit (i, j) of
+    the mask adding A_ik @ B_kj in f32; cast to the storage dtype once."""
+    n_gc = -(-nj // gm.g_c)
+    bs_r, bs_c = a.shape[2], b.shape[3]
+    c = torch.zeros((ni, nj, bs_r, bs_c), dtype=torch.float32)
+    masks = gm.masks.numpy()
+    for g in gm.groups.tolist():
+        gi, gj = divmod(g, n_gc)
+        for k in np.flatnonzero(masks[g]):
+            m = int(masks[g, k])
+            for bit in range(gm.g_r * gm.g_c):
+                if m >> bit & 1:
+                    i = gi * gm.g_r + bit // gm.g_c
+                    j = gj * gm.g_c + bit % gm.g_c
+                    c[i, j] += a[i, k].float() @ b[k, j].float()
+    return c.to(a.dtype)
+
+
+def _mask_case(case):
+    """(a, b, stacks, ni, nk, nj) for one group-mask case."""
+    if case == "reference":  # the reference's own generator, carried over
+        m = random_bsm(jax.random.PRNGKey(3), nb=10, bs=5, occupancy=0.4,
+                       pattern="decay")
+        t = interop.bsm_from_arrays(m.blocks, m.mask, m.norms, device="cpu")
+        ok = stacks.pair_cube(t.mask, t.mask, t.norms, t.norms, 1e-9)
+        a = b = t.blocks
+        ni = nk = nj = 10
+    else:
+        ni, nk, nj, shape, dtype = {
+            "ragged": (9, 6, 7, (23, 23, 23), torch.float32),
+            "threshold": (8, 5, 8, (6, 6, 6), torch.float32),
+            "empty_groups": (12, 4, 12, (4, 4, 4), torch.float32),
+            "rectangular": (7, 5, 5, (30, 7, 25), torch.float32),
+            "bf16": (9, 6, 7, (23, 23, 23), torch.bfloat16),
+        }[case]
+        bs_r, bs_k, bs_c = shape
+        rng = np.random.default_rng(11)
+        an = rng.standard_normal((ni, nk, bs_r, bs_k)) / np.sqrt(bs_k)
+        bn = rng.standard_normal((nk, nj, bs_k, bs_c)) / np.sqrt(bs_k)
+        an *= 10.0 ** rng.uniform(-2, 0, (ni, nk, 1, 1))
+        bn *= 10.0 ** rng.uniform(-2, 0, (nk, nj, 1, 1))
+        a = torch.from_numpy(an.astype(np.float32)).to(dtype)
+        b = torch.from_numpy(bn.astype(np.float32)).to(dtype)
+        am = torch.from_numpy(rng.random((ni, nk)) < 0.7)
+        bm = torch.from_numpy(rng.random((nk, nj)) < 0.7)
+        if case == "empty_groups":  # block rows / cols 4-7 hold nothing
+            am[4:8] = False
+            bm[:, 4:8] = False
+        thr = 0.05 if case in ("threshold", "bf16") else 0.0
+        ok = stacks.pair_cube(am, bm, B.block_norms(a), B.block_norms(b), thr)
+        if case == "threshold":  # the screen filters part of a group
+            assert 0 < int(ok.sum()) < int((am[:, :, None] & bm[None]).sum())
+    st = stacks.compact_pair_mask(
+        ok, capacity=stacks.bucket_capacity(stacks.product_count(ok)))
+    return a, b, st, ni, nk, nj
+
+
+MASK_CASES = ["reference", "ragged", "threshold", "empty_groups",
+              "rectangular", "bf16"]
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_group_masks_hold_each_valid_product_once(case):
+    a, b, st, ni, nk, nj = _mask_case(case)
+    t = K.kernel_tile(a.shape[2], b.shape[3])
+    gm = K.group_masks(st, ni=ni, nk=nk, nj=nj, g_r=t.g_r, g_c=t.g_c)
+    valid = st.valid.numpy() == 1
+    want = sorted(zip(st.ia.numpy()[valid], st.ik.numpy()[valid],
+                      st.ij.numpy()[valid]))
+    got = _bits(gm, ni, nj)
+    assert sorted(got) == want and len(set(got)) == len(got)
+    assert all(i < ni and j < nj for i, _, j in got)  # ragged edges unset
+    n_groups = -(-ni // t.g_r) * -(-nj // t.g_c)
+    if case == "empty_groups":
+        assert 0 < gm.groups.numel() < n_groups
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_group_mask_walk_matches_plain(case):
+    """Walking the group masks gives the plain version's product: f32 up
+    to summation order (1e-5); bf16 within one output rounding (2e-2), as
+    both sum in f32 and cast once."""
+    a, b, st, ni, nk, nj = _mask_case(case)
+    t = K.kernel_tile(a.shape[2], b.shape[3])
+    gm = K.group_masks(st, ni=ni, nk=nk, nj=nj, g_r=t.g_r, g_c=t.g_c)
+    got = _walk_group_masks(a, b, gm, ni, nj)
+    want = K.block_spgemm_stacks_plain(a, b, st, ni=ni, nj=nj)
+    tol = TOL["float32"] if a.dtype == torch.float32 else TOL["bfloat16"]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 1000])

@@ -55,6 +55,39 @@ def test_kernel_matches_plain_and_oracle(cuda, shape, dtype):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(23, 23, 23), (4, 16, 8), (30, 7, 25),
+                                   (128, 24, 100)])
+def test_kernel_group_edges_and_partial_masks(cuda, shape, dtype):
+    """9 x 7 output blocks against 4 x 4 (or 3 x 3, 1 x 1) groups: ragged
+    group edges; blocks scaled by 10^U(-2, 0) so threshold 0.05 filters
+    part of each group's products, and some blocks hold inf, which only
+    filtered products may meet."""
+    bs_r, bs_k, bs_c = shape
+    ni, nk, nj = 9, 6, 7
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((ni, nk, bs_r, bs_k)) / np.sqrt(bs_k)
+    b = rng.standard_normal((nk, nj, bs_k, bs_c)) / np.sqrt(bs_k)
+    a *= 10.0 ** rng.uniform(-2, 0, (ni, nk, 1, 1))
+    b *= 10.0 ** rng.uniform(-2, 0, (nk, nj, 1, 1))
+    a, b = (torch.from_numpy(x).to(cuda, dtype) for x in (a, b))
+    am = torch.from_numpy(rng.random((ni, nk)) < 0.6).to(cuda)
+    bm = torch.from_numpy(rng.random((nk, nj)) < 0.6).to(cuda)
+    ok = stacks.pair_cube(am, bm, B.block_norms(a), B.block_norms(b), 0.05)
+    assert 0 < int(ok.sum()) < int((am[:, :, None] & bm[None]).sum())
+    st = stacks.compact_pair_mask(
+        ok, capacity=stacks.bucket_capacity(stacks.product_count(ok)))
+    want = K.block_spgemm_stacks_plain(a, b, st, ni=ni, nj=nj)
+    # a block none of whose products survives may hold anything
+    dead_a = ~ok.any(2)
+    a = a.masked_fill(dead_a[:, :, None, None], float("inf"))
+    before = K.launches
+    got = K.block_spgemm_stacks(a, b, st, ni=ni, nj=nj)
+    assert K.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_empty_list_launches_nothing(cuda):
     a = torch.ones(2, 3, 8, 8, device=cuda)
     ok = torch.zeros(2, 3, 2, dtype=torch.bool, device=cuda)
@@ -94,6 +127,10 @@ FLASH_CASES = [
     (1, 2, 1, 128, 256, 128, True, None, None),
     (1, 2, 1, 256, 128, 128, False, None, None),
     (2, 4, 2, 333, 333, 128, True, 100, 30.0),
+    (2, 8, 2, 200, 200, 32, True, None, None),
+    (1, 8, 2, 200, 328, 64, True, 64, None),
+    (1, 8, 2, 333, 200, 128, False, None, 30.0),
+    (2, 8, 2, 256, 256, 32, True, 16, 50.0),
 ]
 
 
@@ -119,6 +156,31 @@ def test_flash_kernel_matches_plain_and_oracle(cuda, case, dtype):
     for want in (plain, oracle):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["transposed", "stride d+4", "offset"])
+def test_flash_bf16_layouts(cuda, layout):
+    """The projections' head-transposed views go to TMA as they are; a view
+    whose strides TMA cannot take is copied once per tensor (``copies``);
+    a query offset shifts the causal diagonal.  All against the plain
+    version."""
+    b, h, hkv, s, d = 2, 8, 2, 200, 128
+    pad = 4 if layout == "stride d+4" else 0
+    rng = np.random.default_rng(3)
+
+    def make(heads):
+        x = torch.from_numpy(rng.standard_normal((b, s, heads, d + pad)))
+        x = x.to(cuda, torch.bfloat16).transpose(1, 2)
+        return x[..., :d] if layout != "offset" else x.contiguous()
+
+    q, k, v = make(h), make(hkv), make(hkv)
+    kw = dict(causal=True, q_offset=56 if layout == "offset" else 0)
+    before = FA.copies
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.copies - before == (3 if pad else 0)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def _to(tree, dev):

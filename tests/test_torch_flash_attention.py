@@ -187,3 +187,35 @@ def test_kernel_entry_refuses_cpu_tensors():
     q = torch.randn(1, 1, 8, 32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         FA.flash_attention_cuda(q, q, q)
+
+
+def test_serving_limit_fails_a_wrong_kv_walk():
+    """chip_smoke.py's phase 9 holds the bf16 kernel at the serving shape to
+    ``flash_serve_limit`` alone (the f32 check runs the other kernel).  The
+    limit passes the kernel's own rounding — here p rounded to bf16 before
+    P.V, relative to the row's final max — and fails a kernel whose rows
+    from 200 on lose their keys past 192 (b 1, h 2, s 256, d 64, causal)."""
+    import chip_smoke
+
+    b, h, s, d = 1, 2, 256, 64
+    q, k, v = _inputs(8, [(b, h, s, d)] * 3, "bfloat16")
+    q, k, v = (_t(x, "bfloat16") for x in (q, k, v))
+    plain = FA.flash_attention_plain(q, k, v, causal=True)
+    keys = torch.arange(1, s + 1, dtype=torch.float32)
+    limit = chip_smoke.flash_serve_limit(plain, keys,
+                                         **chip_smoke.FLASH_SERVE_TOL_BF16)
+
+    # p rounded to bf16 before P.V, the running sum unrounded
+    logits = (q.float() @ k.float().transpose(-1, -2)) * d**-0.5
+    logits = logits.masked_fill(torch.ones(s, s).triu(1).bool(), -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rounded = ((p.to(torch.bfloat16).float() @ v.float())
+               / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    ratio = (rounded.float() - plain.float()).abs() / limit
+    assert float(ratio.max()) <= 1.0
+
+    wrong = plain.clone()
+    wrong[:, :, 200:] = FA.flash_attention_plain(
+        q[:, :, 200:], k[:, :, :192], v[:, :, :192], causal=False)
+    ratio = (wrong.float() - plain.float()).abs() / limit
+    assert float(ratio.max()) > 10.0
