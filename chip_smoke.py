@@ -69,6 +69,10 @@ ROOT = Path(__file__).resolve().parent
 
 NB, BS, OCC, SEED = 512, 23, 0.10, 0
 THRESHOLD, FILTER_EPS = 1e-9, 1e-8
+PURIFY_ARGV = ["--nb", str(NB), "--bs", str(BS), "--occupancy", str(OCC),
+               "--threshold", str(THRESHOLD), "--filter-eps", str(FILTER_EPS),
+               "--max-iter", "100", "--tol", "1e-6", "--sync-every", "4",
+               "--backend", "cuda", "--repeats", "1", "--seed", str(SEED)]
 # published H100 SXM peaks (data sheet, 700 W): f32 outside the tensor
 # cores, bf16 dense tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -284,15 +288,12 @@ def _group_masks(K, stacks):
                          g_c=tile.g_c)
 
 
-def phase_purify(torch, K, purify) -> int:
-    """Phase 4: the main path, through the user's entry point."""
-    argv = ["--nb", str(NB), "--bs", str(BS), "--occupancy", str(OCC),
-            "--threshold", str(THRESHOLD), "--filter-eps", str(FILTER_EPS),
-            "--max-iter", "100", "--tol", "1e-6", "--sync-every", "4",
-            "--backend", "cuda", "--repeats", "1", "--seed", str(SEED)]
+def phase_purify(torch, K, purify) -> tuple[int, dict]:
+    """Phase 4: the main path, through the user's entry point; returns the
+    launches and the report (with P) for phase 11."""
     torch.cuda.reset_peak_memory_stats()
     K.launches = 0
-    report = purify.run(argv)
+    report = purify.run(PURIFY_ARGV + ["--p", "1", "--l", "1"])
     launches = K.launches
     r = report["runs"][0]
     print(f"[4] purification: {r['iterations']} sweeps, converged "
@@ -308,7 +309,7 @@ def phase_purify(torch, K, purify) -> int:
         raise AssertionError(f"purification failed: {r}")
     if r["idempotency"] > IDEMPOTENCY_TOL:
         raise AssertionError(f"P is no projector: {r['idempotency']}")
-    return launches
+    return launches, report
 
 
 def _tree_to(tree, dev):
@@ -506,7 +507,19 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile_window(torch, fn) -> tuple[float, dict, int, list]:
+def _purify_group(name: str) -> str:
+    """Kernel group of a purification: the block-SpGEMM kernel, copies
+    (rank-to-rank panels, concatenations, casts), and the rest."""
+    if "group_kernel" in name:
+        return "block_spgemm"
+    if "Memcpy" in name or "copy" in name.lower():
+        return "copies"
+    return "other"
+
+
+def _profile_window(torch, fn, group=_kernel_group,
+                    names=("flash", "matmul", "other")
+                    ) -> tuple[float, dict, int, list]:
     """(wall ms, device ms by kernel group, kernel launches, top kernels)
     of ``fn`` under torch.profiler; one stream, so kernel times add up to
     the busy time."""
@@ -520,13 +533,13 @@ def _profile_window(torch, fn) -> tuple[float, dict, int, list]:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys(names, 0.0)
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.device_time_total
-        groups[_kernel_group(e.key)] += us / 1e3
+        groups[group(e.key)] += us / 1e3
         kernels.append((us / 1e3, e.count, e.key))
     n_launches = sum(c for _, c, _ in kernels)
     return wall_ms, groups, n_launches, sorted(kernels, reverse=True)[:6]
@@ -646,6 +659,186 @@ def phase_flash_serving_shape(torch, np, FA) -> dict:
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+# (engine, mesh, l, c_layout): the paper's engines on meshes of ranks
+ENGINE_CASES = (
+    ("cannon", dict(p=2), None, "2d"),
+    ("onesided", dict(p=2), None, "2d"),
+    ("onesided", dict(p_r=2, p_c=4), None, "2d"),
+    ("gather", dict(p=2), None, "2d"),
+    ("gather", dict(p_r=2, p_c=4), None, "2d"),
+    ("twofive", dict(p_r=2, p_c=4), None, "2d"),  # pull, forced L = 2
+    ("twofive", dict(p=4), 4, "2d"),  # pull, L = 4
+    ("twofive", dict(p=2, l=2), None, "2d"),  # stacked
+    ("twofive", dict(p=2, l=2), None, "scatter"),
+    ("twofive", dict(p=2, l=4), None, "2d"),  # stacked, uneven chunks
+)
+SHARDED_P_TOL = 1e-3  # ||P_sharded - P_single||_F / ||P_single||_F
+
+
+def _psum_bytes(n: int) -> float:
+    """Per-rank bytes of the sweep's psum of three f32 partials over n
+    ranks (all-reduce: 2 (n - 1) / n of the payload)."""
+    return 2.0 * (n - 1) / n * 3 * 4
+
+
+def _f64_product(m):
+    """M . M in float64 (dense ``torch.matmul`` on the card), in block
+    layout on the host."""
+    md = m.to_dense().double()
+    return (md @ md).reshape(NB, BS, NB, BS).permute(0, 2, 1, 3).cpu()
+
+
+def _f64_err(c, exact) -> float:
+    return float((c.blocks.cpu().double() - exact).abs().max())
+
+
+def phase_engines(torch, B, E, CV, T, lm, K, plan, mesh_mod) -> int:
+    """Phase 10: every engine at full width against the single-device
+    kernel result; returns the kernel launches of the phase.
+
+    H.H is held to TOL (1e-5 + 1e-5 |ref|).  At full fill (X.X) each entry
+    sums 11,776 f32 products, and an engine that adds its k-panels in
+    another order than the single-device kernel differs from it by their
+    rounding, about u sqrt(n) |entry| (the first chip run of the engines
+    measured 1.6e-4 - 1.8e-4, beyond TOL); so there both are held against
+    the float64 product, and an engine's max error may be at most twice
+    the single-device kernel's (one missing block product moves an entry
+    by ~0.2)."""
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern="decay",
+                     symmetric=True, device="cuda")
+    x = B.random_bsm(SEED + 1, nb=NB, bs=BS, pattern="dense", device="cuda")
+    total, bad = 0, []
+    for name, m in (("H.H", h), ("X.X", x)):
+        want = B.filter_bsm(E.multiply_reference(
+            m, m, threshold=THRESHOLD, backend="cuda"), THRESHOLD)
+        plan.clear_cache()  # the oracle's cached product list (3.8 GB at
+        torch.cuda.empty_cache()  # full fill) is not the engines' memory
+        exact = single_err = None
+        if name == "X.X":
+            exact = _f64_product(m)
+            single_err = _f64_err(want, exact)
+            torch.cuda.empty_cache()
+            print(f"[10] X.X single-device kernel vs float64: max |err| "
+                  f"{single_err:.3e}", flush=True)
+        for engine, mk, l, layout in ENGINE_CASES:
+            mesh = mesh_mod.make_spgemm_mesh(**mk, device="cuda")
+            vol = CV.plan_volume(plan.plan_multiply(mesh, engine, l), NB, BS,
+                                 itemsize=4, c_layout=layout).total
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            T.reset_bytes()
+            K.launches, calls0 = 0, lm.calls
+            t0 = time.perf_counter()
+            c = E.multiply(m, m, mesh, engine=engine, l=l, c_layout=layout,
+                           backend="cuda", threshold=THRESHOLD)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            launches, calls = K.launches, lm.calls - calls0
+            moved, peak = T.bytes_moved(), torch.cuda.max_memory_allocated()
+            good, err = _close(c.blocks, want.blocks, TOL["float32"])
+            extra = ""
+            if exact is not None:
+                err64 = _f64_err(c, exact)
+                good = err64 <= 2.0 * single_err
+                extra = f", vs float64 {err64:.3e} (limit {2 * single_err:.3e})"
+            same_mask = bool(torch.equal(c.mask, want.mask))
+            total += launches
+            tag = (f"{name} {engine} {dict(mesh.shape)}"
+                   + (f" L={l}" if l else "") + f" C {layout}")
+            print(f"[10] {tag}: wall {wall_ms:.3f} ms, kernel launches "
+                  f"{launches}, local multiplies {calls} (3 host syncs "
+                  f"each), bytes per rank {moved:.0f} (plan_volume "
+                  f"{vol:.0f}), peak memory {peak / 2**30:.3f} GiB, masks "
+                  f"{'equal' if same_mask else 'DIFFER'}, max |err| vs the "
+                  f"single-device kernel {err:.3e}{extra}", flush=True)
+            if not (good and same_mask) or moved != vol or launches == 0:
+                bad.append((tag, err, same_mask, moved, vol, launches))
+            del c
+        del want, exact
+    del h, x
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"engines disagree: {bad}")
+    return total
+
+
+def phase_sharded_purify(torch, K, CV, plan, mesh_mod, purify,
+                         single: dict) -> int:
+    """Phase 11: the sharded purification (p 2, l 2, twofive) through the
+    entry point, against phase 4's gates and P; returns its launches."""
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = 0
+    report = purify.run(PURIFY_ARGV + ["--p", "2", "--l", "2", "--engine",
+                                       "twofive"])
+    launches = K.launches
+    r, r1 = report["runs"][0], single["runs"][0]
+    p1, p2 = single["p"], report["p"]
+    diff = (p2.blocks - p1.blocks).float()
+    rel = float(diff.norm() / p1.blocks.float().norm())
+    mesh = mesh_mod.make_spgemm_mesh(p=2, l=2, device="cuda")
+    vol = CV.plan_volume(plan.plan_multiply(mesh, "twofive"), NB, BS,
+                         itemsize=4).total
+    want_sweep = 2.0 * vol + _psum_bytes(4)
+    per_sweep = r["bytes_per_rank"] / r["iterations"]
+    print(f"[11] sharded purification on {report['mesh']} ({report['ranks']}"
+          f" ranks, {report['engine']}): {r['iterations']} sweeps (phase 4: "
+          f"{r1['iterations']}), converged {r['converged']}, wall "
+          f"{r['wall_s']:.3f} s (phase 4: {r1['wall_s']:.3f} s), kernel "
+          f"launches {launches}, local multiplies {r['local_multiplies']}, "
+          f"bytes per rank per sweep {per_sweep:.0f} (2 x plan_volume + "
+          f"psum: {want_sweep:.0f}), trace(P) {r['trace']:.4f} vs "
+          f"{report['n_occ']} (|err| {r['trace_err']:.3e}), max|P^2-P| "
+          f"{r['idempotency']:.3e}, max |P - P_single| "
+          f"{float(diff.abs().max()):.3e}, relative Frobenius {rel:.3e}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if launches == 0:
+        raise AssertionError("the sharded purification never launched the "
+                             "kernel")
+    if not (report["ok"] and r["converged"]):
+        raise AssertionError(f"sharded purification failed: {r}")
+    if r["idempotency"] > IDEMPOTENCY_TOL:
+        raise AssertionError(f"P is no projector: {r['idempotency']}")
+    if abs(r["iterations"] - r1["iterations"]) > 1:
+        raise AssertionError(f"{r['iterations']} sweeps against phase 4's "
+                             f"{r1['iterations']}")
+    if not rel <= SHARDED_P_TOL:
+        raise AssertionError(f"sharded P vs single-device P: {rel}")
+    if per_sweep != want_sweep:
+        raise AssertionError(f"bytes per sweep {per_sweep} != {want_sweep}")
+    return launches
+
+
+def phase_purify_breakdown(torch, B, SI, mesh_mod) -> None:
+    """Phase 12: where the purification's time goes, single-device and
+    sharded on (l 2, r 2, c 2): one more chain of each under
+    torch.profiler (device ms by kernel group, kernels, idle share; the
+    profiler adds host time, so the idle share is an upper bound)."""
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern="decay",
+                     symmetric=True, device="cuda")
+    mesh = mesh_mod.make_spgemm_mesh(p=2, l=2, device="cuda")
+    kw = dict(threshold=THRESHOLD, filter_eps=FILTER_EPS, max_iter=100,
+              tol=1e-6, sync_every=4, backend="cuda")
+    for name, x in (("single-device", h), ("sharded (2,2,2)",
+                                           B.shard_bsm(h, mesh))):
+        wall, groups, n, top = _profile_window(
+            torch, lambda: SI.density_matrix(x, 0.0, **kw),
+            group=_purify_group, names=("block_spgemm", "copies", "other"))
+        busy = sum(groups.values())
+        if busy <= 0:
+            raise AssertionError(f"the profiler saw no device time ({name})")
+        per = ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+        print(f"[12] {name} purification under the profiler: wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+              f"{1.0 - busy / wall:.4f}), {n} kernels; device ms: {per}",
+              flush=True)
+        for ms, count, key in top:
+            print(f"[12]   {ms:10.1f} ms  x{count:<6d} {key[:90]}",
+                  flush=True)
+    del h
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -654,15 +847,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
     from repro_torch.core import bsm as B
+    from repro_torch.core import commvolume as CV
     from repro_torch.core import engine as E
     from repro_torch.core import local_mm as lm
-    from repro_torch.configs import get_arch
     from repro_torch.core import plan
+    from repro_torch.core import signiter as SI
+    from repro_torch.core import transport as TR
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_spgemm as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import stacks as S
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import purify, serve
     from repro_torch.models import transformer as T
 
@@ -688,7 +885,7 @@ def main() -> int:
 
     phase_kernel_vs_plain(torch, np, K, S, ref, lm, B)
     m = phase_full_width_multiply(torch, K, S, B, E, plan)
-    launches = phase_purify(torch, K, purify)
+    launches, single = phase_purify(torch, K, purify)
     print(f"[4] phases 1-4 in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_flash_vs_plain(torch, np, FA, ref)
     phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch)
@@ -697,12 +894,18 @@ def main() -> int:
     del engine, toks
     torch.cuda.empty_cache()
     f = phase_flash_serving_shape(torch, np, FA)
+    phase_engines(torch, B, E, CV, TR, lm, K, plan, mesh_mod)
+    sharded_launches = phase_sharded_purify(torch, K, CV, plan, mesh_mod,
+                                            purify, single)
+    del single
+    phase_purify_breakdown(torch, B, SI, mesh_mod)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
         source="src/repro_torch/kernels/csrc/block_spgemm.cu",
         replaces="src/repro/kernels/block_spgemm.py:217",
-        launches=launches, max_abs_err=m["max_abs_err"], ms=m["ms"],
+        launches=launches + sharded_launches, max_abs_err=m["max_abs_err"],
+        ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=m["library_ms"],
     ), dict(
@@ -713,7 +916,9 @@ def main() -> int:
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[10] all phases passed in {time.perf_counter() - t0:.1f} s",
+    print(f"[13] all phases passed in {time.perf_counter() - t0:.1f} s; "
+          f"block_spgemm launches {launches} (single-device purification) "
+          f"+ {sharded_launches} (sharded)",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,5 @@
 """Block-sparse matrix format (DBCSR analogue), the torch twin of
-``repro/core/bsm.py`` — the single-device part.
+``repro/core/bsm.py``.
 
 A matrix is a dense *block grid* plus a boolean occupation mask and
 per-block Frobenius norms:
@@ -11,7 +11,12 @@ per-block Frobenius norms:
 The mask and norms drive DBCSR's on-the-fly filtering (skip block products
 with ``norm(A_ik) * norm(B_kj) <= eps``) and post-filtering (drop result
 blocks below threshold).  All three live on one device; operations keep
-them there.  ``ShardedBSM`` arrives with the distributed slice.
+them there.
+
+``ShardedBSM`` holds the same triple in the 2D home layout of a mesh of
+ranks (``launch/mesh.py``): one (blocks, mask, norms) shard per rank, block
+rows split over ``r`` and block columns over ``c``, replicated over a
+depth axis ``l``.  ``shard_bsm`` / ``unshard`` are the chain boundaries.
 """
 from __future__ import annotations
 
@@ -187,10 +192,240 @@ def axpy(s, x: BlockSparseMatrix, y: BlockSparseMatrix) -> BlockSparseMatrix:
                              norms=block_norms(blocks))
 
 
-def cast_bsm(m: BlockSparseMatrix, dtype: torch.dtype) -> BlockSparseMatrix:
-    """Storage-dtype cast with norm recalibration; identity when already at
+def cast_bsm(m, dtype: torch.dtype):
+    """Storage-dtype cast with norm recalibration for either matrix kind
+    (``BlockSparseMatrix`` or ``ShardedBSM``); identity when already at
     ``dtype``."""
     return m.astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# ShardedBSM: a matrix resident on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+_ITEM_9 = ("block->device assignments are ROADMAP.md Queue A item 9; the "
+           "port shards in the identity layout (assignment=None)")
+
+
+def _shard_coords(mesh, rank: int) -> tuple[int, int]:
+    """(r, c) position of a rank on its layer grid."""
+    c = dict(zip(mesh.axis_names, mesh.coords(rank)))
+    return c["r"], c["c"]
+
+
+@dataclass(frozen=True)
+class ShardedBSM:
+    """A block-sparse matrix resident on a mesh of ranks for the lifetime
+    of an iteration chain.
+
+    Same triple as :class:`BlockSparseMatrix`, one shard per rank in
+    flattened-rank order: rank (.., i, j) holds block rows
+    ``[i * nb_r / p_r, (i + 1) * nb_r / p_r)`` and the matching block
+    columns over ``c``, on ``mesh.devices[rank]``.  Ranks that differ only
+    in ``l`` hold the same shard (one copy per device).  The algebra runs
+    rank-local and updates norms as ``BlockSparseMatrix``'s does; a chain
+    shards once (``shard_bsm``) and gathers once (``unshard``).
+    """
+
+    blocks: tuple  # per rank: (nb_r / p_r, nb_c / p_c, bs_r, bs_c)
+    mask: tuple  # per rank: bool
+    norms: tuple  # per rank: float32
+    mesh: object  # the identity layout; assignments are item 9
+
+    @classmethod
+    def from_shards(cls, blocks, mask, mesh) -> "ShardedBSM":
+        """Shards of blocks and mask, norms computed rank-local."""
+        return cls(tuple(blocks), tuple(mask),
+                   tuple(block_norms(b) for b in blocks), mesh)
+
+    def _join(self, other: "ShardedBSM") -> None:
+        if other.mesh != self.mesh:
+            raise ValueError("operands sharded on different meshes")
+
+    # ---- shape helpers -------------------------------------------------
+    @property
+    def nb_r(self) -> int:
+        return self.blocks[0].shape[0] * self.mesh.shape["r"]
+
+    @property
+    def nb_c(self) -> int:
+        return self.blocks[0].shape[1] * self.mesh.shape["c"]
+
+    @property
+    def bs_r(self) -> int:
+        return self.blocks[0].shape[2]
+
+    @property
+    def bs_c(self) -> int:
+        return self.blocks[0].shape[3]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.nb_r * self.bs_r, self.nb_c * self.bs_c)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    # ---- rank-local algebra (norms updated incrementally) --------------
+    def add(self, other: "ShardedBSM") -> "ShardedBSM":
+        self._join(other)
+        blocks = [a + b for a, b in zip(self.blocks, other.blocks)]
+        return ShardedBSM.from_shards(
+            blocks, [a | b for a, b in zip(self.mask, other.mask)], self.mesh)
+
+    def scale(self, s) -> "ShardedBSM":
+        out_b, out_n = [], []
+        for b, n in zip(self.blocks, self.norms):
+            sr = _scalar(s, b.dtype, b.device)
+            out_b.append(b * sr)
+            out_n.append(n * torch.abs(sr).to(torch.float32))
+        return ShardedBSM(tuple(out_b), self.mask, tuple(out_n), self.mesh)
+
+    def axpy(self, s, y: "ShardedBSM") -> "ShardedBSM":
+        """s * self + y."""
+        self._join(y)
+        blocks = [x * _scalar(s, x.dtype, x.device) + yb
+                  for x, yb in zip(self.blocks, y.blocks)]
+        return ShardedBSM.from_shards(
+            blocks, [a | b for a, b in zip(self.mask, y.mask)], self.mesh)
+
+    def filter(self, threshold: float) -> "ShardedBSM":
+        """Post-filter on the shards: drop blocks with norm <= threshold
+        (derived norms, no recompute, no gather)."""
+        out = [filter_bsm(BlockSparseMatrix(b, m, n), threshold)
+               for b, m, n in zip(self.blocks, self.mask, self.norms)]
+        return ShardedBSM(tuple(o.blocks for o in out),
+                          tuple(o.mask for o in out),
+                          tuple(o.norms for o in out), self.mesh)
+
+    def astype(self, dtype: torch.dtype) -> "ShardedBSM":
+        """Cast block storage on the shards, norms recalibrated from the
+        cast blocks."""
+        if dtype == self.dtype:
+            return self
+        return ShardedBSM.from_shards([b.to(dtype) for b in self.blocks],
+                                      self.mask, self.mesh)
+
+    # ---- reductions (device scalars on the mesh's first device) --------
+    def _home_sum(self, per_rank) -> torch.Tensor:
+        """Sum of ``per_rank(rank)`` over one copy of every shard."""
+        dev = self.mesh.devices[0]
+        return sum(per_rank(r).to(dev) for r in self.mesh.home_ranks())
+
+    def frobenius_norm(self) -> torch.Tensor:
+        return torch.sqrt(self._home_sum(
+            lambda r: torch.sum(torch.square(self.norms[r]))))
+
+    def nnz_blocks(self) -> torch.Tensor:
+        return self._home_sum(lambda r: self.mask[r].sum())
+
+    def occupancy(self) -> torch.Tensor:
+        return self.nnz_blocks().to(torch.float32) / (self.nb_r * self.nb_c)
+
+    def trace(self) -> torch.Tensor:
+        """Trace over the occupied diagonal blocks: each rank sums the
+        diagonal blocks its shard holds."""
+        hr, hc = self.blocks[0].shape[:2]
+
+        def part(rank):
+            i, j = _shard_coords(self.mesh, rank)
+            b, m = self.blocks[rank], self.mask[rank]
+            lo, hi = max(i * hr, j * hc), min((i + 1) * hr, (j + 1) * hc)
+            if lo >= hi:
+                return torch.zeros((), dtype=b.dtype, device=b.device)
+            d = torch.arange(lo, hi, device=b.device)
+            tr = torch.diagonal(b[d - i * hr, d - j * hc], dim1=-2,
+                                dim2=-1).sum(-1)
+            return torch.sum(tr * m[d - i * hr, d - j * hc])
+
+        return self._home_sum(part)
+
+    # ---- chain-boundary conversions ------------------------------------
+    def unshard(self) -> BlockSparseMatrix:
+        """Gather the triple onto the mesh's first device — the chain
+        boundary."""
+        dev = self.mesh.devices[0]
+        p_c = self.mesh.shape["c"]
+        home = self.mesh.home_ranks()
+
+        def cat(parts):
+            rows = [torch.cat([parts[r].to(dev) for r in home[i:i + p_c]],
+                              dim=1) for i in range(0, len(home), p_c)]
+            return torch.cat(rows, dim=0)
+
+        return BlockSparseMatrix(blocks=cat(self.blocks), mask=cat(self.mask),
+                                 norms=cat(self.norms))
+
+    def to_dense(self) -> torch.Tensor:
+        return self.unshard().to_dense()
+
+
+def shard_bsm(m: BlockSparseMatrix | ShardedBSM, mesh,
+              assignment=None) -> ShardedBSM:
+    """Scatter a BlockSparseMatrix to its 2D home layout on ``mesh``: each
+    rank gets its (r, c) shard on its own device, copied once per device
+    (ranks of one device that differ only in ``l`` share the copy).
+    Idempotent on a matrix already sharded on ``mesh``."""
+    if assignment not in (None, "identity"):
+        raise NotImplementedError(_ITEM_9)
+    if isinstance(m, ShardedBSM):
+        if m.mesh != mesh:
+            raise ValueError("matrix is already sharded on a different mesh")
+        return m
+    if "r" not in mesh.axis_names or "c" not in mesh.axis_names:
+        raise ValueError(
+            f"SpGEMM meshes carry ('r', 'c') axes; got {mesh.axis_names}"
+        )
+    p_r, p_c = mesh.shape["r"], mesh.shape["c"]
+    if m.nb_r % p_r or m.nb_c % p_c:
+        raise ValueError(
+            f"block grid {m.nb_r}x{m.nb_c} does not divide the "
+            f"{p_r}x{p_c} process grid"
+        )
+    hr, hc = m.nb_r // p_r, m.nb_c // p_c
+    copies: dict[tuple, tuple] = {}
+    shards = []
+    for rank in range(mesh.size):
+        i, j = _shard_coords(mesh, rank)
+        dev = mesh.devices[rank]
+        key = (i, j, dev)
+        if key not in copies:
+            copies[key] = tuple(
+                x[i * hr:(i + 1) * hr, j * hc:(j + 1) * hc].to(
+                    dev, copy=True, memory_format=torch.contiguous_format)
+                for x in (m.blocks, m.mask, m.norms))
+        shards.append(copies[key])
+    blocks, mask, norms = zip(*shards)
+    return ShardedBSM(blocks, mask, norms, mesh)
+
+
+def unshard_bsm(m: BlockSparseMatrix | ShardedBSM) -> BlockSparseMatrix:
+    """Chain-boundary gather; identity on an unsharded matrix."""
+    return m.unshard() if isinstance(m, ShardedBSM) else m
+
+
+def unshard_row_scatter(mesh, blocks, mask) -> BlockSparseMatrix:
+    """Gather C from the stacked engine's ``c_layout="scatter"``: rank
+    (l, r, c) holds chunk l of block-row panel r (r-major, l-minor)."""
+    dev = mesh.devices[0]
+    s = mesh.shape
+    rows_b, rows_m = [], []
+    for i in range(s["r"]):
+        for li in range(s["l"]):
+            ranks = [mesh.rank((li, i, j)) for j in range(s["c"])]
+            rows_b.append(torch.cat([blocks[r].to(dev) for r in ranks], 1))
+            rows_m.append(torch.cat([mask[r].to(dev) for r in ranks], 1))
+    cb = torch.cat(rows_b, 0)
+    return BlockSparseMatrix(blocks=cb, mask=torch.cat(rows_m, 0),
+                             norms=block_norms(cb))
+
+
+def sharded_identity(nb: int, bs, mesh, dtype: torch.dtype = torch.float32,
+                     assignment=None) -> ShardedBSM:
+    """Blocked identity, sharded on ``mesh``."""
+    return shard_bsm(identity(nb, bs, dtype, device=mesh.devices[0]), mesh,
+                     assignment=assignment)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The public ``multiply`` entry point, single device — the torch twin of
+"""The public ``multiply`` entry point — the torch twin of
 ``repro/core/engine.py``.
 
 Local backends (``core/local_mm.py``): ``dense`` masked contraction,
@@ -12,17 +12,30 @@ is the oracle.  The compacted path runs through the plan layer's
 pattern-signature cache (``plan.get_product_stacks``): a repeated pattern
 reuses its product list.
 
-The distributed engines (``cannon``, ``onesided``, ``gather``,
-``twofive``), the tuner (``engine="auto"`` with a mesh), pattern
-envelopes, panel transports and block assignments arrive with later
-slices; asking for them raises ``NotImplementedError``.
+With a mesh (``launch/mesh.py``) the multiply runs one of the paper's
+engines over the mesh's ranks (``plan.execute``): ``cannon`` (PTP,
+Algorithm 1), ``onesided`` (OS1), ``gather`` (all-gather pull) and
+``twofive`` (OSL, Algorithm 2: the pull body on a 2D mesh, the stacked
+body on an (l, r, c) mesh).  ``ShardedBSM`` operands stay sharded
+(``plan.execute_sharded``).  Still later slices, each raising
+``NotImplementedError`` that names its ROADMAP.md Queue A item: the
+compressed panel transport (item 8), block assignments (item 9), the
+tuner behind ``engine="auto"`` with a mesh (item 10) and pattern envelopes
+(item 11).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.bsm import BlockSparseMatrix, block_norms, filter_bsm
+from repro_torch.core import transport as T
+from repro_torch.core.bsm import (
+    _ITEM_9,
+    BlockSparseMatrix,
+    ShardedBSM,
+    block_norms,
+    filter_bsm,
+)
 from repro_torch.core.local_mm import (
     GATHER_OVERHEAD,
     backend_local_cost,
@@ -36,7 +49,9 @@ ENGINES = ("cannon", "onesided", "gather", "twofive")
 # backends break even under the shared analytic model
 AUTO_DENSE_FILL = 1.0 / GATHER_OVERHEAD
 
-_LATER = "ROADMAP.md Queue A items 7-11"
+_ITEM_10 = ("engine='auto' with a mesh is the tuner, ROADMAP.md Queue A item "
+            "10; name an engine")
+_ITEM_11 = "pattern envelopes are ROADMAP.md Queue A item 11"
 
 
 def _pair_filter(a: BlockSparseMatrix, b: BlockSparseMatrix,
@@ -121,52 +136,94 @@ def multiply_reference(
 
 
 def multiply(
-    a: BlockSparseMatrix,
-    b: BlockSparseMatrix,
+    a: BlockSparseMatrix | ShardedBSM,
+    b: BlockSparseMatrix | ShardedBSM,
     mesh=None,
     *,
     engine: str = "twofive",
     threshold: float = 0.0,
     filter_eps: float | None = None,
     backend: str | None = None,
+    c_layout: str = "2d",
+    l: int | None = None,
     stack_capacity: int | None = None,
     transport=None,
     assignment=None,
     envelope=None,
-) -> BlockSparseMatrix:
-    """Filtered C = A . B on one device.
+) -> BlockSparseMatrix | ShardedBSM:
+    """Filtered C = A . B, on one device or over a mesh of ranks.
 
     threshold  — on-the-fly filter: skip block products with
                  norm(A_ik) * norm(B_kj) <= threshold.
     filter_eps — post-multiplication filter: drop result blocks with
                  norm <= filter_eps (defaults to ``threshold``).
-    backend    — local stage: "dense" | "stacks" | "cuda" | "auto"
-                 (occupancy heuristic, see ``choose_backend``); None is
-                 "dense", as the reference's None is "jnp".
+    backend    — local stage of every rank: "dense" | "stacks" | "cuda" |
+                 "auto" (occupancy heuristic on the whole product, see
+                 ``choose_backend``; "dense" for sharded operands, whose
+                 pattern the reference does not walk); None is "dense",
+                 as the reference's None is "jnp".
+    c_layout   — stacked 2.5D only: "2d" or "scatter" (``twofive``).
+    l          — depth of the 2D-mesh ``twofive`` pull engine on square
+                 grids (non-square grids force L = mx/mn).
     stack_capacity — product bound for the compacted backends; derived
-                 exactly from the concrete pattern when omitted.
+                 exactly from each local multiply's pattern when omitted.
+    transport  — None / "auto" / "dense": dense panels (the port's only
+                 mode; "compressed" raises, item 8).
 
-    ``mesh``, ``transport``, ``assignment`` and ``envelope`` belong to the
-    distributed slices and raise ``NotImplementedError``; with no mesh the
-    engine is vestigial, as in the reference.
+    With no mesh the engine is vestigial, as in the reference.
+    ShardedBSM operands (both, on one mesh) run on their shards and come
+    back sharded, post-filtered rank-local; replicated operands with a
+    mesh are sharded once, multiplied and gathered.  ``assignment``
+    other than None / "identity", ``envelope`` and ``engine="auto"`` with
+    a mesh raise ``NotImplementedError``.
     """
     if engine != "auto" and engine not in ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}; one of {ENGINES} or 'auto'"
         )
-    for name, value in (("mesh", mesh), ("transport", transport),
-                        ("assignment", assignment), ("envelope", envelope)):
-        if value is not None:
-            raise NotImplementedError(
-                f"multiply({name}=...) belongs to the distributed slices of "
-                f"the port ({_LATER}); this slice multiplies on one device"
+    if envelope is not None:
+        raise NotImplementedError(_ITEM_11)
+    if assignment not in (None, "identity"):
+        raise NotImplementedError(_ITEM_9)
+    tr = T.resolve(transport)
+    sharded = isinstance(a, ShardedBSM) or isinstance(b, ShardedBSM)
+    if sharded:
+        if not (isinstance(a, ShardedBSM) and isinstance(b, ShardedBSM)):
+            raise TypeError(
+                "mixed ShardedBSM / BlockSparseMatrix operands; shard both "
+                "(bsm.shard_bsm) or neither"
             )
-    c = multiply_reference(
-        a, b, threshold=threshold,
-        backend="dense" if backend is None else backend,
-        stack_capacity=stack_capacity,
-    )
+        if a.mesh != b.mesh:
+            raise ValueError("operands sharded on different meshes")
+        if mesh is not None and mesh != a.mesh:
+            raise ValueError("mesh argument conflicts with operand mesh")
+        mesh = a.mesh
+    if engine == "auto":
+        if mesh is not None:
+            raise NotImplementedError(_ITEM_10)
+        engine = "twofive"  # single device: the engine is vestigial
+    if backend is None:
+        backend = "dense"
     eps = threshold if filter_eps is None else filter_eps
+    if sharded:
+        c = plan_mod.execute_sharded(
+            a, b, engine, threshold=threshold,
+            backend="dense" if backend == "auto" else backend,
+            c_layout=c_layout, l=l, stack_capacity=stack_capacity,
+            transport=tr,
+        )
+        return c.filter(eps) if eps > 0.0 else c
+    if mesh is None:
+        c = multiply_reference(a, b, threshold=threshold, backend=backend,
+                               stack_capacity=stack_capacity)
+    else:
+        if backend == "auto":
+            backend = choose_backend(a, b, threshold)
+        c = plan_mod.execute(
+            a, b, mesh, engine, threshold=threshold, backend=backend,
+            c_layout=c_layout, l=l, stack_capacity=stack_capacity,
+            transport=tr,
+        )
     if eps > 0.0:
         c = filter_bsm(c, eps)
     return c

@@ -37,6 +37,12 @@ from repro_torch.kernels.stacks import (
 
 BACKENDS = ("dense", "stacks", "cuda")
 
+# local-stage calls since the last reset (a plain counter): a sharded
+# multiply makes one per rank per tick and panel product.  Each call of
+# the ``cuda`` backend syncs the host three times (product count,
+# ``nonzero`` in the compaction and in the group masks), ``stacks`` twice
+calls = 0
+
 # --- cost-model constants: PLACEHOLDERS carried from the TPU v5e model ----
 # None of them is an H100 fact; each is to be measured on the card (the
 # tuner slice).  They keep the ranking logic in the reference's shape.
@@ -200,6 +206,8 @@ def local_filtered_mm(
     Padding adds nothing, so the result is the same.  Every backend
     accumulates in f32 regardless of the storage dtype.
     """
+    global calls
+    calls += 1
     ni, nk = a_blocks.shape[:2]
     nj = b_blocks.shape[1]
     ok = pair_filter(a_mask, a_norms, b_mask, b_norms, threshold)

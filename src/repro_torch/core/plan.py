@@ -1,18 +1,45 @@
-"""Plan layer, local part — the torch twin of the pattern and chain caches
-of ``repro/core/plan.py``.
+"""Plan layer — the torch twin of ``repro/core/plan.py``: the schedule
+layer of the distributed engines and the pattern and chain caches.
+
+A ``MultiplyPlan`` compiles a ``core.topology.Topology`` (the paper's
+Algorithm 2 coordinates) into the static communication schedule an engine
+body executes over a mesh of ranks: pre-shift permutations, per-tick ring
+shifts or one-sided pulls, per-layer k-chunks, and the partial-C
+reduction.  Plan kinds, as in the reference:
+
+``ring``     Cannon / PTP (Algorithm 1): pre-shift + V ring shifts, square
+             2D meshes.
+``pull``     Algorithm 2 on the 2D (r, c) grid with a virtual depth
+             (non-square grids with forced L = mx/mn, and L = 1 = OS1):
+             every one-sided rget is a static partial permutation.
+``stacked``  The (l, r, c) mesh formulation: A/B replicated over ``l``,
+             layer l runs Cannon over its k-chunk, partial C summed over
+             ``l`` (uneven chunks by per-layer tick masks).
+``gather``   Fused all-gather pull-from-home (OS1), any grid.
+
+``build_shard_body`` returns an engine's body over rank lists, and
+``execute`` / ``execute_sharded`` run one multiply from replicated or
+sharded operands.  The tuner, block assignments and compressed transport
+of the reference's execution path are later items (ROADMAP.md Queue A
+items 8-10).
 
 ``get_product_stacks`` caches compacted product lists per sparsity-pattern
 signature, so a repeated pattern skips compaction; ``get_chain_program``
 caches the fused sign-iteration sweep per key.  The reference's
-jit-program cache (``get_local_compiled``) has no twin: PyTorch runs
-eagerly.  The schedule layer (``plan_multiply`` and the engines' plans)
-arrives with the distributed slice.
+jit-program cache (``get_compiled``) has no twin: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import asdict, dataclass
+from functools import lru_cache
 
+from repro_torch.core.topology import (
+    Topology,
+    coords3d,
+    group_k,
+    make_topology,
+)
 from repro_torch.kernels.stacks import (
     bucket_capacity,
     compact_pair_mask,
@@ -49,6 +76,7 @@ def clear_cache() -> None:
     global _stats
     _pattern_cache.clear()
     _chain_cache.clear()
+    plan_multiply.cache_clear()
     _stats = CacheStats()
 
 
@@ -101,3 +129,424 @@ def get_chain_program(key: tuple, make_program):
         _chain_cache.popitem(last=False)
         _stats.evictions += 1
     return prog
+
+
+# ---------------------------------------------------------------------------
+# the schedule layer (plans of the four engines)
+# ---------------------------------------------------------------------------
+
+Perm = tuple[tuple[int, int], ...]
+
+
+@dataclass(frozen=True)
+class PullRound:
+    """One partial permutation of one home-shard subpanel.
+
+    ``slot``  — which of the rank's L_R A panels / L_C B panels this
+                round feeds (the i3 / j3 coordinate of ``group_products``).
+    ``q``     — subpanel index within the home shard (virtual index modulo
+                the shard's subpanel count); selects a static slice.
+    ``pairs`` — (home, requester) flattened-mesh index pairs; a valid
+                partial permutation (unique sources, unique destinations).
+    """
+
+    slot: int
+    q: int
+    pairs: Perm
+
+
+@dataclass(frozen=True)
+class MultiplyPlan:
+    """Static communication schedule for one (mesh, engine) pair."""
+
+    engine: str
+    kind: str  # "ring" | "pull" | "stacked" | "gather"
+    mesh: object  # the mesh the schedule was compiled for
+    axes: tuple[str, ...]  # mesh axes of the flattened permutation domain
+    p_r: int
+    p_c: int
+    topo: Topology
+    ticks: int
+    # --- ring (cannon) ---
+    pre_a: Perm = ()
+    pre_b: Perm = ()
+    shift_a: Perm = ()  # one ring hop of A (along c)
+    shift_b: Perm = ()  # one ring hop of B (along r)
+    # --- pull (Algorithm 2 on the 2D grid) ---
+    a_pulls: tuple[tuple[PullRound, ...], ...] = ()  # [tick][round]
+    b_pulls: tuple[tuple[PullRound, ...], ...] = ()
+    c_rounds: tuple[Perm, ...] = ()  # L-1 partial-C sends
+    ca: int = 1  # A subpanels per home shard (= V / P_C)
+    cb: int = 1  # B subpanels per home shard (= V / P_R)
+    # --- stacked ((l, r, c) mesh) ---
+    layer_groups: tuple[int, ...] = ()  # ticks of each layer
+    chunk_starts: tuple[int, ...] = ()  # k-chunk offset of each layer
+
+    @property
+    def l(self) -> int:
+        return self.topo.l
+
+    def validate_blocks(
+        self, nb_r: int, nb_c: int, nb_k: int | None = None
+    ) -> None:
+        """Check the product's block grids divide this plan's topology.
+
+        ``(nb_r, nb_c)`` is the output grid; ``nb_k`` is the contracted
+        block count (A is ``nb_r x nb_k``, B is ``nb_k x nb_c``).  With
+        ``nb_k=None`` the square contract applies (``nb_k`` equal to
+        both).  A's column panels shard over ``p_c``, B's row panels over
+        ``p_r``, and the pull formulation cuts k into V virtual subpanels.
+        """
+        v = self.topo.v
+        if nb_r % self.p_r or nb_c % self.p_c:
+            raise ValueError(
+                f"block grid {nb_r}x{nb_c} does not divide the "
+                f"{self.p_r}x{self.p_c} process grid"
+            )
+        if nb_k is None:
+            if self.kind == "pull" and (nb_r % v or nb_c % v):
+                raise ValueError(
+                    f"block grid {nb_r}x{nb_c} does not divide the virtual "
+                    f"grid V={v} (required for one-sided panel pulls)"
+                )
+            return
+        if nb_k % self.p_c or nb_k % self.p_r:
+            raise ValueError(
+                f"contracted block count nb_k={nb_k} does not divide the "
+                f"{self.p_r}x{self.p_c} process grid (A column panels "
+                f"shard over p_c={self.p_c}, B row panels over "
+                f"p_r={self.p_r})"
+            )
+        if self.kind == "pull" and nb_k % v:
+            raise ValueError(
+                f"contracted block count nb_k={nb_k} does not divide the "
+                f"virtual grid V={v} (required for one-sided k-subpanel "
+                f"pulls)"
+            )
+
+
+def _ring_perm(p: int, shift: int = 1) -> Perm:
+    """Receive from (k + shift) % p: the Cannon ring hop."""
+    return tuple((src, (src - shift) % p) for src in range(p))
+
+
+def _partition_rounds(pairs: list[tuple[int, int]]) -> list[Perm]:
+    """Split (src, dst) pairs into valid partial permutations.
+
+    A source that must multicast (same panel requested by several ranks in
+    one tick — the sqrt(L) amortization of the paper) is serialized over
+    rounds; each round has unique sources and unique destinations.
+    """
+    rounds: list[list[tuple[int, int]]] = []
+    used: list[tuple[set[int], set[int]]] = []
+    for src, dst in pairs:
+        for r, (srcs, dsts) in zip(rounds, used):
+            if src not in srcs and dst not in dsts:
+                r.append((src, dst))
+                srcs.add(src)
+                dsts.add(dst)
+                break
+        else:
+            rounds.append([(src, dst)])
+            used.append(({src}, {dst}))
+    return [tuple(r) for r in rounds]
+
+
+def _pull_schedule(topo: Topology):
+    """Per-tick pull rounds + C-reduction rounds from Algorithm 2.
+
+    Per tick group ``g`` a rank at (i, j) pulls the L_R A panels (m, k) and
+    L_C B panels (k, n) of ``group_products`` from their *home* 2D
+    positions: virtual A panel (m, k) lives on rank (m, k // ca) as
+    subpanel k % ca (ca = V / P_C), B panel (k, n) on (k // cb, n) as
+    subpanel k % cb.
+    """
+    p_r, p_c, v, s = topo.p_r, topo.p_c, topo.v, topo.side3d
+    ca, cb = v // p_c, v // p_r
+
+    def flat(i: int, j: int) -> int:
+        return i * p_c + j
+
+    a_ticks: list[tuple[PullRound, ...]] = []
+    b_ticks: list[tuple[PullRound, ...]] = []
+    for g in range(topo.ticks):
+        a_classes: dict[tuple[int, int], list[tuple[int, int]]] = {}
+        b_classes: dict[tuple[int, int], list[tuple[int, int]]] = {}
+        for i in range(p_r):
+            for j in range(p_c):
+                _, _, lay = coords3d(topo, i, j)
+                if g >= topo.layer_groups(lay):
+                    continue  # this layer's k-chunk is exhausted
+                k = group_k(topo, i, j, g)
+                im, jn = i % s, j % s
+                for i3 in range(topo.l_r):
+                    m = i3 * s + im
+                    a_classes.setdefault((i3, k % ca), []).append(
+                        (flat(m, k // ca), flat(i, j))
+                    )
+                for j3 in range(topo.l_c):
+                    n = j3 * s + jn
+                    b_classes.setdefault((j3, k % cb), []).append(
+                        (flat(k // cb, n), flat(i, j))
+                    )
+        a_ticks.append(tuple(
+            PullRound(slot=slot, q=q, pairs=perm)
+            for (slot, q), pairs in sorted(a_classes.items())
+            for perm in _partition_rounds(pairs)
+        ))
+        b_ticks.append(tuple(
+            PullRound(slot=slot, q=q, pairs=perm)
+            for (slot, q), pairs in sorted(b_classes.items())
+            for perm in _partition_rounds(pairs)
+        ))
+
+    # L-1 partial-C sends: round d moves the partial for the panel d steps
+    # along the flattened layer ring to its home (a full permutation).
+    c_rounds: list[Perm] = []
+    for d in range(1, topo.l):
+        pairs = []
+        for i in range(p_r):
+            for j in range(p_c):
+                _, _, lay = coords3d(topo, i, j)
+                t = (lay + d) % topo.l
+                ti3, tj3 = t % topo.l_r, t // topo.l_r
+                pairs.append(
+                    (flat(i, j), flat(ti3 * s + i % s, tj3 * s + j % s))
+                )
+        c_rounds.append(tuple(pairs))
+    return tuple(a_ticks), tuple(b_ticks), tuple(c_rounds), ca, cb
+
+
+def _resolve_l(p_r: int, p_c: int, l: int | None) -> int:
+    """Default depth: forced mx/mn on non-square grids (the paper's rule),
+    1 on square grids unless the caller asks for more."""
+    if l is not None:
+        return l
+    if p_r != p_c:
+        mn, mx = min(p_r, p_c), max(p_r, p_c)
+        if mx % mn == 0 and mx <= mn * mn:
+            return mx // mn
+    return 1
+
+
+@lru_cache(maxsize=256)
+def plan_multiply(mesh, engine: str, l: int | None = None) -> MultiplyPlan:
+    """Compile the static schedule for (mesh, engine).
+
+    2D meshes carry ("r", "c") axes; the stacked 2.5D formulation uses an
+    ("l", "r", "c") mesh.  ``l`` overrides the depth of pull plans on
+    square grids (non-square grids force L = mx/mn as in the paper).
+    ``mesh`` is anything hashable with ``shape`` and ``axis_names``.
+    """
+    axis_names = tuple(mesh.axis_names)
+    if engine not in ("cannon", "onesided", "gather", "twofive"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if l is not None and engine in ("cannon", "onesided", "gather"):
+        raise ValueError(
+            f"engine {engine!r} has no depth parameter (L is fixed at 1); "
+            "use engine='twofive' for L > 1"
+        )
+
+    if "l" in axis_names:
+        if engine != "twofive":
+            raise ValueError(f"engine {engine!r} does not use an 'l' mesh axis")
+        l_size = mesh.shape["l"]
+        if l is not None and l != l_size:
+            raise ValueError(
+                f"l={l} conflicts with the mesh's 'l' axis of size {l_size}; "
+                "the stacked engine takes its depth from the mesh"
+            )
+        p = mesh.shape["r"]
+        if mesh.shape["c"] != p:
+            raise ValueError(
+                "stacked 2.5D requires square layer grids; use a 2D "
+                "(r, c) mesh for non-square topologies (virtual depth)"
+            )
+        # the mesh formulation's chunk structure: V = p, depth = l_size.
+        topo = Topology(
+            p_r=p, p_c=p, l=l_size, l_r=1, l_c=l_size, side3d=p,
+            v=p, nbuffers_a=2, nbuffers_b=2,
+        )
+        groups = tuple(topo.layer_groups(li) for li in range(l_size))
+        starts = tuple(topo.chunk(li)[0] for li in range(l_size))
+        ticks = max(groups)
+        pre_a = tuple(
+            (
+                (li * p + i) * p + j,
+                (li * p + i) * p + (j - i - starts[li]) % p,
+            )
+            for li in range(l_size)
+            for i in range(p)
+            for j in range(p)
+        )
+        pre_b = tuple(
+            (
+                (li * p + i) * p + j,
+                (li * p + (i - j - starts[li]) % p) * p + j,
+            )
+            for li in range(l_size)
+            for i in range(p)
+            for j in range(p)
+        )
+        return MultiplyPlan(
+            engine=engine, kind="stacked", mesh=mesh, axes=("l", "r", "c"),
+            p_r=p, p_c=p, topo=topo, ticks=ticks,
+            pre_a=pre_a, pre_b=pre_b,
+            shift_a=_ring_perm(p), shift_b=_ring_perm(p),
+            layer_groups=groups, chunk_starts=starts,
+        )
+
+    p_r, p_c = mesh.shape["r"], mesh.shape["c"]
+    if engine == "gather":
+        topo = make_topology(p_r, p_c, 1)
+        return MultiplyPlan(
+            engine=engine, kind="gather", mesh=mesh, axes=("r", "c"),
+            p_r=p_r, p_c=p_c, topo=topo, ticks=1,
+        )
+
+    if engine == "cannon":
+        if p_r != p_c:
+            raise ValueError("Cannon engine requires a square grid")
+        p = p_r
+        topo = make_topology(p, p, 1)
+        pre_a = tuple(
+            (i * p + j, i * p + (j - i) % p) for i in range(p) for j in range(p)
+        )
+        pre_b = tuple(
+            (i * p + j, ((i - j) % p) * p + j) for i in range(p) for j in range(p)
+        )
+        return MultiplyPlan(
+            engine=engine, kind="ring", mesh=mesh, axes=("r", "c"),
+            p_r=p, p_c=p, topo=topo, ticks=topo.v,
+            pre_a=pre_a, pre_b=pre_b,
+            shift_a=_ring_perm(p), shift_b=_ring_perm(p),
+        )
+
+    # onesided / twofive on the plain 2D grid: the pull formulation.
+    depth = 1 if engine == "onesided" else _resolve_l(p_r, p_c, l)
+    topo = make_topology(p_r, p_c, depth)
+    if l is not None and engine == "twofive" and topo.l != l:
+        raise ValueError(
+            f"L={l} is invalid for a {p_r}x{p_c} grid (paper rule); "
+            f"topology resolved L={topo.l}"
+        )
+    a_pulls, b_pulls, c_rounds, ca, cb = _pull_schedule(topo)
+    return MultiplyPlan(
+        engine=engine, kind="pull", mesh=mesh, axes=("r", "c"),
+        p_r=p_r, p_c=p_c, topo=topo, ticks=topo.ticks,
+        a_pulls=a_pulls, b_pulls=b_pulls, c_rounds=c_rounds, ca=ca, cb=cb,
+    )
+
+
+# ---------------------------------------------------------------------------
+# execution: engine bodies over rank lists
+# ---------------------------------------------------------------------------
+
+
+def build_shard_body(plan: MultiplyPlan, *, threshold: float, backend: str,
+                     stack_capacity: int | None = None, transport=None,
+                     c_layout: str = "2d"):
+    """The engine's body over rank lists: ``(ab, am, an, bb, bm, bn) ->
+    (cb, cm)``, each a list of per-rank shards in flattened-rank order.
+
+    Iteration chains (``core/signiter.py``) call it inside their sweep:
+    the multiplies and the algebra between them run on the shards with no
+    re-partitioning.  C comes home in the 2D (r, c) layout unless a
+    stacked plan is asked for ``c_layout="scatter"`` (C reduce-scattered
+    over ``l`` along block rows); other plans ignore ``c_layout``, as in
+    the reference.  ``transport`` defaults to dense.
+    """
+    from repro_torch.core import transport as T
+
+    if c_layout not in ("2d", "scatter"):
+        raise ValueError(f"unknown c_layout {c_layout!r}")
+    kw = dict(
+        threshold=threshold, backend=backend,
+        stack_capacity=stack_capacity, transport=T.resolve(transport),
+    )
+    if plan.kind == "ring":
+        from repro_torch.core.cannon import ring_body
+
+        return ring_body(plan, **kw)
+    if plan.kind == "pull":
+        from repro_torch.core.twofive import pull_body
+
+        return pull_body(plan, **kw)
+    if plan.kind == "stacked":
+        from repro_torch.core.twofive import stacked_body
+
+        return stacked_body(plan, c_layout=c_layout, **kw)
+    if plan.kind == "gather":
+        from repro_torch.core.gather import gather_body
+
+        return gather_body(plan, **kw)
+    raise ValueError(plan.kind)
+
+
+def _validated_plan(a, b, mesh, engine: str, l: int | None) -> MultiplyPlan:
+    """The plan of ``a . b`` on ``mesh``, its block grids checked (the
+    square contract, or the rectangular one with ``nb_k``)."""
+    if a.nb_c != b.nb_r or a.bs_c != b.bs_r:
+        raise ValueError(
+            f"operand shapes do not contract: A is {a.nb_r}x{a.nb_c} "
+            f"blocks of {a.bs_r}x{a.bs_c}, B is {b.nb_r}x{b.nb_c} "
+            f"blocks of {b.bs_r}x{b.bs_c}"
+        )
+    plan = plan_multiply(mesh, engine, l)
+    if (a.nb_c, b.nb_c) == (a.nb_r, a.nb_r):
+        plan.validate_blocks(a.nb_r, a.nb_r)
+    else:
+        plan.validate_blocks(a.nb_r, b.nb_c, a.nb_c)
+    return plan
+
+
+def run_body(plan: MultiplyPlan, body, a, b, *, c_layout: str = "2d"):
+    """The counterpart of the reference's shard_map executors: shard two
+    replicated operands onto ``plan.mesh`` (``bsm.shard_bsm``), run
+    ``body`` over the rank lists, and gather C (one ``BlockSparseMatrix``
+    on the mesh's first device)."""
+    from repro_torch.core import bsm as B
+
+    mesh = plan.mesh
+    sa = B.shard_bsm(a, mesh)
+    sb = sa if b is a else B.shard_bsm(b, mesh)
+    cb, cm = body(sa.blocks, sa.mask, sa.norms, sb.blocks, sb.mask, sb.norms)
+    if plan.kind == "stacked" and c_layout == "scatter":
+        return B.unshard_row_scatter(mesh, cb, cm)
+    return B.ShardedBSM.from_shards(cb, cm, mesh).unshard()
+
+
+def execute(a, b, mesh, engine: str, *, threshold: float = 0.0,
+            backend: str = "dense", c_layout: str = "2d",
+            l: int | None = None, stack_capacity: int | None = None,
+            transport=None):
+    """One distributed multiply from replicated operands: shard, run the
+    engine's body, gather C — the path behind ``engine.multiply`` and the
+    per-engine wrappers (``multiply_2d`` / ``multiply_gather`` /
+    ``multiply_25d``)."""
+    plan = _validated_plan(a, b, mesh, engine, l)
+    body = build_shard_body(plan, threshold=threshold, backend=backend,
+                            stack_capacity=stack_capacity,
+                            transport=transport, c_layout=c_layout)
+    return run_body(plan, body, a, b, c_layout=c_layout)
+
+
+def execute_sharded(a, b, engine: str, *, threshold: float = 0.0,
+                    backend: str = "dense", c_layout: str = "2d",
+                    l: int | None = None,
+                    stack_capacity: int | None = None, transport=None):
+    """Sharded multiply: ShardedBSM in, ShardedBSM out, no gather.  C stays
+    in the 2D home layout its next multiply consumes (``c_layout`` must be
+    "2d")."""
+    from repro_torch.core import bsm as B
+
+    if c_layout != "2d":
+        raise ValueError("sharded chains require c_layout='2d'")
+    if a.mesh != b.mesh:
+        raise ValueError("operands sharded on different meshes")
+    plan = _validated_plan(a, b, a.mesh, engine, l)
+    body = build_shard_body(plan, threshold=threshold, backend=backend,
+                            stack_capacity=stack_capacity,
+                            transport=transport)
+    cb, cm = body(a.blocks, a.mask, a.norms, b.blocks, b.mask, b.norms)
+    return B.ShardedBSM.from_shards(cb, cm, a.mesh)

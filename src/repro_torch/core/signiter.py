@@ -1,6 +1,6 @@
 """Matrix-sign iteration — the paper's driving application (linear-scaling
 DFT density-matrix purification, Eqs. (1)-(3)); the torch twin of
-``repro/core/signiter.py``, single device.
+``repro/core/signiter.py``.
 
     sign(A) = A (A^2)^{-1/2};   X_{n+1} = 1/2 X_n (3 I - X_n^2)
 
@@ -9,20 +9,34 @@ post-multiplication filtering.
 
 ``fused`` (default) — one sweep (X², post-filter, 3I − X², X·Y,
     post-filter, the 0.5 scale, residual and occupancy) is one cached
-    function (``plan.get_chain_program``) that runs eagerly on the device.
+    function (``plan.get_chain_program``) over rank lists.  On one device
+    the list holds one shard and the multiply is ``local_filtered_mm``.
+    With a mesh (``launch/mesh.py``) X is sharded once at the chain
+    boundary (``bsm.shard_bsm``); each multiply is the engine's body over
+    the ranks (``plan.build_shard_body``), the algebra between the two
+    multiplies runs rank-local, and the three convergence partials
+    (residual numerator, denominator, occupancy count) are summed over the
+    ranks once per sweep (``transport.psum``, the reference's one psum).
     Residual and occupancy stay device scalars until every
-    ``sync_every``-th sweep.  Each multiply compacts the current pattern on
-    the device at its exact bucketed capacity, where the reference traces
-    the sweep once at full-cube capacity; padding adds nothing, so the
-    numbers are the same.  Reading the product count costs one sync per
-    multiply; capturing the sweep in a CUDA graph is later work.
+    ``sync_every``-th sweep.  Each local multiply compacts its pattern at
+    the exact bucketed capacity, where the reference traces the sweep once
+    at full-cube capacity; padding adds nothing, so the numbers are the
+    same.  Reading the product count costs one sync per local multiply
+    (three with the CUDA kernel's group masks); capturing the sweep in a
+    CUDA graph is later work.
 
-``legacy`` — the host-driven loop: each multiply re-enters ``multiply()``,
-    the algebra between multiplies runs as separate operations, and the
-    residual syncs every sweep.  Kept as the parity oracle.
+``legacy`` — the host-driven loop: each multiply re-enters ``multiply()``
+    from replicated matrices (sharded and gathered per multiply on a
+    mesh), the algebra between multiplies runs as separate operations, and
+    the residual syncs every sweep.  Kept as the parity oracle.
 
 ``density_matrix`` evaluates P = 1/2 (I - sign(H - mu I)) (paper Eq. (1),
-S = I); trace(P) = #{eigenvalues < mu} is the convergence observable.
+S = I); trace(P) = #{eigenvalues < mu} is the convergence observable.  A
+sharded H stays sharded to the chain boundary.
+
+Still later slices: block assignments (ROADMAP.md Queue A item 9), the
+tuner behind ``engine="auto"`` with a mesh (item 10) and pattern envelopes
+(item 11) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,8 +46,9 @@ import torch
 
 from repro_torch.core import bsm as B
 from repro_torch.core import plan as plan_mod
+from repro_torch.core import transport as T
 from repro_torch.core.bsm import block_norms
-from repro_torch.core.engine import multiply
+from repro_torch.core.engine import _ITEM_10, multiply
 from repro_torch.core.local_mm import local_filtered_mm
 
 
@@ -52,18 +67,24 @@ class SignIterStats:
     #   legacy: fresh product-list compactions (pattern_misses delta)
 
 
-def _check_single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded sign iteration arrives with the distributed slices "
-            "(ROADMAP.md Queue A item 9); pass mesh=None"
-        )
+def _check_engine(mesh, engine: str, assignment) -> str:
+    """The chain's engine: ``"auto"`` is vestigial on one device and the
+    tuner (item 10) on a mesh; assignments are item 9."""
+    if assignment not in (None, "identity"):
+        raise NotImplementedError(B._ITEM_9)
+    if engine == "auto":
+        if mesh is not None:
+            raise NotImplementedError(_ITEM_10)
+        return "twofive"
+    return engine
 
 
-def _scale_to_unit_spectrum(x: B.BlockSparseMatrix) -> B.BlockSparseMatrix:
+def _scale_to_unit_spectrum(x):
     """Scale X0 so its spectrum lies in [-1, 1] (Frobenius bound)."""
-    nrm = x.frobenius_norm()
-    return B.scale(x, 1.0 / torch.clamp(nrm, min=1e-30))
+    s = 1.0 / torch.clamp(x.frobenius_norm(), min=1e-30)
+    if isinstance(x, B.ShardedBSM):
+        return x.scale(s)
+    return B.scale(x, s)
 
 
 # ---------------------------------------------------------------------------
@@ -71,13 +92,16 @@ def _scale_to_unit_spectrum(x: B.BlockSparseMatrix) -> B.BlockSparseMatrix:
 # ---------------------------------------------------------------------------
 
 
-def _make_sweep(mm, filter_eps: float, *, total_blocks: int):
-    """One whole Newton-Schulz sweep as a single function.
+def _make_sweep(mm, reduce, filter_eps: float, *, total_blocks: int):
+    """One whole Newton-Schulz sweep as a single function over rank lists.
 
-    ``mm(ab, am, an, bb, bm, bn) -> (cb, cm)`` is the multiply body
-    (``local_filtered_mm`` on one device).  Everything between the two
-    multiplies is block algebra with incrementally-updated norms; the
-    residual and occupancy leave as device scalars.
+    ``mm(ab, am, an, bb, bm, bn) -> (cb, cm)`` is the multiply over the
+    rank lists (the engine's body, or ``local_filtered_mm`` on a list of
+    one); ``reduce`` sums the per-rank convergence partials over the
+    ranks (``transport.psum``; the identity for one rank).  Everything
+    between the two multiplies is rank-local block algebra with
+    incrementally-updated norms; the residual and occupancy leave as
+    device scalars.
     """
     eps = float(filter_eps)
 
@@ -94,33 +118,49 @@ def _make_sweep(mm, filter_eps: float, *, total_blocks: int):
     def sweep(xb, xm, xn, ib, im):
         # X^2 (multiply 1) + post-filter, mirroring multiply(filter_eps=...)
         x2b, x2m = mm(xb, xm, xn, xb, xm, xn)
-        x2n = block_norms(x2b)
-        x2b, x2m, x2n = post_filter(x2b, x2m, x2n)
-        # Y = 3I - X^2, norms from the new blocks
-        yb = ib * 3.0 - x2b  # 3 and 1/2 are exact in every storage dtype
-        ym = im | x2m
-        yn = block_norms(yb)
+        yb, ym, yn = [], [], []
+        for r in range(len(xb)):
+            b, m, _ = post_filter(x2b[r], x2m[r], block_norms(x2b[r]))
+            # Y = 3I - X^2, norms from the new blocks
+            y = ib[r] * 3.0 - b  # 3 and 1/2 are exact in every storage dtype
+            yb.append(y)
+            ym.append(im[r] | m)
+            yn.append(block_norms(y))
+        del x2b, x2m
         # X . Y (multiply 2) + post-filter + the 1/2 scale (derived norms)
         cb, cm = mm(xb, xm, xn, yb, ym, yn)
-        cn = block_norms(cb)
-        cb, cm, cn = post_filter(cb, cm, cn)
-        cb = cb * 0.5
-        cn = cn * 0.5
-        # convergence: || X_{n+1} - X_n ||_F / || X_{n+1} ||_F
-        num_sq = torch.sum(torch.square((cb - xb).to(torch.float32)))
-        den_sq = torch.sum(torch.square(cn))
+        del yb, ym, yn
+        out_b, out_m, out_n, partials = [], [], [], []
+        for r in range(len(xb)):
+            b, m, nn = post_filter(cb[r], cm[r], block_norms(cb[r]))
+            b = b * 0.5
+            nn = nn * 0.5
+            # convergence: || X_{n+1} - X_n ||_F / || X_{n+1} ||_F, as
+            # per-rank partial sums (and the occupied-block count)
+            partials.append(torch.stack([
+                torch.sum(torch.square((b - xb[r]).to(torch.float32))),
+                torch.sum(torch.square(nn)),
+                m.to(torch.float32).sum(),
+            ]))
+            out_b.append(b)
+            out_m.append(m)
+            out_n.append(nn)
+        num_sq, den_sq, occ_cnt = reduce(partials)[0]
         residual = torch.sqrt(num_sq) / torch.clamp(torch.sqrt(den_sq),
                                                     min=1e-30)
-        occupancy = cm.to(torch.float32).sum() / total_blocks
-        return cb, cm, cn, residual, occupancy
+        occupancy = occ_cnt / total_blocks
+        return out_b, out_m, out_n, residual, occupancy
 
     return sweep
 
 
-def get_sweep_program(x: B.BlockSparseMatrix, *, threshold: float,
-                      filter_eps: float, backend: str):
-    """The fused sweep for (shape, dtype, device, thresholds, backend),
-    cached in the plan layer (``chain_hits`` / ``chain_misses``).
+def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
+                      threshold: float, filter_eps: float, backend: str,
+                      l: int | None = None):
+    """The fused sweep for (mesh, engine, L, shape, dtype, device,
+    thresholds, backend), cached in the plan layer (``chain_hits`` /
+    ``chain_misses``).  It takes and returns rank lists: one shard per
+    rank of ``mesh``, or a list of one with no mesh.
 
     ``backend="auto"`` becomes ``dense``, as in the reference's fused
     sweep (one sweep serves the whole evolving pattern; resolve "auto"
@@ -129,15 +169,28 @@ def get_sweep_program(x: B.BlockSparseMatrix, *, threshold: float,
     """
     if backend == "auto":
         backend = "dense"
-    key = ("signiter", x.nb_r, x.nb_c, x.bs_r, x.bs_c, str(x.dtype),
-           str(x.device), float(threshold), float(filter_eps), backend)
+    where = mesh if mesh is not None else str(x.device)
+    key = ("signiter", where, engine if mesh is not None else None, l,
+           x.nb_r, x.nb_c, x.bs_r, x.bs_c, str(x.dtype), float(threshold),
+           float(filter_eps), backend)
+    total_blocks = x.nb_r * x.nb_c
 
     def make_program():
-        def mm(*args):
-            return local_filtered_mm(*args, threshold=threshold,
-                                     backend=backend)
+        if mesh is None:
+            def mm(ab, am, an, bb, bm, bn):
+                c = local_filtered_mm(ab[0], am[0], an[0], bb[0], bm[0],
+                                      bn[0], threshold=threshold,
+                                      backend=backend)
+                return [c[0]], [c[1]]
 
-        return _make_sweep(mm, filter_eps, total_blocks=x.nb_r * x.nb_c)
+            return _make_sweep(mm, lambda ps: ps, filter_eps,
+                               total_blocks=total_blocks)
+        plan = plan_mod.plan_multiply(mesh, engine, l)
+        plan.validate_blocks(x.nb_r, x.nb_c)
+        mm = plan_mod.build_shard_body(plan, threshold=threshold,
+                                       backend=backend)
+        return _make_sweep(mm, lambda ps: T.psum(mesh, ps, ("r", "c")),
+                           filter_eps, total_blocks=total_blocks)
 
     return plan_mod.get_chain_program(key, make_program)
 
@@ -151,17 +204,21 @@ def sign_iteration_legacy(
     x0: B.BlockSparseMatrix,
     *,
     mesh=None,
+    engine: str = "twofive",
     threshold: float = 0.0,
     filter_eps: float = 0.0,
     max_iter: int = 50,
     tol: float = 1e-6,
     backend: str = "dense",
+    l: int | None = None,
     storage_dtype: torch.dtype | None = None,
+    assignment=None,
 ) -> tuple[B.BlockSparseMatrix, SignIterStats]:
     """The host-driven per-op loop (parity oracle): two ``multiply()``
-    re-entries per sweep, eager algebra between them, a host residual sync
-    every sweep."""
-    _check_single_device(mesh)
+    re-entries per sweep from replicated matrices (on ``mesh`` with
+    ``engine`` when given), eager algebra between them, a host residual
+    sync every sweep."""
+    engine = _check_engine(mesh, engine, assignment)
     nb, bs = x0.nb_r, x0.bs_r
     ident = B.identity(nb, bs, x0.dtype, device=x0.device)
     x = _scale_to_unit_spectrum(x0)
@@ -174,15 +231,15 @@ def sign_iteration_legacy(
     converged = False
     residual = float("inf")
     misses0 = plan_mod.cache_stats()["pattern_misses"]
+    mm_kw = dict(engine=engine, threshold=threshold, filter_eps=filter_eps,
+                 backend=backend, l=l)
     it = 0
     for it in range(1, max_iter + 1):
-        x2 = multiply(x, x, threshold=threshold, filter_eps=filter_eps,
-                      backend=backend)
+        x2 = multiply(x, x, mesh, **mm_kw)
         n_mults += 1
         # 3I - X^2
         y = B.add(B.scale(x2, -1.0), B.scale(ident, 3.0))
-        xn = multiply(x, y, threshold=threshold, filter_eps=filter_eps,
-                      backend=backend)
+        xn = multiply(x, y, mesh, **mm_kw)
         xn = B.scale(xn, 0.5)
         n_mults += 1
         # convergence: || X_{n+1} - X_n ||_F / || X_n ||_F
@@ -211,9 +268,10 @@ def sign_iteration_legacy(
 
 
 def sign_iteration(
-    x0: B.BlockSparseMatrix,
+    x0: B.BlockSparseMatrix | B.ShardedBSM,
     *,
     mesh=None,
+    engine: str = "twofive",
     threshold: float = 0.0,
     filter_eps: float = 0.0,
     max_iter: int = 50,
@@ -221,8 +279,10 @@ def sign_iteration(
     mode: str = "fused",
     sync_every: int = 1,
     backend: str = "dense",
+    l: int | None = None,
     storage_dtype: torch.dtype | None = None,
-) -> tuple[B.BlockSparseMatrix, SignIterStats]:
+    assignment=None,
+) -> tuple[B.BlockSparseMatrix | B.ShardedBSM, SignIterStats]:
     """Newton-Schulz iteration X <- 1/2 X (3I - X^2) to sign(x0).
 
     mode       — "fused" (default) or "legacy" (per-op host loop; oracle).
@@ -232,33 +292,57 @@ def sign_iteration(
                  sweeps only polish); the traces stay complete.
     backend    — local stage of every multiply: "dense" | "stacks" |
                  "cuda" ("auto" is "dense" in the fused sweep).
+    engine, l  — the distributed engine on ``mesh`` (and the pull
+                 engine's depth); vestigial without a mesh.
     storage_dtype — reduced-precision block storage for the whole chain:
                  X and I are quantized once after the spectral scale, with
                  norms recalibrated; every multiply accumulates in f32.
 
-    ``mesh`` other than None raises: the sharded chain is a later slice.
+    A ShardedBSM ``x0`` stays sharded end to end and the result is a
+    ShardedBSM; a BlockSparseMatrix with ``mesh`` given is sharded once at
+    entry and gathered once at exit (the chain boundaries).  The legacy
+    loop takes replicated matrices only.
     """
+    sharded_in = isinstance(x0, B.ShardedBSM)
+    if sharded_in:
+        if mesh is not None and mesh != x0.mesh:
+            raise ValueError("mesh argument conflicts with operand mesh")
+        mesh = x0.mesh
     if mode == "legacy":
+        if sharded_in:
+            raise TypeError("legacy mode operates on replicated matrices; "
+                            "unshard first (bsm.unshard_bsm)")
         return sign_iteration_legacy(
-            x0, mesh=mesh, threshold=threshold, filter_eps=filter_eps,
-            max_iter=max_iter, tol=tol, backend=backend,
-            storage_dtype=storage_dtype,
+            x0, mesh=mesh, engine=engine, threshold=threshold,
+            filter_eps=filter_eps, max_iter=max_iter, tol=tol,
+            backend=backend, l=l, storage_dtype=storage_dtype,
+            assignment=assignment,
         )
     if mode != "fused":
         raise ValueError(f"unknown mode {mode!r}; 'fused' or 'legacy'")
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    _check_single_device(mesh)
+    engine = _check_engine(mesh, engine, assignment)
     nb, bs = x0.nb_r, x0.bs_r
-    ident = B.identity(nb, bs, x0.dtype, device=x0.device)
-    x = _scale_to_unit_spectrum(x0)
+    if mesh is not None:
+        x = B.shard_bsm(x0, mesh)
+        ident = B.sharded_identity(nb, bs, mesh, x0.dtype)
+    else:
+        x = x0
+        ident = B.identity(nb, bs, x0.dtype, device=x0.device)
+    x = _scale_to_unit_spectrum(x)
     if storage_dtype is not None:
         x = B.cast_bsm(x, storage_dtype)
         ident = B.cast_bsm(ident, storage_dtype)
 
+    def ranks(m):
+        if mesh is None:
+            return [m.blocks], [m.mask], [m.norms]
+        return m.blocks, m.mask, m.norms
+
     chain_misses0 = plan_mod.cache_stats()["chain_misses"]
-    xb, xm, xn = x.blocks, x.mask, x.norms
-    ib, im = ident.blocks, ident.mask
+    xb, xm, xn = ranks(x)
+    ib, im, _ = ranks(ident)
     occ_trace: list[float] = []
     res_trace: list[float] = []
     pending: list[tuple] = []
@@ -268,8 +352,8 @@ def sign_iteration(
     for it in range(1, max_iter + 1):
         # fetched per sweep: the chain counters then record how many sweeps
         # reused one program
-        sweep = get_sweep_program(x, threshold=threshold,
-                                  filter_eps=filter_eps, backend=backend)
+        sweep = get_sweep_program(x, mesh, engine=engine, threshold=threshold,
+                                  filter_eps=filter_eps, backend=backend, l=l)
         xb, xm, xn, res_d, occ_d = sweep(xb, xm, xn, ib, im)
         pending.append((res_d, occ_d))
         if it % sync_every == 0 or it == max_iter:
@@ -284,6 +368,11 @@ def sign_iteration(
             if converged:
                 break
 
+    if mesh is not None:
+        out = B.ShardedBSM(tuple(xb), tuple(xm), tuple(xn), mesh)
+        result = out if sharded_in else out.unshard()
+    else:
+        result = B.BlockSparseMatrix(blocks=xb[0], mask=xm[0], norms=xn[0])
     stats = SignIterStats(
         iterations=it,
         converged=converged,
@@ -296,14 +385,15 @@ def sign_iteration(
         host_syncs=syncs,
         retraces=plan_mod.cache_stats()["chain_misses"] - chain_misses0,
     )
-    return B.BlockSparseMatrix(blocks=xb, mask=xm, norms=xn), stats
+    return result, stats
 
 
 def density_matrix(
-    h: B.BlockSparseMatrix,
+    h: B.BlockSparseMatrix | B.ShardedBSM,
     mu: float,
     *,
     mesh=None,
+    engine: str = "twofive",
     threshold: float = 0.0,
     filter_eps: float = 0.0,
     max_iter: int = 60,
@@ -311,24 +401,38 @@ def density_matrix(
     mode: str = "fused",
     sync_every: int = 1,
     backend: str = "dense",
+    l: int | None = None,
     storage_dtype: torch.dtype | None = None,
-) -> tuple[B.BlockSparseMatrix, SignIterStats]:
-    """P = 1/2 (I - sign(H - mu I))  (paper Eq. (1) with S = I)."""
-    ident = B.identity(h.nb_r, h.bs_r, h.dtype, device=h.device)
-    shifted = B.add(h, B.scale(ident, -mu))
+    assignment=None,
+) -> tuple[B.BlockSparseMatrix | B.ShardedBSM, SignIterStats]:
+    """P = 1/2 (I - sign(H - mu I))  (paper Eq. (1) with S = I).  The shift,
+    the sign iteration and the projector run where ``h`` lives: a
+    ShardedBSM H gives a ShardedBSM P with no gather in between."""
+    if isinstance(h, B.ShardedBSM):
+        ident = B.sharded_identity(h.nb_r, h.bs_r, h.mesh, h.dtype)
+        shifted = ident.scale(-mu).add(h)
+    else:
+        ident = B.identity(h.nb_r, h.bs_r, h.dtype, device=h.device)
+        shifted = B.add(h, B.scale(ident, -mu))
     sgn, stats = sign_iteration(
-        shifted, mesh=mesh, threshold=threshold,
+        shifted, mesh=mesh, engine=engine, threshold=threshold,
         filter_eps=filter_eps, max_iter=max_iter, tol=tol, mode=mode,
-        sync_every=sync_every, backend=backend, storage_dtype=storage_dtype,
+        sync_every=sync_every, backend=backend, l=l,
+        storage_dtype=storage_dtype, assignment=assignment,
     )
     if sgn.dtype != ident.dtype:  # projector algebra in storage dtype
         ident = B.cast_bsm(ident, sgn.dtype)
-    p = B.scale(B.add(ident, B.scale(sgn, -1.0)), 0.5)
+    if isinstance(sgn, B.ShardedBSM):
+        p = sgn.scale(-1.0).add(ident).scale(0.5)
+    else:
+        p = B.scale(B.add(ident, B.scale(sgn, -1.0)), 0.5)
     return p, stats
 
 
-def trace(m: B.BlockSparseMatrix) -> torch.Tensor:
+def trace(m: B.BlockSparseMatrix | B.ShardedBSM) -> torch.Tensor:
     """Trace over the occupied diagonal blocks (a device scalar)."""
+    if isinstance(m, B.ShardedBSM):
+        return m.trace()
     idx = torch.arange(min(m.nb_r, m.nb_c), device=m.device)
     tr = torch.diagonal(m.blocks[idx, idx], dim1=-2, dim2=-1).sum(-1)
     return torch.sum(tr * m.mask[idx, idx])

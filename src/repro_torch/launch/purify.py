@@ -1,15 +1,26 @@
 """Purification: the port's entry point for the paper's workload.
 
     PYTHONPATH=src python -m repro_torch.launch.purify --device cpu --nb 8
+    PYTHONPATH=src python -m repro_torch.launch.purify --device cpu --nb 8 \
+        --p 2 --l 2
 
 Builds a sparse model Hamiltonian H (``random_bsm``: decay pattern,
 symmetric, from ``--seed``), runs ``density_matrix(H, mu=0)`` through the
-fused sign iteration on one device, and reports per purification: sweeps,
-the occupancy trajectory, wall time, launches of the CUDA kernel,
+fused sign iteration, and reports per purification: sweeps, the occupancy
+trajectory, wall time, launches of the CUDA kernel, local multiplies,
 trace(P), the number of eigenvalues of H below mu (``torch.linalg.
 eigvalsh`` in float64 on the same device) and max |P^2 - P|.  Like the
 reference's launcher it re-purifies a slightly scaled H ``--repeats`` times
 (an SCF-like outer loop; the pattern repeats, so the sweep is reused).
+
+``--p`` / ``--l`` select the SpGEMM mesh as in the reference's launcher
+(``make_spgemm_mesh``; every rank on the one device): H is sharded once
+and the chain runs sharded with ``--engine``, and the report adds the
+mesh, the engine and the bytes the collectives moved per rank.  ``--p 1
+--l 1`` (the default here, where the reference defaults to a 2 x 2 mesh of
+fake host devices) is the single-device run.  ``--engine auto`` falls back
+to ``twofive``, as the reference's does without a tuning database;
+``--tuning-db`` (the tuner) is ROADMAP.md Queue A item 10 and raises.
 
 Exits 1 when |trace(P) - n_occ| exceeds ``TRACE_TOL`` in any repeat.
 Runs on CUDA unless ``--device cpu`` is given.
@@ -31,6 +42,13 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nb", type=int, default=16, help="block-grid side")
     ap.add_argument("--bs", type=int, default=8, help="atomic block size")
+    ap.add_argument("--p", type=int, default=1, help="(r, c) grid side")
+    ap.add_argument("--l", type=int, default=1, help="2.5D depth (l axis)")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "cannon", "onesided", "gather",
+                             "twofive"))
+    ap.add_argument("--tuning-db", default=None,
+                    help="tuning database (the tuner: not ported yet)")
     ap.add_argument("--occupancy", type=float, default=0.10)
     ap.add_argument("--threshold", type=float, default=1e-9)
     ap.add_argument("--filter-eps", type=float, default=1e-8)
@@ -65,12 +83,23 @@ def run(argv=None) -> dict:
 
     from repro_torch.config import resolve_device
     from repro_torch.core import bsm as B
+    from repro_torch.core import local_mm
     from repro_torch.core import plan as plan_mod
+    from repro_torch.core import transport as T
     from repro_torch.core.engine import choose_backend
     from repro_torch.core.signiter import density_matrix, trace
     from repro_torch.kernels import block_spgemm as kernel
+    from repro_torch.launch.mesh import make_spgemm_mesh
 
+    if args.tuning_db is not None:
+        raise NotImplementedError(
+            "--tuning-db drives the tuner, ROADMAP.md Queue A item 10; "
+            "name an --engine")
     dev = resolve_device(args.device)
+    mesh = None
+    if (args.p, args.l) != (1, 1):
+        mesh = make_spgemm_mesh(p=args.p, l=args.l, device=dev)
+    engine = "twofive" if args.engine == "auto" else args.engine
     h = B.random_bsm(args.seed, nb=args.nb, bs=args.bs,
                      occupancy=args.occupancy, pattern="decay",
                      symmetric=True, device=dev)
@@ -81,23 +110,30 @@ def run(argv=None) -> dict:
     eig = torch.linalg.eigvalsh(h.to_dense().to(torch.float64))
     n_occ = int((eig < MU).sum())
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    where = "one device" if mesh is None else (
+        f"mesh {dict(mesh.shape)} ({mesh.size} ranks), engine {engine}")
     print(f"purify: H {h.shape[0]}x{h.shape[1]} (nb={args.nb}, "
           f"bs={args.bs}, {float(h.occupancy()):.2%} blocks), device "
-          f"{name}, backend {backend}, sync_every {args.sync_every}, "
-          f"n_occ(eig<{MU})={n_occ}", flush=True)
+          f"{name}, {where}, backend {backend}, sync_every "
+          f"{args.sync_every}, n_occ(eig<{MU})={n_occ}", flush=True)
+    if mesh is not None:
+        h = B.shard_bsm(h, mesh)  # the one chain-boundary scatter
     runs = []
+    p = None
     for rep in range(args.repeats):
-        launches0 = kernel.launches
+        launches0, calls0 = kernel.launches, local_mm.calls
+        T.reset_bytes()
         _sync(dev)
         t0 = time.perf_counter()
         p, stats = density_matrix(
-            h, MU, threshold=args.threshold, filter_eps=args.filter_eps,
-            max_iter=args.max_iter, tol=args.tol, mode="fused",
-            sync_every=args.sync_every, backend=backend,
+            h, MU, engine=engine, threshold=args.threshold,
+            filter_eps=args.filter_eps, max_iter=args.max_iter, tol=args.tol,
+            mode="fused", sync_every=args.sync_every, backend=backend,
         )
         tr = float(trace(p))
         _sync(dev)
         wall = time.perf_counter() - t0
+        p = B.unshard_bsm(p)
         pd = p.to_dense().to(torch.float64)
         idem = float((pd @ pd - pd).abs().max())
         del pd
@@ -105,25 +141,34 @@ def run(argv=None) -> dict:
             repeat=rep, iterations=stats.iterations,
             converged=stats.converged, residual=stats.residual,
             occupancy_trace=stats.occupancy_trace, wall_s=wall,
-            launches=kernel.launches - launches0, trace=tr,
+            launches=kernel.launches - launches0,
+            local_multiplies=local_mm.calls - calls0,
+            bytes_per_rank=T.bytes_moved(), trace=tr,
             trace_err=abs(tr - n_occ), idempotency=idem,
             chain=plan_mod.cache_stats(),
         )
         runs.append(r)
         occ = " ".join(f"{o:.3f}" for o in stats.occupancy_trace)
+        comm = "" if mesh is None else (
+            f", {r['bytes_per_rank'] / stats.iterations:.6g} bytes per "
+            "rank per sweep")
         print(f"  repeat {rep}: {stats.iterations} sweeps "
               f"({stats.host_syncs} syncs) in {wall:.3f}s, converged="
               f"{stats.converged}, residual={stats.residual:.3e}, kernel "
-              f"launches={r['launches']}, trace(P)={tr:.4f} vs n_occ="
+              f"launches={r['launches']}, local multiplies="
+              f"{r['local_multiplies']}{comm}, trace(P)={tr:.4f} vs n_occ="
               f"{n_occ} (|err|={r['trace_err']:.2e}), max|P^2-P|="
               f"{idem:.2e}\n    occupancy: {occ}", flush=True)
         # SCF-like drift: the same pattern re-purified (the sweep is reused)
-        h = B.scale(h, 1.0 + 1e-3 * (rep + 1))
+        scale = 1.0 + 1e-3 * (rep + 1)
+        h = h.scale(scale) if mesh is not None else B.scale(h, scale)
     ok = all(r["trace_err"] <= TRACE_TOL for r in runs)
     print(f"purify {'OK' if ok else 'FAILED'}: trace tolerance {TRACE_TOL}",
           flush=True)
     return dict(ok=ok, device=name, backend=backend, n=h.shape[0],
-                nb=args.nb, bs=args.bs, n_occ=n_occ, runs=runs)
+                nb=args.nb, bs=args.bs, n_occ=n_occ, runs=runs,
+                mesh=None if mesh is None else dict(mesh.shape),
+                ranks=1 if mesh is None else mesh.size, engine=engine, p=p)
 
 
 def main(argv=None) -> int:

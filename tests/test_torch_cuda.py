@@ -1,5 +1,7 @@
 """Checks that need the card: each CUDA kernel against its plain version
-and oracle, the launch counters, and the slices on CUDA tensors.  Marked ``gpu``; each
+and oracle, the launch counters, and the slices on CUDA tensors (the
+distributed engines and the sharded sweep with every rank on the card
+included).  Marked ``gpu``; each
 test skips without a CUDA device.  On the card (no jax needed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -14,9 +16,11 @@ from repro_torch.configs import get_arch
 from repro_torch.core import bsm as B
 from repro_torch.core import engine as E
 from repro_torch.core import signiter as S
+from repro_torch.core import transport as TR
 from repro_torch.kernels import block_spgemm as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref, stacks
+from repro_torch.launch.mesh import make_spgemm_mesh
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import GenerationConfig, ServingEngine
 
@@ -109,6 +113,51 @@ def test_multiply_and_density_matrix_on_cuda(cuda):
     assert stats.converged and K.launches - before == 2 * stats.iterations
     w = torch.linalg.eigvalsh(h.to_dense().double())
     assert abs(float(S.trace(p)) - int((w < 0).sum())) < 0.05
+
+
+# (engine, mesh, l, c_layout): every engine body, every rank on the card
+ENGINE_CASES = [
+    ("cannon", dict(p=2), None, "2d"),
+    ("onesided", dict(p_r=2, p_c=4), None, "2d"),
+    ("gather", dict(p=2), None, "2d"),
+    ("twofive", dict(p_r=2, p_c=4), None, "2d"),
+    ("twofive", dict(p=4), 4, "2d"),
+    ("twofive", dict(p=2, l=2), None, "2d"),
+    ("twofive", dict(p=2, l=2), None, "scatter"),
+    ("twofive", dict(p=2, l=4), None, "2d"),
+]
+
+
+@pytest.mark.parametrize("engine,mk,l,layout", ENGINE_CASES, ids=str)
+def test_engines_match_the_single_device_kernel(cuda, engine, mk, l,
+                                                layout):
+    h = B.random_bsm(0, nb=32, bs=23, occupancy=0.1, pattern="decay",
+                     symmetric=True, device=cuda)
+    want = E.multiply_reference(h, h, threshold=1e-9, backend="cuda")
+    mesh = make_spgemm_mesh(**mk, device=cuda)
+    before = K.launches
+    TR.reset_bytes()
+    got = E.multiply(h, h, mesh, engine=engine, l=l, c_layout=layout,
+                     backend="cuda", threshold=1e-9, filter_eps=0.0)
+    assert K.launches > before and TR.bytes_moved() > 0
+    assert got.device == want.device and torch.equal(got.mask, want.mask)
+    torch.testing.assert_close(got.blocks, want.blocks, rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_density_matrix_on_cuda(cuda):
+    h = B.random_bsm(0, nb=16, bs=23, occupancy=0.2, pattern="decay",
+                     symmetric=True, device=cuda)
+    kw = dict(backend="cuda", threshold=1e-9, filter_eps=1e-8, max_iter=100,
+              tol=1e-6)
+    want, st1 = S.density_matrix(h, 0.0, **kw)
+    mesh = make_spgemm_mesh(p=2, l=2, device=cuda)
+    before = K.launches
+    got, st2 = S.density_matrix(B.shard_bsm(h, mesh), 0.0, **kw)
+    assert isinstance(got, B.ShardedBSM) and K.launches > before
+    assert st2.converged and abs(st2.iterations - st1.iterations) <= 1
+    torch.testing.assert_close(got.unshard().blocks, want.blocks, rtol=1e-5,
+                               atol=1e-5)
+    assert abs(float(S.trace(got)) - float(S.trace(want))) < 1e-4
 
 
 # kernel vs plain: f32 up to summation order; bf16 the kernel's rounding of

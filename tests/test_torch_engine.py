@@ -15,6 +15,7 @@ from repro.core import engine as RE
 from repro_torch import interop
 from repro_torch.core import engine as PE
 from repro_torch.core import plan as plan_mod
+from repro_torch.launch.mesh import make_spgemm_mesh
 
 
 def _pair(seed, nb=6, bs=8, occupancy=0.4, dtype="float32"):
@@ -89,10 +90,17 @@ def test_choose_backend_follows_the_reference():
 
 @pytest.mark.parametrize("kwarg", ["transport", "assignment", "envelope"])
 def test_distributed_arguments_raise(kwarg):
-    _, pa = _pair(5)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        PE.multiply(pa, pa, mesh=object())
-    with pytest.raises(NotImplementedError, match=kwarg):
-        PE.multiply(pa, pa, **{kwarg: "auto"})
+    """What the distributed slice still leaves to later items raises,
+    naming it: the tuner (engine="auto" with a mesh), compressed transport,
+    block assignments and envelopes."""
+    _, pa = _pair(5, nb=8)
+    mesh = make_spgemm_mesh(p=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="tuner"):
+        PE.multiply(pa, pa, mesh, engine="auto")
+    value = {"transport": "compressed", "assignment": "nnz_greedy",
+             "envelope": "auto"}[kwarg]
+    for m in (None, mesh):
+        with pytest.raises(NotImplementedError, match=kwarg):
+            PE.multiply(pa, pa, m, **{kwarg: value})
     with pytest.raises(ValueError, match="unknown engine"):
         PE.multiply(pa, pa, engine="summa")

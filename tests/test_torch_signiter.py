@@ -16,9 +16,11 @@ import torch
 from repro.core import bsm as RB
 from repro.core import signiter as RS
 from repro_torch import interop
+from repro_torch.core import bsm as B
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import signiter as PS
 from repro_torch.launch import purify
+from repro_torch.launch.mesh import make_spgemm_mesh
 
 
 def _sym(seed, nb=4, bs=6, occupancy=0.5):
@@ -111,9 +113,17 @@ def test_storage_dtype_bf16_converges_near_f32():
 
 
 def test_mesh_raises():
+    """On a mesh, what later items bring raises, naming them: the tuner
+    (engine="auto") and block assignments; the legacy loop takes no
+    sharded matrix, as in the reference."""
     _, port = _sym(8)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        PS.sign_iteration(port, mesh=object())
+    mesh = make_spgemm_mesh(p=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="tuner"):
+        PS.sign_iteration(port, mesh=mesh, engine="auto")
+    with pytest.raises(NotImplementedError, match="assignment"):
+        PS.sign_iteration(port, mesh=mesh, assignment="nnz_greedy")
+    with pytest.raises(TypeError, match="replicated"):
+        PS.sign_iteration(B.shard_bsm(port, mesh), mode="legacy")
 
 
 @pytest.mark.parametrize("backend", ["cuda", "auto"])
