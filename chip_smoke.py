@@ -50,7 +50,20 @@ Phases, each raising on failure:
    causal) against its plain version (bf16 with a row's limit shrinking
    as 1 / sqrt(its keys), and the f32 kernel on the same inputs at
    1e-4), timed beside the plain version,
-   ``scaled_dot_product_attention`` (the library figure) and the bound.
+   ``scaled_dot_product_attention`` (the library figure) and the bound;
+10. every distributed engine at nb = 512 on meshes of ranks on the card,
+    H.H and the full-fill X.X, against the single-device kernel, bytes per
+    rank equal to ``plan_volume`` of the resolved transport;
+11. the sharded purification on (l 2, r 2, c 2) through the entry point,
+    against phase 4;
+12. both purifications under ``torch.profiler``;
+13. DBCSR's sparse wire and block distributions on H2O-DFT-LS: H.H on
+    every engine of phase 10 under compressed and dense panels (bit for
+    bit; bytes equal to ``plan_volume``), phase 11's chain under a
+    forecast envelope and with compressed panels (bit for bit phase 11's
+    P; every realized sweep mask inside the forecast; host syncs per
+    sweep), and under the randomized and nnz-greedy assignments (phase
+    11's gates; the product-load imbalance of each).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2
@@ -66,8 +79,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.configs.dbcsr_benchmarks import BENCHMARKS  # noqa: E402
 
-NB, BS, OCC, SEED = 512, 23, 0.10, 0
+# the paper's H2O-DFT-LS matrix (Table 1): its blocks, occupancy and
+# pattern, on a block grid cut to one card
+H2O = BENCHMARKS["h2o_dft_ls"]
+NB, BS, OCC, PATTERN, SEED = 512, H2O.block_size, H2O.occupancy, \
+    H2O.pattern, 0
 THRESHOLD, FILTER_EPS = 1e-9, 1e-8
 PURIFY_ARGV = ["--nb", str(NB), "--bs", str(BS), "--occupancy", str(OCC),
                "--threshold", str(THRESHOLD), "--filter-eps", str(FILTER_EPS),
@@ -203,7 +222,7 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
 
 def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
     """Phase 3: engine.multiply at full width, checked and timed."""
-    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern="decay",
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern=PATTERN,
                      symmetric=True, device="cuda")
     plan.clear_cache()
     c = E.multiply(h, h, backend="cuda", threshold=THRESHOLD,
@@ -704,7 +723,7 @@ def phase_engines(torch, B, E, CV, T, lm, K, plan, mesh_mod) -> int:
     the float64 product, and an engine's max error may be at most twice
     the single-device kernel's (one missing block product moves an entry
     by ~0.2)."""
-    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern="decay",
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern=PATTERN,
                      symmetric=True, device="cuda")
     x = B.random_bsm(SEED + 1, nb=NB, bs=BS, pattern="dense", device="cuda")
     total, bad = 0, []
@@ -722,8 +741,11 @@ def phase_engines(torch, B, E, CV, T, lm, K, plan, mesh_mod) -> int:
                   f"{single_err:.3e}", flush=True)
         for engine, mk, l, layout in ENGINE_CASES:
             mesh = mesh_mod.make_spgemm_mesh(**mk, device="cuda")
+            # the transport multiply resolves (transport=None: "auto")
+            tr = plan.resolve_transport(None, m, m, mesh, engine, l)
             vol = CV.plan_volume(plan.plan_multiply(mesh, engine, l), NB, BS,
-                                 itemsize=4, c_layout=layout).total
+                                 itemsize=4, c_layout=layout,
+                                 transport=tr).total
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             T.reset_bytes()
@@ -747,8 +769,8 @@ def phase_engines(torch, B, E, CV, T, lm, K, plan, mesh_mod) -> int:
                    + (f" L={l}" if l else "") + f" C {layout}")
             print(f"[10] {tag}: wall {wall_ms:.3f} ms, kernel launches "
                   f"{launches}, local multiplies {calls} (3 host syncs "
-                  f"each), bytes per rank {moved:.0f} (plan_volume "
-                  f"{vol:.0f}), peak memory {peak / 2**30:.3f} GiB, masks "
+                  f"each), bytes per rank {moved:.0f} (plan_volume, "
+                  f"{tr.mode} transport: {vol:.0f}), peak memory {peak / 2**30:.3f} GiB, masks "
                   f"{'equal' if same_mask else 'DIFFER'}, max |err| vs the "
                   f"single-device kernel {err:.3e}{extra}", flush=True)
             if not (good and same_mask) or moved != vol or launches == 0:
@@ -763,9 +785,10 @@ def phase_engines(torch, B, E, CV, T, lm, K, plan, mesh_mod) -> int:
 
 
 def phase_sharded_purify(torch, K, CV, plan, mesh_mod, purify,
-                         single: dict) -> int:
+                         single: dict) -> tuple[int, dict]:
     """Phase 11: the sharded purification (p 2, l 2, twofive) through the
-    entry point, against phase 4's gates and P; returns its launches."""
+    entry point, against phase 4's gates and P; returns its launches and
+    the report (with P) for phase 13."""
     torch.cuda.reset_peak_memory_stats()
     K.launches = 0
     report = purify.run(PURIFY_ARGV + ["--p", "2", "--l", "2", "--engine",
@@ -806,7 +829,7 @@ def phase_sharded_purify(torch, K, CV, plan, mesh_mod, purify,
         raise AssertionError(f"sharded P vs single-device P: {rel}")
     if per_sweep != want_sweep:
         raise AssertionError(f"bytes per sweep {per_sweep} != {want_sweep}")
-    return launches
+    return launches, report
 
 
 def phase_purify_breakdown(torch, B, SI, mesh_mod) -> None:
@@ -814,7 +837,7 @@ def phase_purify_breakdown(torch, B, SI, mesh_mod) -> None:
     sharded on (l 2, r 2, c 2): one more chain of each under
     torch.profiler (device ms by kernel group, kernels, idle share; the
     profiler adds host time, so the idle share is an upper bound)."""
-    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern="decay",
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern=PATTERN,
                      symmetric=True, device="cuda")
     mesh = mesh_mod.make_spgemm_mesh(p=2, l=2, device="cuda")
     kw = dict(threshold=THRESHOLD, filter_eps=FILTER_EPS, max_iter=100,
@@ -839,6 +862,224 @@ def phase_purify_breakdown(torch, B, SI, mesh_mod) -> None:
     torch.cuda.empty_cache()
 
 
+def _p_gates(torch, report_p, n_occ: int, single_p) -> tuple[float, float,
+                                                             float]:
+    """(|trace(P) - n_occ|, max |P^2 - P|, relative Frobenius distance to
+    phase 4's P) of a gathered P, in float64 on the card."""
+    pd = report_p.to_dense().double()
+    trace = float(torch.diagonal(pd).sum())
+    idem = float((pd @ pd - pd).abs().max())
+    del pd
+    diff = (report_p.blocks - single_p.blocks).float()
+    rel = float(diff.norm() / single_p.blocks.float().norm())
+    return abs(trace - n_occ), idem, rel
+
+
+def _sweep_syncs(torch, fn):
+    """``fn()`` under CUDA's sync debug mode; returns (its result, the
+    host syncs it made)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_dbcsr(torch, B, E, CV, SI, TR, K, plan, mesh_mod, D, purify,
+                single: dict, sharded: dict) -> int:
+    """Phase 13: DBCSR's sparse wire and block distributions on H2O-DFT-LS
+    (``configs/dbcsr_benchmarks.py``) at nb = 512: compressed single
+    multiplies on every engine of phase 10, then phase 11's chain on
+    (l 2, r 2, c 2) under a forecast envelope, with compressed panels, and
+    under the randomized and nnz-greedy assignments.  Returns the chains'
+    kernel launches."""
+    backend = sharded["backend"]
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern=PATTERN,
+                     symmetric=True, device="cuda")
+    mask_np = B.host_mask(h)
+    bad = []
+    # --- 13.1: compressed against dense, one multiply per engine ---------
+    for engine, mk, l, layout in ENGINE_CASES:
+        mesh = mesh_mod.make_spgemm_mesh(**mk, device="cuda")
+        pl = plan.plan_multiply(mesh, engine, l)
+        caps = TR.capacities_for(mask_np, mask_np, pl)
+        auto = plan.resolve_transport("auto", h, h, mesh, engine, l).mode
+        out, moved, want, wall = {}, {}, {}, {}
+        # in turns (dense, compressed, compressed, dense); walls averaged
+        for mode in ("dense", "compressed", "compressed", "dense"):
+            tr = plan.resolve_transport(mode, h, h, mesh, engine, l)
+            want[mode] = CV.plan_volume(pl, NB, BS, itemsize=4,
+                                        c_layout=layout, transport=tr).total
+            torch.cuda.synchronize()
+            TR.reset_bytes()
+            t0 = time.perf_counter()
+            c = E.multiply(h, h, mesh, engine=engine, l=l, c_layout=layout,
+                           backend=backend, threshold=THRESHOLD,
+                           transport=mode)
+            torch.cuda.synchronize()
+            wall[mode] = wall.get(mode, 0.0) + 500.0 * (time.perf_counter()
+                                                        - t0)
+            if mode in out and not (torch.equal(c.mask, out[mode].mask) and
+                                    torch.equal(c.blocks, out[mode].blocks)):
+                bad.append((engine, mk, l, layout, mode, "not repeatable"))
+            out[mode] = c
+            if moved.setdefault(mode, TR.bytes_moved()) != TR.bytes_moved():
+                bad.append((engine, mk, l, layout, mode, TR.bytes_moved()))
+            del c
+        same = (torch.equal(out["dense"].mask, out["compressed"].mask)
+                and torch.equal(out["dense"].blocks, out["compressed"].blocks))
+        tag = (f"{engine} {dict(mesh.shape)}" + (f" L={l}" if l else "")
+               + f" C {layout}")
+        print(f"[13] H.H {tag}: capacities (A, B) {caps[0]}, {caps[1]} of "
+              f"{caps[2]}, {caps[3]} blocks per panel; auto resolves "
+              f"{auto}; bytes per rank compressed {moved['compressed']:.0f}"
+              f" (plan_volume {want['compressed']:.0f}) vs dense "
+              f"{moved['dense']:.0f} (plan_volume {want['dense']:.0f}), "
+              f"ratio {moved['compressed'] / moved['dense']:.4f}; wall (mean "
+              f"of 2, in turns) compressed {wall['compressed']:.3f} ms, dense "
+              f"{wall['dense']:.3f} ms; C "
+              f"{'bitwise equal' if same else 'DIFFERS'}", flush=True)
+        if (not same or auto != TR.resolve_mode("auto", *caps)
+                or any(moved[m] != want[m] for m in want)):
+            bad.append((tag, same, auto, moved, want))
+        del out
+    if bad:
+        raise AssertionError(f"compressed transport: {bad}")
+    torch.cuda.empty_cache()
+
+    # --- 13.2-13.4: phase 11's chain, the same H on (l 2, r 2, c 2) -------
+    mesh = mesh_mod.make_spgemm_mesh(p=2, l=2, device="cuda")
+    pl = plan.plan_multiply(mesh, "twofive")
+    kw = dict(engine="twofive", threshold=THRESHOLD, filter_eps=FILTER_EPS,
+              max_iter=100, tol=1e-6, sync_every=4, backend=backend)
+    want_p, want_it = sharded["p"], sharded["runs"][0]["iterations"]
+    single_it = single["runs"][0]["iterations"]
+    launches = 0
+
+    def chain(label, x, **extra):
+        nonlocal launches
+        torch.cuda.synchronize()
+        TR.reset_bytes()
+        K.launches = 0
+        t0 = time.perf_counter()
+        p, stats = SI.density_matrix(x, 0.0, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = K.launches
+        launches += n
+        print(f"[13] chain {label}: {stats.iterations} sweeps, wall "
+              f"{wall:.3f} s, kernel launches {n} ({n / stats.iterations:.1f}"
+              f" per sweep), bytes per rank per sweep "
+              f"{TR.bytes_moved() / stats.iterations:.0f}", flush=True)
+        if n == 0 or not stats.converged:
+            raise AssertionError(f"chain {label}: launches {n}, {stats}")
+        return B.unshard_bsm(p), stats, TR.bytes_moved()
+
+    hs = B.shard_bsm(h, mesh)
+    plan.clear_cache()
+    p_env, st_env, bytes_env = chain("envelope, transport auto", hs,
+                                     envelope="auto", transport="auto")
+    # the chain's entering operand, as density_matrix builds it (H - 0 I,
+    # unit-scaled): its envelope is the chain's, a cache hit
+    x = hs.add(B.sharded_identity(NB, BS, mesh).scale(-0.0))
+    x = x.scale(1.0 / x.frobenius_norm())
+    hits = plan.cache_stats()["envelope_hits"]
+    env = plan.get_envelope(B.host_mask(x), B.host_array(x.gather(x.norms)),
+                            sweeps=kw["max_iter"], threshold=THRESHOLD,
+                            filter_eps=FILTER_EPS, bs=BS)
+    if plan.cache_stats()["envelope_hits"] != hits + 1:
+        raise AssertionError("the chain's envelope is not the forecast of "
+                             "its entering operand")
+    tr_auto = env.transport(mesh, "twofive", None, "auto")
+    tr_comp = env.transport(mesh, "twofive", None, "compressed")
+    sm = env.sweep_masks
+    fixed = next((i for i in range(1, len(sm)) if sm[i] is sm[i - 1]), None)
+    print(f"[13] envelope: forecast {st_env.forecast_s:.3f} host s "
+          f"({len(sm)} sweeps, symbolic fixed point after sweep {fixed}), "
+          f"cube {float(env.cube.mean()):.4f} full, product-list capacity "
+          f"per rank {env.device_capacity(mesh, 'twofive')}, "
+          f"panel capacities (A, B) {tr_comp.cap_a}, {tr_comp.cap_b}; auto "
+          f"resolves {tr_auto.mode}", flush=True)
+    # the realized sweeps against the forecast, and the host syncs of a
+    # sweep, on the same chain driven sweep by sweep
+    sweep = SI.get_sweep_program(
+        x, mesh, engine="twofive", threshold=THRESHOLD,
+        filter_eps=FILTER_EPS, backend=backend, envelope=env,
+        transport="auto")
+    ident = B.sharded_identity(NB, BS, mesh)
+    xb, xm, xn = x.blocks, x.mask, x.norms
+    syncs, escaped = [], []
+    for s in range(st_env.iterations):
+        (xb, xm, xn, _, _), n = _sweep_syncs(
+            torch, lambda: sweep(xb, xm, xn, ident.blocks, ident.mask))
+        syncs.append(n)
+        realized = B.host_mask(B.ShardedBSM(xb, xm, xn, mesh))
+        if (realized & ~env.sweep_masks[s]).any():
+            escaped.append(s)
+    del xb, xm, xn, x, sweep
+    print(f"[13] realized sweep masks inside the forecast: "
+          f"{st_env.iterations - len(escaped)} of {st_env.iterations}; host "
+          f"syncs inside a sweep {min(syncs)}-{max(syncs)} (16 local "
+          f"multiplies), plus one residual read per 4 sweeps", flush=True)
+    same_env = torch.equal(p_env.blocks, want_p.blocks) and torch.equal(
+        p_env.mask, want_p.mask)
+    vol_auto = CV.plan_volume(pl, NB, BS, itemsize=4, transport=tr_auto).total
+    if (escaped or not same_env or st_env.iterations != want_it
+            or bytes_env != st_env.iterations * (2 * vol_auto
+                                                 + _psum_bytes(4))):
+        raise AssertionError(f"enveloped chain: escaped {escaped}, P equal "
+                             f"{same_env}, {st_env.iterations} vs {want_it} "
+                             f"sweeps, bytes {bytes_env}")
+    del p_env
+    p_c, st_c, bytes_c = chain("envelope, transport compressed", hs,
+                               envelope="auto", transport="compressed")
+    vol_c = CV.plan_volume(pl, NB, BS, itemsize=4, transport=tr_comp).total
+    want_sweep = 2.0 * vol_c + _psum_bytes(4)
+    vol_d = CV.plan_volume(pl, NB, BS, itemsize=4).total
+    same_c = torch.equal(p_c.blocks, want_p.blocks) and torch.equal(
+        p_c.mask, want_p.mask)
+    print(f"[13] compressed chain: P {'bitwise equal' if same_c else 'DIFFERS'}"
+          f" to phase 11's; bytes per rank per sweep "
+          f"{bytes_c / st_c.iterations:.0f} (2 x plan_volume + psum: "
+          f"{want_sweep:.0f}; dense {2.0 * vol_d + _psum_bytes(4):.0f})",
+          flush=True)
+    if (not same_c or st_c.iterations != want_it
+            or bytes_c / st_c.iterations != want_sweep):
+        raise AssertionError(f"compressed chain: P equal {same_c}, "
+                             f"{st_c.iterations} sweeps, bytes {bytes_c}")
+    del p_c, hs
+    torch.cuda.empty_cache()
+    counts = D.product_counts(mask_np, mask_np)
+    imb = {"identity": D.assignment_imbalance(counts, mesh)}
+    n_occ = single["n_occ"]
+    for mode in ("randomized", "nnz_greedy"):
+        ha = B.shard_bsm(h, mesh, assignment=mode)
+        imb[mode] = D.assignment_imbalance(counts, mesh, ha.assignment)
+        p_a, st_a, _ = chain(f"assignment {mode}", ha)
+        tr_err, idem, rel = _p_gates(torch, p_a, n_occ, single["p"])
+        print(f"[13] {mode}: |trace(P) - {n_occ}| {tr_err:.3e}, "
+              f"max|P^2-P| {idem:.3e}, relative Frobenius to phase 4's P "
+              f"{rel:.3e}, sweeps {st_a.iterations} (phase 4: {single_it})",
+              flush=True)
+        if (abs(st_a.iterations - single_it) > 1
+                or tr_err > purify.TRACE_TOL or idem > IDEMPOTENCY_TOL
+                or not rel <= SHARDED_P_TOL):
+            raise AssertionError(f"chain under {mode}: {st_a.iterations} "
+                                 f"sweeps, {tr_err}, {idem}, {rel}")
+        del ha, p_a
+        torch.cuda.empty_cache()
+    print("[13] product-load imbalance (max / mean over the 4 (r, c) "
+          "ranks of H.H's mask product): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in imb.items()), flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -846,10 +1087,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.core import bsm as B
     from repro_torch.core import commvolume as CV
+    from repro_torch.core import distribute as D
     from repro_torch.core import engine as E
     from repro_torch.core import local_mm as lm
     from repro_torch.core import plan
@@ -895,16 +1136,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     f = phase_flash_serving_shape(torch, np, FA)
     phase_engines(torch, B, E, CV, TR, lm, K, plan, mesh_mod)
-    sharded_launches = phase_sharded_purify(torch, K, CV, plan, mesh_mod,
-                                            purify, single)
-    del single
+    sharded_launches, sharded = phase_sharded_purify(
+        torch, K, CV, plan, mesh_mod, purify, single)
     phase_purify_breakdown(torch, B, SI, mesh_mod)
+    dbcsr_launches = phase_dbcsr(torch, B, E, CV, SI, TR, K, plan, mesh_mod,
+                                 D, purify, single, sharded)
+    del single, sharded
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
         source="src/repro_torch/kernels/csrc/block_spgemm.cu",
         replaces="src/repro/kernels/block_spgemm.py:217",
-        launches=launches + sharded_launches, max_abs_err=m["max_abs_err"],
+        launches=launches + sharded_launches + dbcsr_launches,
+        max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=m["library_ms"],
@@ -916,10 +1160,10 @@ def main() -> int:
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[13] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[14] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
-          f"+ {sharded_launches} (sharded)",
-          flush=True)
+          f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
+          f"four chains)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

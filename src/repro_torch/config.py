@@ -3,9 +3,10 @@
 The architecture configs (``ArchConfig`` and its sub-configs) and the
 serving/training shape set (``SHAPES``) are pure data, copied from the JAX
 package's ``config.py`` so that both packages describe a model the same
-way.  Two run settings follow: the block-storage dtype of the
-dtype-matrixed test runs (``REPRO_STORAGE_DTYPE``, as in the JAX package)
-and the device an entry point runs on.  The JAX package's
+way.  Three run settings follow: the panel-transport mode
+(``REPRO_TRANSPORT``), the block-storage dtype of the dtype-matrixed test
+runs (``REPRO_STORAGE_DTYPE``), both as in the JAX package, and the device
+an entry point runs on.  The JAX package's
 ``pallas_interpret()`` has no twin: a kernel wrapper picks its plain
 version or its CUDA kernel from the device of the tensors it is given.
 """
@@ -256,6 +257,25 @@ SHAPES: dict[str, ShapeConfig] = {
 # ---------------------------------------------------------------------------
 # run settings
 # ---------------------------------------------------------------------------
+
+
+def transport_mode() -> str:
+    """Configured panel-transport mode: "auto" | "dense" | "compressed".
+
+    ``REPRO_TRANSPORT`` overrides (debugging / forcing a path): "dense"
+    pins the full-panel hops, "compressed" forces occupancy-compressed
+    packing, unset/"auto" lets the plan layer choose per pattern from the
+    bucketed capacity fill (``core.transport.resolve_mode``).  Read where
+    a multiply's ``transport=None`` is resolved
+    (``plan.resolve_transport``)."""
+    raw = os.environ.get("REPRO_TRANSPORT", "auto").strip().lower()
+    if raw in ("", "auto"):
+        return "auto"
+    if raw in ("dense", "compressed"):
+        return raw
+    raise ValueError(
+        f"REPRO_TRANSPORT={raw!r}: expected auto | dense | compressed"
+    )
 
 
 def storage_dtype() -> str:

@@ -16,7 +16,9 @@ them there.
 ``ShardedBSM`` holds the same triple in the 2D home layout of a mesh of
 ranks (``launch/mesh.py``): one (blocks, mask, norms) shard per rank, block
 rows split over ``r`` and block columns over ``c``, replicated over a
-depth axis ``l``.  ``shard_bsm`` / ``unshard`` are the chain boundaries.
+depth axis ``l``, optionally under a block->rank assignment
+(``core/distribute.py``).  ``shard_bsm`` / ``unshard`` are the chain
+boundaries.
 """
 from __future__ import annotations
 
@@ -192,6 +194,23 @@ def axpy(s, x: BlockSparseMatrix, y: BlockSparseMatrix) -> BlockSparseMatrix:
                              norms=block_norms(blocks))
 
 
+def host_array(x) -> np.ndarray:
+    """A mask or norms array as numpy: a tensor is copied to the host (one
+    sync on a card), anything else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def host_mask(m) -> np.ndarray:
+    """The global block mask of a matrix as numpy: a ``ShardedBSM``'s in
+    its (possibly permuted) home layout, anything else from its ``mask``
+    field."""
+    if isinstance(m, ShardedBSM):
+        return host_array(m.gather(m.mask))
+    return host_array(m.mask)
+
+
 def cast_bsm(m, dtype: torch.dtype):
     """Storage-dtype cast with norm recalibration for either matrix kind
     (``BlockSparseMatrix`` or ``ShardedBSM``); identity when already at
@@ -202,10 +221,6 @@ def cast_bsm(m, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 # ShardedBSM: a matrix resident on a mesh of ranks
 # ---------------------------------------------------------------------------
-
-_ITEM_9 = ("block->device assignments are ROADMAP.md Queue A item 9; the "
-           "port shards in the identity layout (assignment=None)")
-
 
 def _shard_coords(mesh, rank: int) -> tuple[int, int]:
     """(r, c) position of a rank on its layer grid."""
@@ -225,22 +240,41 @@ class ShardedBSM:
     in ``l`` hold the same shard (one copy per device).  The algebra runs
     rank-local and updates norms as ``BlockSparseMatrix``'s does; a chain
     shards once (``shard_bsm``) and gathers once (``unshard``).
+
+    ``assignment`` records the block->rank distribution the triple lives
+    under (``distribute.Assignment``, None = identity layout): the shards
+    hold the PERMUTED matrix, ``unshard`` undoes the permutation, and every
+    algebra result inherits the layout.  Mixing layouts in one operation
+    raises.
     """
 
     blocks: tuple  # per rank: (nb_r / p_r, nb_c / p_c, bs_r, bs_c)
     mask: tuple  # per rank: bool
     norms: tuple  # per rank: float32
-    mesh: object  # the identity layout; assignments are item 9
+    mesh: object
+    assignment: object = None  # distribute.Assignment or None
 
     @classmethod
-    def from_shards(cls, blocks, mask, mesh) -> "ShardedBSM":
+    def from_shards(cls, blocks, mask, mesh,
+                    assignment=None) -> "ShardedBSM":
         """Shards of blocks and mask, norms computed rank-local."""
         return cls(tuple(blocks), tuple(mask),
-                   tuple(block_norms(b) for b in blocks), mesh)
+                   tuple(block_norms(b) for b in blocks), mesh, assignment)
 
-    def _join(self, other: "ShardedBSM") -> None:
+    def _join(self, other: "ShardedBSM"):
+        """The layout of an operation on ``self`` and ``other``."""
         if other.mesh != self.mesh:
             raise ValueError("operands sharded on different meshes")
+        return self._join_assignment(other)
+
+    def _join_assignment(self, other: "ShardedBSM"):
+        if self.assignment != other.assignment:
+            raise ValueError(
+                "operands live under different block assignments "
+                f"({_assign_name(self.assignment)} vs "
+                f"{_assign_name(other.assignment)}); reshard one of them"
+            )
+        return self.assignment
 
     # ---- shape helpers -------------------------------------------------
     @property
@@ -269,10 +303,11 @@ class ShardedBSM:
 
     # ---- rank-local algebra (norms updated incrementally) --------------
     def add(self, other: "ShardedBSM") -> "ShardedBSM":
-        self._join(other)
+        asg = self._join(other)
         blocks = [a + b for a, b in zip(self.blocks, other.blocks)]
         return ShardedBSM.from_shards(
-            blocks, [a | b for a, b in zip(self.mask, other.mask)], self.mesh)
+            blocks, [a | b for a, b in zip(self.mask, other.mask)], self.mesh,
+            asg)
 
     def scale(self, s) -> "ShardedBSM":
         out_b, out_n = [], []
@@ -280,15 +315,17 @@ class ShardedBSM:
             sr = _scalar(s, b.dtype, b.device)
             out_b.append(b * sr)
             out_n.append(n * torch.abs(sr).to(torch.float32))
-        return ShardedBSM(tuple(out_b), self.mask, tuple(out_n), self.mesh)
+        return ShardedBSM(tuple(out_b), self.mask, tuple(out_n), self.mesh,
+                          self.assignment)
 
     def axpy(self, s, y: "ShardedBSM") -> "ShardedBSM":
         """s * self + y."""
-        self._join(y)
+        asg = self._join(y)
         blocks = [x * _scalar(s, x.dtype, x.device) + yb
                   for x, yb in zip(self.blocks, y.blocks)]
         return ShardedBSM.from_shards(
-            blocks, [a | b for a, b in zip(self.mask, y.mask)], self.mesh)
+            blocks, [a | b for a, b in zip(self.mask, y.mask)], self.mesh,
+            asg)
 
     def filter(self, threshold: float) -> "ShardedBSM":
         """Post-filter on the shards: drop blocks with norm <= threshold
@@ -297,7 +334,8 @@ class ShardedBSM:
                for b, m, n in zip(self.blocks, self.mask, self.norms)]
         return ShardedBSM(tuple(o.blocks for o in out),
                           tuple(o.mask for o in out),
-                          tuple(o.norms for o in out), self.mesh)
+                          tuple(o.norms for o in out), self.mesh,
+                          self.assignment)
 
     def astype(self, dtype: torch.dtype) -> "ShardedBSM":
         """Cast block storage on the shards, norms recalibrated from the
@@ -305,7 +343,7 @@ class ShardedBSM:
         if dtype == self.dtype:
             return self
         return ShardedBSM.from_shards([b.to(dtype) for b in self.blocks],
-                                      self.mask, self.mesh)
+                                      self.mask, self.mesh, self.assignment)
 
     # ---- reductions (device scalars on the mesh's first device) --------
     def _home_sum(self, per_rank) -> torch.Tensor:
@@ -342,23 +380,60 @@ class ShardedBSM:
         return self._home_sum(part)
 
     # ---- chain-boundary conversions ------------------------------------
-    def unshard(self) -> BlockSparseMatrix:
-        """Gather the triple onto the mesh's first device — the chain
-        boundary."""
+    def gather(self, parts) -> torch.Tensor:
+        """One field's shards (``self.mask``, ...) joined into the global
+        array on the mesh's first device, in the home layout the shards
+        hold (permuted under an assignment)."""
         dev = self.mesh.devices[0]
         p_c = self.mesh.shape["c"]
         home = self.mesh.home_ranks()
+        rows = [torch.cat([parts[r].to(dev) for r in home[i:i + p_c]], dim=1)
+                for i in range(0, len(home), p_c)]
+        return torch.cat(rows, dim=0)
 
-        def cat(parts):
-            rows = [torch.cat([parts[r].to(dev) for r in home[i:i + p_c]],
-                              dim=1) for i in range(0, len(home), p_c)]
-            return torch.cat(rows, dim=0)
+    def unshard(self) -> BlockSparseMatrix:
+        """Gather the triple onto the mesh's first device — the chain
+        boundary — in original block coordinates (the assignment
+        undone)."""
+        out = BlockSparseMatrix(blocks=self.gather(self.blocks),
+                                mask=self.gather(self.mask),
+                                norms=self.gather(self.norms))
+        if self.assignment is not None:
+            from repro_torch.core import distribute as D
 
-        return BlockSparseMatrix(blocks=cat(self.blocks), mask=cat(self.mask),
-                                 norms=cat(self.norms))
+            out = D.undo_assignment(out, self.assignment)
+        return out
 
     def to_dense(self) -> torch.Tensor:
         return self.unshard().to_dense()
+
+
+def _assign_name(assignment) -> str:
+    return "identity" if assignment is None else assignment.mode
+
+
+def _resolve_shard_assignment(m: BlockSparseMatrix, mesh, assignment):
+    """A ``shard_bsm`` assignment spec as a ``distribute.Assignment`` or
+    None: None / "identity" stay the identity layout; a mode string
+    derives the permutation from the matrix's own mask product (X . X, the
+    purification chain's pattern); an ``Assignment`` is validated.
+    Identity assignments collapse to None."""
+    if assignment is None:
+        return None
+    from repro_torch.core import distribute as D
+
+    if isinstance(assignment, str):
+        if assignment == "identity":
+            return None
+        host = host_mask(m)
+        assignment = D.compute_assignment(assignment, host, host, mesh)
+    if not isinstance(assignment, D.Assignment):
+        raise TypeError(
+            f"assignment must be None, a mode string {D.MODES}, or a "
+            f"distribute.Assignment; got {type(assignment).__name__}"
+        )
+    assignment.validate(m.nb_r, m.nb_c)
+    return None if assignment.is_identity else assignment
 
 
 def shard_bsm(m: BlockSparseMatrix | ShardedBSM, mesh,
@@ -366,12 +441,25 @@ def shard_bsm(m: BlockSparseMatrix | ShardedBSM, mesh,
     """Scatter a BlockSparseMatrix to its 2D home layout on ``mesh``: each
     rank gets its (r, c) shard on its own device, copied once per device
     (ranks of one device that differ only in ``l`` share the copy).
-    Idempotent on a matrix already sharded on ``mesh``."""
-    if assignment not in (None, "identity"):
-        raise NotImplementedError(_ITEM_9)
+    Idempotent on a matrix already sharded on ``mesh``.
+
+    ``assignment`` selects the block->rank distribution: None keeps the
+    identity layout, a mode string ("randomized" / "nnz_greedy") derives
+    the permutation from the matrix's own mask, and a
+    ``distribute.Assignment`` is applied as it is.  The permutation happens
+    here, on the whole matrix, before the scatter (``index_select`` of
+    rows, then columns): the engines only ever see the permuted layout."""
     if isinstance(m, ShardedBSM):
         if m.mesh != mesh:
             raise ValueError("matrix is already sharded on a different mesh")
+        if assignment is not None:
+            want = _resolve_shard_assignment(m, mesh, assignment)
+            if want != m.assignment:
+                raise ValueError(
+                    f"matrix is already sharded under assignment "
+                    f"{_assign_name(m.assignment)}; unshard before "
+                    f"redistributing to {_assign_name(want)}"
+                )
         return m
     if "r" not in mesh.axis_names or "c" not in mesh.axis_names:
         raise ValueError(
@@ -383,6 +471,11 @@ def shard_bsm(m: BlockSparseMatrix | ShardedBSM, mesh,
             f"block grid {m.nb_r}x{m.nb_c} does not divide the "
             f"{p_r}x{p_c} process grid"
         )
+    asg = _resolve_shard_assignment(m, mesh, assignment)
+    if asg is not None:
+        from repro_torch.core import distribute as D
+
+        m = D.apply_assignment(m, asg)
     hr, hc = m.nb_r // p_r, m.nb_c // p_c
     copies: dict[tuple, tuple] = {}
     shards = []
@@ -397,7 +490,7 @@ def shard_bsm(m: BlockSparseMatrix | ShardedBSM, mesh,
                 for x in (m.blocks, m.mask, m.norms))
         shards.append(copies[key])
     blocks, mask, norms = zip(*shards)
-    return ShardedBSM(blocks, mask, norms, mesh)
+    return ShardedBSM(blocks, mask, norms, mesh, asg)
 
 
 def unshard_bsm(m: BlockSparseMatrix | ShardedBSM) -> BlockSparseMatrix:
@@ -423,7 +516,8 @@ def unshard_row_scatter(mesh, blocks, mask) -> BlockSparseMatrix:
 
 def sharded_identity(nb: int, bs, mesh, dtype: torch.dtype = torch.float32,
                      assignment=None) -> ShardedBSM:
-    """Blocked identity, sharded on ``mesh``."""
+    """Blocked identity, sharded on ``mesh`` (under ``assignment``: the
+    identity is invariant, so only the layout is recorded)."""
     return shard_bsm(identity(nb, bs, dtype, device=mesh.devices[0]), mesh,
                      assignment=assignment)
 

@@ -15,6 +15,9 @@ the kernels share one stream, so they do not overlap.
 The one-sided OS1 engine (``onesided``) is the L = 1 case of the pull
 executor in ``core/twofive.py``.  Both communicate V (S_A + S_B) per rank
 under dense transport (PTP adds the pre-shift): Table 2's PTP == OS1.
+Under compressed transport each hop carries a packed panel
+(``transport.ingest``) and each tick unpacks what it received
+(``transport.dense_view``).
 """
 from __future__ import annotations
 
@@ -100,16 +103,20 @@ def ring_body(
     def body(ab, am, an, bb, bm, bn):
         del an, bn  # norms never ride the ring (recomputed at compute time)
         adt, bdt = ab[0].dtype, bb[0].dtype
+        sa, sb = am[0].shape, bm[0].shape
         acc = None
 
         def compute(pa, pb, t):
             nonlocal acc
-            acc = local_stage(T.dense_view(tr, pa, adt),
-                              T.dense_view(tr, pb, bdt), acc, **mm_kw)
+            acc = local_stage(T.dense_view(tr, pa, *sa, dtype=adt),
+                              T.dense_view(tr, pb, *sb, dtype=bdt), acc,
+                              **mm_kw)
 
         # pre-shift (Algorithm 1): A_ij <- A_{i,(j+i)}, B_ij <- B_{(i+j),j}
-        pa = T.permute(mesh, T.ingest(tr, 0, ab, am), plan.axes, plan.pre_a)
-        pb = T.permute(mesh, T.ingest(tr, 0, bb, bm), plan.axes, plan.pre_b)
+        pa = T.permute(mesh, T.ingest(tr, tr.cap_a, ab, am), plan.axes,
+                       plan.pre_a)
+        pb = T.permute(mesh, T.ingest(tr, tr.cap_b, bb, bm), plan.axes,
+                       plan.pre_b)
         ring_ticks(plan, pa, pb, compute)
         return acc
 

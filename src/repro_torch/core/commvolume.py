@@ -12,10 +12,11 @@ Paper Eq. (7): total requested data per process
 giving O(1/sqrt(P*L)) scaling for the communicated volume, while the memory
 footprint grows by O(L) (Eq. (6)).
 
-In the port, ``plan_volume`` under dense transport is what the byte
-counter of ``core/transport.py`` is held to: every collective of an
-engine adds its per-rank bytes under the conventions below, and the sum
-over one multiply equals the plan's volume.
+In the port, ``plan_volume`` of the resolved transport (dense, or
+compressed with its capacities) is what the byte counter of
+``core/transport.py`` is held to: every collective of an engine adds its
+per-rank bytes under the conventions below, and the sum over one multiply
+equals the plan's volume.
 """
 from __future__ import annotations
 
@@ -102,6 +103,11 @@ def _packed_bytes(entries: float, bs: int, itemsize: float,
     return entries * (bs * (bs if bs2 is None else bs2) * itemsize + 4.0)
 
 
+# bytes per element of the reduced wire formats (numpy has no bfloat16 or
+# float8 dtype to ask)
+_WIRE_ITEMSIZE = {"bfloat16": 2.0, "float8_e4m3fn": 1.0}
+
+
 def _transport_spec(
     transport,
 ) -> tuple[str, float | None, float | None, float | None]:
@@ -118,7 +124,7 @@ def _transport_spec(
         return "compressed", None, None, None
     if getattr(transport, "mode", None) in ("dense", "compressed"):
         wire = getattr(transport, "wire", "native")
-        w = None if wire == "native" else float(np.dtype(wire).itemsize)
+        w = None if wire == "native" else _WIRE_ITEMSIZE[wire]
         if transport.mode == "dense":
             return "dense", None, None, w
         return ("compressed", float(transport.cap_a),

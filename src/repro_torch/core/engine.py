@@ -17,24 +17,27 @@ engines over the mesh's ranks (``plan.execute``): ``cannon`` (PTP,
 Algorithm 1), ``onesided`` (OS1), ``gather`` (all-gather pull) and
 ``twofive`` (OSL, Algorithm 2: the pull body on a 2D mesh, the stacked
 body on an (l, r, c) mesh).  ``ShardedBSM`` operands stay sharded
-(``plan.execute_sharded``).  Still later slices, each raising
-``NotImplementedError`` that names its ROADMAP.md Queue A item: the
-compressed panel transport (item 8), block assignments (item 9), the
-tuner behind ``engine="auto"`` with a mesh (item 10) and pattern envelopes
-(item 11).
+(``plan.execute_sharded``).  Panels move dense or occupancy-compressed
+(``transport=``, ``core/transport.py``), under a block->rank assignment
+(``assignment=``, ``core/distribute.py``), and a pattern envelope
+(``envelope=``, ``core/envelope.py``) can stand in for the call's own
+pattern when capacities are derived.  The tuner behind ``engine="auto"``
+with a mesh is ROADMAP.md Queue A item 10 and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import transport as T
 from repro_torch.core.bsm import (
-    _ITEM_9,
     BlockSparseMatrix,
     ShardedBSM,
     block_norms,
     filter_bsm,
+    host_mask,
 )
 from repro_torch.core.local_mm import (
     GATHER_OVERHEAD,
@@ -51,7 +54,6 @@ AUTO_DENSE_FILL = 1.0 / GATHER_OVERHEAD
 
 _ITEM_10 = ("engine='auto' with a mesh is the tuner, ROADMAP.md Queue A item "
             "10; name an engine")
-_ITEM_11 = "pattern envelopes are ROADMAP.md Queue A item 11"
 
 
 def _pair_filter(a: BlockSparseMatrix, b: BlockSparseMatrix,
@@ -68,11 +70,15 @@ def choose_backend(a: BlockSparseMatrix, b: BlockSparseMatrix,
     the CUDA kernel on a CUDA device (where the reference picks ``pallas``
     on a TPU), ``stacks`` on the CPU.
 
-    ``ok`` — optional precomputed filter cube.
+    ``ok`` — optional precomputed filter cube (a tensor, or a numpy cube
+    such as an envelope's).
     """
     if ok is None:
         ok = _pair_filter(a, b, threshold)
-    fill = float(ok.float().mean()) if ok.numel() else 0.0
+    if isinstance(ok, torch.Tensor):
+        fill = float(ok.float().mean()) if ok.numel() else 0.0
+    else:
+        fill = float(np.mean(ok)) if np.size(ok) else 0.0
     dims = (a.nb_r, a.nb_c, b.nb_c, a.bs_r, a.bs_c, b.bs_c)
     dense = backend_local_cost(*dims, fill=1.0, backend="dense",
                                dtype=a.dtype)
@@ -167,27 +173,55 @@ def multiply(
                  grids (non-square grids force L = mx/mn).
     stack_capacity — product bound for the compacted backends; derived
                  exactly from each local multiply's pattern when omitted.
-    transport  — None / "auto" / "dense": dense panels (the port's only
-                 mode; "compressed" raises, item 8).
+    transport  — panel transport on a mesh: a ``transport.PanelTransport``
+                 or "auto" | "dense" | "compressed"; None is the configured
+                 default (``REPRO_TRANSPORT``, else "auto").  "auto" packs
+                 only occupied blocks when the bucketed capacities stay at
+                 most a quarter of each panel, and ships dense panels
+                 otherwise; compressed results equal dense ones bit for
+                 bit.  Capacities come from the concrete masks
+                 (``plan.get_transport``: one host copy of each mask).
+    assignment — block->rank distribution on a mesh: None / "identity",
+                 "randomized" | "nnz_greedy" (derived from the masks), or a
+                 ``distribute.Assignment``.  Replicated operands are
+                 permuted at the shard boundary and C comes back in
+                 original block coordinates; sharded operands carry their
+                 layout from ``shard_bsm`` and a value here can only
+                 confirm it.  Needs a mesh.
+    envelope   — an ``envelope.Envelope``: every pattern-dependent static
+                 (product-list capacity, transport capacities, the
+                 "auto" backend's fill) comes from the envelope instead of
+                 this call's pattern.  The operands' masks are checked
+                 against it (``Envelope.covers``, one host copy of each);
+                 a pattern outside it runs the exact path and counts
+                 ``drift_retunes``.
 
     With no mesh the engine is vestigial, as in the reference.
     ShardedBSM operands (both, on one mesh) run on their shards and come
     back sharded, post-filtered rank-local; replicated operands with a
-    mesh are sharded once, multiplied and gathered.  ``assignment``
-    other than None / "identity", ``envelope`` and ``engine="auto"`` with
-    a mesh raise ``NotImplementedError``.
+    mesh are sharded once, multiplied and gathered.  ``engine="auto"``
+    with a mesh raises ``NotImplementedError`` (the tuner, item 10).
     """
     if engine != "auto" and engine not in ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}; one of {ENGINES} or 'auto'"
         )
-    if envelope is not None:
-        raise NotImplementedError(_ITEM_11)
-    if assignment not in (None, "identity"):
-        raise NotImplementedError(_ITEM_9)
-    tr = T.resolve(transport)
-    sharded = isinstance(a, ShardedBSM) or isinstance(b, ShardedBSM)
-    if sharded:
+    env = envelope
+    if env is not None:
+        from repro_torch.core.envelope import Envelope
+
+        if not isinstance(env, Envelope):
+            raise TypeError(f"envelope must be an envelope.Envelope, not "
+                            f"{type(env).__name__}")
+        if not env.covers(host_mask(a), host_mask(b)):
+            # the pattern drifted out of its envelope: derive everything
+            # from this call's own pattern
+            plan_mod.note_drift_retune()
+            env = None
+    if backend is None:
+        backend = "dense"
+    eps = threshold if filter_eps is None else filter_eps
+    if isinstance(a, ShardedBSM) or isinstance(b, ShardedBSM):
         if not (isinstance(a, ShardedBSM) and isinstance(b, ShardedBSM)):
             raise TypeError(
                 "mixed ShardedBSM / BlockSparseMatrix operands; shard both "
@@ -198,32 +232,87 @@ def multiply(
         if mesh is not None and mesh != a.mesh:
             raise ValueError("mesh argument conflicts with operand mesh")
         mesh = a.mesh
+        if engine == "auto":
+            raise NotImplementedError(_ITEM_10)
+        if backend == "auto":
+            # without an envelope the heuristic would walk the pattern on
+            # the host, a round trip the sharded path avoids
+            backend = ("dense" if env is None
+                       else choose_backend(a, b, threshold, ok=env.cube))
+        if (backend in ("stacks", "cuda") and stack_capacity is None
+                and env is not None):
+            stack_capacity = plan_mod.get_device_capacity(env.cube, mesh,
+                                                          engine)
+        if env is not None:
+            transport = _envelope_transport(env.mask_a, env.mask_b,
+                                            transport, mesh, engine, l)
+        c = plan_mod.execute_sharded(
+            a, b, engine, threshold=threshold, backend=backend,
+            c_layout=c_layout, l=l, stack_capacity=stack_capacity,
+            transport=transport, assignment=assignment,
+        )
+        return c.filter(eps) if eps > 0.0 else c
+    if mesh is None and assignment not in (None, "identity"):
+        raise ValueError(
+            "assignment needs a mesh: a block->rank distribution has no "
+            "meaning on a single device"
+        )
     if engine == "auto":
         if mesh is not None:
             raise NotImplementedError(_ITEM_10)
         engine = "twofive"  # single device: the engine is vestigial
-    if backend is None:
-        backend = "dense"
-    eps = threshold if filter_eps is None else filter_eps
-    if sharded:
-        c = plan_mod.execute_sharded(
-            a, b, engine, threshold=threshold,
-            backend="dense" if backend == "auto" else backend,
-            c_layout=c_layout, l=l, stack_capacity=stack_capacity,
-            transport=tr,
-        )
-        return c.filter(eps) if eps > 0.0 else c
+    if backend == "auto":
+        backend = choose_backend(a, b, threshold,
+                                 ok=None if env is None else env.cube)
+    compacted = backend in ("stacks", "cuda") and stack_capacity is None
     if mesh is None:
+        if compacted and env is not None:
+            # one capacity for the whole stream the envelope covers
+            stack_capacity = env.local_capacity()
         c = multiply_reference(a, b, threshold=threshold, backend=backend,
                                stack_capacity=stack_capacity)
     else:
-        if backend == "auto":
-            backend = choose_backend(a, b, threshold)
+        asg = plan_mod.resolve_assignment(assignment, a, b, mesh)
+        if env is not None:
+            cube, em_a, em_b = env.cube, env.mask_a, env.mask_b
+            if asg is not None:  # the layout the engine partitions
+                from repro_torch.core.distribute import permute_cube
+
+                p = np.asarray(asg.perm)
+                cube = permute_cube(cube, p)
+                em_a, em_b = em_a[p][:, p], em_b[p][:, p]
+            if compacted:
+                stack_capacity = plan_mod.get_device_capacity(cube, mesh,
+                                                              engine)
+            transport = _envelope_transport(em_a, em_b, transport, mesh,
+                                            engine, l)
         c = plan_mod.execute(
             a, b, mesh, engine, threshold=threshold, backend=backend,
             c_layout=c_layout, l=l, stack_capacity=stack_capacity,
-            transport=tr,
+            transport=transport, assignment=asg,
         )
     if eps > 0.0:
         c = filter_bsm(c, eps)
     return c
+
+
+def _envelope_transport(mask_a, mask_b, transport, mesh, engine: str,
+                        l: int | None):
+    """A transport spec resolved against ENVELOPE operand-mask unions:
+    capacities that cover every panel of the stream the envelope covers,
+    with no host copy of this call's masks.  A ``PanelTransport`` passes
+    through."""
+    if isinstance(transport, T.PanelTransport):
+        return transport
+    if transport is None:
+        from repro_torch.config import transport_mode
+
+        transport = transport_mode()
+    if transport == "dense":
+        return T.DENSE
+    if transport not in ("auto", "compressed"):
+        raise ValueError(
+            f"unknown transport {transport!r}; a PanelTransport or one of "
+            "auto | dense | compressed"
+        )
+    return plan_mod.get_transport(mask_a, mask_b, mesh, engine, l, transport)

@@ -7,6 +7,8 @@ ranks — no pre-shift, 2D data layout retained — then runs one local
 multiply.  The per-rank volume equals Cannon's, V (S_A + S_B) (Table 2's
 PTP == OS1), in one collective pair instead of V ring hops.  Memory: the
 full gathered row / column instead of double buffers.  Any (r, c) grid.
+Under compressed transport each home shard is gathered packed and decoded
+into its place (``transport.all_gather_panels``).
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ def gather_body(
     def body(ab, am, an, bb, bm, bn):
         del an, bn  # norms are not gathered (recomputed from the blocks)
         # pull the full block row of A / block column of B from home
-        ga = T.all_gather_panels(mesh, tr, 0, ab, am, "c", axis=1)
-        gb = T.all_gather_panels(mesh, tr, 0, bb, bm, "r", axis=0)
+        ga = T.all_gather_panels(mesh, tr, tr.cap_a, ab, am, "c", axis=1)
+        gb = T.all_gather_panels(mesh, tr, tr.cap_b, bb, bm, "r", axis=0)
         return local_stage(ga, gb, threshold=threshold,
                            backend=backend, stack_capacity=stack_capacity)
 

@@ -19,20 +19,36 @@ reduction.  Plan kinds, as in the reference:
 
 ``build_shard_body`` returns an engine's body over rank lists, and
 ``execute`` / ``execute_sharded`` run one multiply from replicated or
-sharded operands.  The tuner, block assignments and compressed transport
-of the reference's execution path are later items (ROADMAP.md Queue A
-items 8-10).
+sharded operands.
+
+The resolution layer, LRU-cached on pattern signatures and counted in
+``cache_stats()`` as in the reference:
+
+* ``get_transport`` / ``resolve_transport`` — the panel transport of one
+  (pattern pair, mesh, engine): sound bucketed packing capacities from the
+  concrete masks and the ``auto`` crossover (``transport_*`` counters).
+* ``get_assignment`` / ``resolve_assignment`` — the block->rank
+  assignment (``core/distribute.py``; ``assign_*``).  Every capacity is
+  derived from the PERMUTED pattern (``_permuted_mask_views``).
+* ``get_device_capacity`` — the per-rank product-list bound of a cube.
+* ``get_envelope`` — the forecast pattern envelope of a purification
+  chain (``core/envelope.py``; ``envelope_*``), and ``note_drift_retune``
+  for a pattern that escaped its envelope (``drift_retunes``).
 
 ``get_product_stacks`` caches compacted product lists per sparsity-pattern
 signature, so a repeated pattern skips compaction; ``get_chain_program``
 caches the fused sign-iteration sweep per key.  The reference's
 jit-program cache (``get_compiled``) has no twin: PyTorch runs eagerly.
+The tuner behind ``engine="auto"`` on a mesh is ROADMAP.md Queue A item
+10.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import asdict, dataclass
 from functools import lru_cache
+
+import numpy as np
 
 from repro_torch.core.topology import (
     Topology,
@@ -55,6 +71,15 @@ class CacheStats:
     chain_hits: int = 0  # fused sweep reuse (sign iteration)
     chain_misses: int = 0
     evictions: int = 0
+    transport_hits: int = 0  # panel-transport resolutions served from cache
+    transport_misses: int = 0  # resolutions that derived capacities
+    transport_dense: int = 0  # fresh resolutions that chose dense panels
+    transport_compressed: int = 0  # ... that chose compressed panels
+    assign_hits: int = 0  # block-assignment resolutions served from cache
+    assign_misses: int = 0  # resolutions that derived a permutation
+    envelope_hits: int = 0  # chain-envelope forecasts served from cache
+    envelope_misses: int = 0  # forecasts that ran the symbolic propagation
+    drift_retunes: int = 0  # patterns that escaped their envelope
 
 
 _CACHE_MAXSIZE = 128
@@ -63,21 +88,43 @@ _CACHE_MAXSIZE = 128
 _PATTERN_CACHE_MAX_BYTES = 4 * 2**30
 _pattern_cache: OrderedDict[bytes, tuple] = OrderedDict()
 _chain_cache: OrderedDict[tuple, object] = OrderedDict()
+_bound_cache: OrderedDict[tuple, int] = OrderedDict()
+_transport_cache: OrderedDict[tuple, object] = OrderedDict()
+_assign_cache: OrderedDict[tuple, object] = OrderedDict()
+_envelope_cache: OrderedDict[tuple, object] = OrderedDict()
 _stats = CacheStats()
 
 
 def cache_stats() -> dict:
-    """Pattern / chain cache counters."""
+    """Pattern / chain / resolution cache counters."""
     return asdict(_stats)
 
 
 def clear_cache() -> None:
     """Drop every plan-layer cache and zero every counter."""
     global _stats
-    _pattern_cache.clear()
-    _chain_cache.clear()
+    for cache in (_pattern_cache, _chain_cache, _bound_cache,
+                  _transport_cache, _assign_cache, _envelope_cache):
+        cache.clear()
     plan_multiply.cache_clear()
     _stats = CacheStats()
+
+
+def _lru(cache: OrderedDict, key, hit: str, miss: str, make):
+    """``cache[key]``, made by ``make()`` on a miss; counts ``hit`` /
+    ``miss`` in the stats and evicts the oldest entry past the bound."""
+    val = cache.get(key)
+    if val is not None:
+        setattr(_stats, hit, getattr(_stats, hit) + 1)
+        cache.move_to_end(key)
+        return val
+    setattr(_stats, miss, getattr(_stats, miss) + 1)
+    val = make()
+    cache[key] = val
+    if len(cache) > _CACHE_MAXSIZE:
+        cache.popitem(last=False)
+        _stats.evictions += 1
+    return val
 
 
 def _stacks_bytes(entry) -> int:
@@ -116,19 +163,207 @@ def get_product_stacks(pair_ok):
 def get_chain_program(key: tuple, make_program):
     """Fused chain-step program (a whole sign-iteration sweep), cached per
     key and counted by ``chain_hits`` / ``chain_misses``."""
-    key = ("chain",) + tuple(key)
-    prog = _chain_cache.get(key)
-    if prog is not None:
-        _stats.chain_hits += 1
-        _chain_cache.move_to_end(key)
-        return prog
-    _stats.chain_misses += 1
-    prog = make_program()
-    _chain_cache[key] = prog
-    if len(_chain_cache) > _CACHE_MAXSIZE:
-        _chain_cache.popitem(last=False)
-        _stats.evictions += 1
-    return prog
+    return _lru(_chain_cache, ("chain",) + tuple(key), "chain_hits",
+                "chain_misses", make_program)
+
+
+# ---------------------------------------------------------------------------
+# the resolution layer: capacities, transports, assignments, envelopes
+# ---------------------------------------------------------------------------
+
+
+def _mesh_key(mesh) -> tuple:
+    return tuple((n, int(mesh.shape[n])) for n in mesh.axis_names)
+
+
+def device_stack_bound(ok, mesh, engine: str) -> int:
+    """Sound per-call product-count bound for the distributed engines (a
+    numpy cube): the own-C-panel engines (cannon / onesided / gather) see
+    one rank's C panel's triples per local multiply; the twofive
+    formulations compute partial panels for other owners, so the total
+    count bounds them."""
+    ok = np.asarray(ok, bool)
+    if engine == "twofive":
+        return int(ok.sum())
+    p_r, p_c = mesh.shape["r"], mesh.shape["c"]
+    nb_r, _, nb_c = ok.shape
+    rr, cc = nb_r // p_r, nb_c // p_c
+    return max(int(ok[r * rr:(r + 1) * rr, :, c * cc:(c + 1) * cc].sum())
+               for r in range(p_r) for c in range(p_c))
+
+
+def get_device_capacity(ok, mesh, engine: str) -> int:
+    """Bucketed distributed product-list capacity of a cube, cached on
+    (pattern signature, partition class) and counted as a pattern hit or
+    miss."""
+    key = (
+        pattern_signature(ok), mesh.shape["r"], mesh.shape["c"],
+        "twofive" if engine == "twofive" else "own-panel",
+    )
+    return _lru(_bound_cache, key, "pattern_hits", "pattern_misses",
+                lambda: bucket_capacity(device_stack_bound(ok, mesh, engine)))
+
+
+def get_transport(mask_a, mask_b, mesh, engine: str, l: int | None = None,
+                  mode: str = "auto"):
+    """The panel transport of one (pattern pair, mesh, engine): the sound
+    bucketed per-panel capacities of the host masks — the largest occupied
+    count over every A / B panel the plan's schedule ships — and the
+    ``auto`` crossover (``transport.resolve_mode``).  Cached on the
+    pattern signatures; counted by the ``transport_*`` fields."""
+    from repro_torch.core import transport as T
+
+    am = np.asarray(mask_a, bool)
+    bm = np.asarray(mask_b, bool)
+    key = ("transport", pattern_signature(am), pattern_signature(bm),
+           _mesh_key(mesh), engine, l, mode)
+
+    def make():
+        plan = plan_multiply(mesh, engine, l)
+        cap_a, cap_b, blocks_a, blocks_b = T.capacities_for(am, bm, plan)
+        if T.resolve_mode(mode, cap_a, cap_b, blocks_a,
+                          blocks_b) == "compressed":
+            _stats.transport_compressed += 1
+            return T.PanelTransport("compressed", cap_a, cap_b)
+        _stats.transport_dense += 1
+        return T.DENSE
+
+    return _lru(_transport_cache, key, "transport_hits", "transport_misses",
+                make)
+
+
+def resolve_transport(spec, a, b, mesh, engine: str, l: int | None = None):
+    """A transport spec as a ``PanelTransport``.
+
+    ``spec`` is a ``PanelTransport`` (a compressed one is checked against
+    the raw per-panel bounds of THIS plan and pattern: ``pack_panel``
+    drops what does not fit, so under-capacity must raise here, never give
+    a wrong C), a mode string (``"auto"`` / ``"dense"`` /
+    ``"compressed"``), or None — the configured default
+    (``config.transport_mode``, ``REPRO_TRANSPORT``).  Modes other than
+    dense read the operands' masks on the host (one copy each).
+    """
+    from repro_torch.core import transport as T
+    from repro_torch.core.bsm import host_mask
+
+    if isinstance(spec, T.PanelTransport):
+        if spec.compressed:
+            (ar, ac), (br, bc) = T.plan_panel_parts(
+                plan_multiply(mesh, engine, l))
+            need_a = T.panel_nnz_bound(host_mask(a), ar, ac)
+            need_b = T.panel_nnz_bound(host_mask(b), br, bc)
+            if spec.cap_a < need_a or spec.cap_b < need_b:
+                raise ValueError(
+                    f"transport capacities ({spec.cap_a}, {spec.cap_b}) "
+                    f"under-cover the {engine!r} plan's panels "
+                    f"(need >= ({need_a}, {need_b})): packing would "
+                    "drop blocks"
+                )
+        return spec
+    if spec is None:
+        from repro_torch.config import transport_mode
+
+        spec = transport_mode()
+    if spec == "dense":
+        return T.DENSE
+    if spec not in ("auto", "compressed"):
+        raise ValueError(
+            f"unknown transport {spec!r}; a PanelTransport or one of "
+            "auto | dense | compressed"
+        )
+    return get_transport(host_mask(a), host_mask(b), mesh, engine, l, spec)
+
+
+def get_assignment(mask_a, mask_b, mesh, mode: str):
+    """The block->rank assignment of one (pattern pair, mesh, mode):
+    ``distribute.assignment_for`` on the integer mask product of the host
+    masks, cached on the pattern signatures (``assign_*`` counters)."""
+    from repro_torch.core import distribute as D
+
+    am = np.asarray(mask_a, bool)
+    bm = np.asarray(mask_b, bool)
+    p_r, p_c = mesh.shape["r"], mesh.shape["c"]
+    key = ("assign", pattern_signature(am), pattern_signature(bm), p_r, p_c,
+           mode)
+    return _lru(_assign_cache, key, "assign_hits", "assign_misses",
+                lambda: D.assignment_for(mode, D.product_counts(am, bm),
+                                         (p_r, p_c)))
+
+
+def resolve_assignment(spec, a, b, mesh):
+    """An assignment spec as a ``distribute.Assignment`` or None (the
+    identity layout): None / ``"identity"``, a mode string
+    (``"randomized"`` / ``"nnz_greedy"``, derived from the operands' host
+    masks by :func:`get_assignment`) or a ready ``Assignment`` (validated
+    against both block grids; an identity permutation becomes None)."""
+    if spec is None:
+        return None
+    from repro_torch.core import distribute as D
+    from repro_torch.core.bsm import host_mask
+
+    if isinstance(spec, str):
+        if spec == "identity":
+            return None
+        if spec not in D.MODES:
+            raise ValueError(
+                f"unknown assignment {spec!r}; an Assignment or one of "
+                f"{D.MODES}"
+            )
+        asg = get_assignment(host_mask(a), host_mask(b), mesh, spec)
+    elif isinstance(spec, D.Assignment):
+        asg = spec
+    else:
+        raise TypeError(
+            f"assignment must be None, a mode string {D.MODES}, or a "
+            f"distribute.Assignment; got {type(spec).__name__}"
+        )
+    asg.validate(a.nb_r, a.nb_c)
+    asg.validate(b.nb_r, b.nb_c)
+    return None if asg.is_identity else asg
+
+
+def _permuted_mask_views(a, b, asg):
+    """Stand-ins carrying the PERMUTED host masks of ``a`` and ``b``, for
+    deriving transport capacities in the layout the engine will run in."""
+    import types
+
+    from repro_torch.core.bsm import host_mask
+
+    p = np.asarray(asg.perm)
+    return tuple(types.SimpleNamespace(mask=host_mask(m)[p][:, p])
+                 for m in (a, b))
+
+
+def get_envelope(mask, norms, *, sweeps: int, threshold: float = 0.0,
+                 filter_eps: float = 0.0, bs: int = 1,
+                 margin: float | None = None):
+    """Forecast (or fetch) the pattern envelope of a purification chain:
+    ``envelope.forecast_chain`` cached on a digest of the entering pattern
+    (mask bits and norm bytes) and the chain spec (``envelope_*``
+    counters)."""
+    import hashlib
+
+    from repro_torch.core import envelope as E
+
+    if margin is None:
+        margin = E.DEFAULT_MARGIN
+    am = np.ascontiguousarray(np.asarray(mask, bool))
+    an = np.ascontiguousarray(np.asarray(norms, np.float32))
+    h = hashlib.sha1(np.packbits(am).tobytes())
+    h.update(an.tobytes())
+    key = ("envelope", h.digest(), am.shape, int(sweeps), float(threshold),
+           float(filter_eps), int(bs), float(margin))
+    return _lru(_envelope_cache, key, "envelope_hits", "envelope_misses",
+                lambda: E.forecast_chain(
+                    am, an, sweeps=sweeps, threshold=threshold,
+                    filter_eps=filter_eps, bs=bs, margin=margin))
+
+
+def note_drift_retune() -> None:
+    """Count one drift-forced re-derivation (``drift_retunes``): a
+    concrete pattern escaped its envelope and the multiply ran on
+    capacities derived from its own pattern."""
+    _stats.drift_retunes += 1
 
 
 # ---------------------------------------------------------------------------
@@ -454,15 +689,21 @@ def build_shard_body(plan: MultiplyPlan, *, threshold: float, backend: str,
     re-partitioning.  C comes home in the 2D (r, c) layout unless a
     stacked plan is asked for ``c_layout="scatter"`` (C reduce-scattered
     over ``l`` along block rows); other plans ignore ``c_layout``, as in
-    the reference.  ``transport`` defaults to dense.
+    the reference.  ``transport`` is a resolved ``PanelTransport``; None
+    is dense (a fused chain without an envelope keeps dense panels).
     """
     from repro_torch.core import transport as T
 
     if c_layout not in ("2d", "scatter"):
         raise ValueError(f"unknown c_layout {c_layout!r}")
+    if transport is None:
+        transport = T.DENSE
+    if not isinstance(transport, T.PanelTransport):
+        raise TypeError("build_shard_body takes a resolved PanelTransport "
+                        f"or None, not {transport!r}")
     kw = dict(
         threshold=threshold, backend=backend,
-        stack_capacity=stack_capacity, transport=T.resolve(transport),
+        stack_capacity=stack_capacity, transport=transport,
     )
     if plan.kind == "ring":
         from repro_torch.core.cannon import ring_body
@@ -500,53 +741,83 @@ def _validated_plan(a, b, mesh, engine: str, l: int | None) -> MultiplyPlan:
     return plan
 
 
-def run_body(plan: MultiplyPlan, body, a, b, *, c_layout: str = "2d"):
+def run_body(plan: MultiplyPlan, body, a, b, *, c_layout: str = "2d",
+             assignment=None):
     """The counterpart of the reference's shard_map executors: shard two
-    replicated operands onto ``plan.mesh`` (``bsm.shard_bsm``), run
-    ``body`` over the rank lists, and gather C (one ``BlockSparseMatrix``
-    on the mesh's first device)."""
+    replicated operands onto ``plan.mesh`` (``bsm.shard_bsm``, under
+    ``assignment``), run ``body`` over the rank lists, and gather C (one
+    ``BlockSparseMatrix`` on the mesh's first device, in original block
+    coordinates)."""
     from repro_torch.core import bsm as B
+    from repro_torch.core import distribute as D
 
     mesh = plan.mesh
-    sa = B.shard_bsm(a, mesh)
-    sb = sa if b is a else B.shard_bsm(b, mesh)
+    sa = B.shard_bsm(a, mesh, assignment=assignment)
+    sb = sa if b is a else B.shard_bsm(b, mesh, assignment=assignment)
     cb, cm = body(sa.blocks, sa.mask, sa.norms, sb.blocks, sb.mask, sb.norms)
     if plan.kind == "stacked" and c_layout == "scatter":
-        return B.unshard_row_scatter(mesh, cb, cm)
-    return B.ShardedBSM.from_shards(cb, cm, mesh).unshard()
+        c = B.unshard_row_scatter(mesh, cb, cm)
+        return c if assignment is None else D.undo_assignment(c, assignment)
+    return B.ShardedBSM.from_shards(cb, cm, mesh, sa.assignment).unshard()
 
 
 def execute(a, b, mesh, engine: str, *, threshold: float = 0.0,
             backend: str = "dense", c_layout: str = "2d",
             l: int | None = None, stack_capacity: int | None = None,
-            transport=None):
+            transport=None, assignment=None):
     """One distributed multiply from replicated operands: shard, run the
     engine's body, gather C — the path behind ``engine.multiply`` and the
     per-engine wrappers (``multiply_2d`` / ``multiply_gather`` /
-    ``multiply_25d``)."""
+    ``multiply_25d``).
+
+    ``assignment`` (None / mode string / ``distribute.Assignment``) is the
+    block->rank layout the multiply runs under: the operands are permuted
+    at the shard boundary and C comes back in original block coordinates.
+    The transport is resolved on the permuted masks, the pattern the
+    engine ships."""
     plan = _validated_plan(a, b, mesh, engine, l)
+    asg = resolve_assignment(assignment, a, b, mesh)
+    ta, tb = (a, b) if asg is None else _permuted_mask_views(a, b, asg)
+    tr = resolve_transport(transport, ta, tb, mesh, engine, l)
     body = build_shard_body(plan, threshold=threshold, backend=backend,
                             stack_capacity=stack_capacity,
-                            transport=transport, c_layout=c_layout)
-    return run_body(plan, body, a, b, c_layout=c_layout)
+                            transport=tr, c_layout=c_layout)
+    return run_body(plan, body, a, b, c_layout=c_layout, assignment=asg)
 
 
 def execute_sharded(a, b, engine: str, *, threshold: float = 0.0,
                     backend: str = "dense", c_layout: str = "2d",
                     l: int | None = None,
-                    stack_capacity: int | None = None, transport=None):
+                    stack_capacity: int | None = None, transport=None,
+                    assignment=None):
     """Sharded multiply: ShardedBSM in, ShardedBSM out, no gather.  C stays
     in the 2D home layout its next multiply consumes (``c_layout`` must be
-    "2d")."""
+    "2d") and inherits the operands' assignment.
+
+    Sharded operands already live in their assignment's permuted layout
+    (``shard_bsm`` applied it), so their masks are the pattern the
+    transport is resolved on; an ``assignment`` here can only confirm the
+    carried layout.  Resolving a transport other than dense reads the
+    masks on the host (one copy per operand and call); fused chains never
+    come here."""
     from repro_torch.core import bsm as B
 
     if c_layout != "2d":
         raise ValueError("sharded chains require c_layout='2d'")
     if a.mesh != b.mesh:
         raise ValueError("operands sharded on different meshes")
+    asg = a._join_assignment(b)
+    if assignment is not None:
+        want = getattr(assignment, "mode", assignment)
+        if want != B._assign_name(asg):
+            raise ValueError(
+                f"operands are sharded under assignment "
+                f"{B._assign_name(asg)}; cannot execute under {want!r} — "
+                "unshard and redistribute instead"
+            )
     plan = _validated_plan(a, b, a.mesh, engine, l)
+    tr = resolve_transport(transport, a, b, a.mesh, engine, l)
     body = build_shard_body(plan, threshold=threshold, backend=backend,
-                            stack_capacity=stack_capacity,
-                            transport=transport)
+                            stack_capacity=stack_capacity, transport=tr)
     cb, cm = body(a.blocks, a.mask, a.norms, b.blocks, b.mask, b.norms)
-    return B.ShardedBSM.from_shards(cb, cm, a.mesh)
+    return B.ShardedBSM.from_shards(cb, cm, a.mesh, asg)

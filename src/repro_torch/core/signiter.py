@@ -25,6 +25,16 @@ post-multiplication filtering.
     (three with the CUDA kernel's group masks); capturing the sweep in a
     CUDA graph is later work.
 
+    Under a pattern envelope (``envelope=``, ``core/envelope.py``: forecast
+    once from the chain's entering pattern) every local multiply compacts
+    at the envelope's capacity instead (no count to read: two syncs per
+    CUDA-kernel multiply), so the product list keeps one shape for the
+    whole chain, and a non-dense ``transport=`` becomes available with
+    packing capacities that cover every sweep.  ``assignment=`` shards the
+    chain once under a block->rank permutation; sign(P X P^T) =
+    P sign(X) P^T and P I P^T = I, so every sweep runs in the permuted
+    layout and the exit boundary undoes it.
+
 ``legacy`` — the host-driven loop: each multiply re-enters ``multiply()``
     from replicated matrices (sharded and gathered per multiply on a
     mesh), the algebra between multiplies runs as separate operations, and
@@ -34,12 +44,13 @@ post-multiplication filtering.
 S = I); trace(P) = #{eigenvalues < mu} is the convergence observable.  A
 sharded H stays sharded to the chain boundary.
 
-Still later slices: block assignments (ROADMAP.md Queue A item 9), the
-tuner behind ``engine="auto"`` with a mesh (item 10) and pattern envelopes
-(item 11) raise ``NotImplementedError``.
+The tuner (ROADMAP.md Queue A item 10) raises ``NotImplementedError``:
+behind ``engine="auto"`` with a mesh, and behind ``backend="auto"`` under
+an envelope (its ``choose_local_backend``).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import torch
@@ -48,7 +59,7 @@ from repro_torch.core import bsm as B
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import transport as T
 from repro_torch.core.bsm import block_norms
-from repro_torch.core.engine import _ITEM_10, multiply
+from repro_torch.core.engine import _ITEM_10, _envelope_transport, multiply
 from repro_torch.core.local_mm import local_filtered_mm
 
 
@@ -65,13 +76,18 @@ class SignIterStats:
     host_syncs: int = 0  # device->host residual syncs (fused: ~it/sync_every)
     retraces: int = 0  # fused: sweep programs built (chain_misses delta);
     #   legacy: fresh product-list compactions (pattern_misses delta)
+    envelope: bool = False  # the chain ran against a pattern envelope
+    forecast_s: float = 0.0  # host seconds getting the envelope ("auto")
 
 
-def _check_engine(mesh, engine: str, assignment) -> str:
+_BACKEND_AUTO = ("backend='auto' under an envelope is the tuner's "
+                 "choose_local_backend, ROADMAP.md Queue A item 10; name a "
+                 "backend")
+
+
+def _check_engine(mesh, engine: str) -> str:
     """The chain's engine: ``"auto"`` is vestigial on one device and the
-    tuner (item 10) on a mesh; assignments are item 9."""
-    if assignment not in (None, "identity"):
-        raise NotImplementedError(B._ITEM_9)
+    tuner (item 10) on a mesh."""
     if engine == "auto":
         if mesh is not None:
             raise NotImplementedError(_ITEM_10)
@@ -154,25 +170,68 @@ def _make_sweep(mm, reduce, filter_eps: float, *, total_blocks: int):
     return sweep
 
 
+def _envelope_statics(env, mesh, engine: str, l: int | None, backend: str,
+                      stack_capacity: int | None, transport):
+    """(product-list capacity, transport) of a chain under envelope
+    ``env``: the envelope's capacity for a compacted backend left without
+    one, and the transport resolved on the envelope's mask unions."""
+    if backend == "auto":
+        raise NotImplementedError(_BACKEND_AUTO)
+    if stack_capacity is None and backend in ("stacks", "cuda"):
+        stack_capacity = (env.local_capacity() if mesh is None
+                          else env.device_capacity(mesh, engine))
+    if mesh is not None:  # a chain's None is dense, not the configured mode
+        transport = _envelope_transport(env.mask_a, env.mask_b,
+                                        transport or "dense", mesh, engine, l)
+    return stack_capacity, transport
+
+
 def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
                       threshold: float, filter_eps: float, backend: str,
-                      l: int | None = None):
+                      l: int | None = None, stack_capacity: int | None = None,
+                      envelope=None, transport=None):
     """The fused sweep for (mesh, engine, L, shape, dtype, device,
-    thresholds, backend), cached in the plan layer (``chain_hits`` /
-    ``chain_misses``).  It takes and returns rank lists: one shard per
-    rank of ``mesh``, or a list of one with no mesh.
+    thresholds, backend, capacity, transport), cached in the plan layer
+    (``chain_hits`` / ``chain_misses``).  It takes and returns rank lists:
+    one shard per rank of ``mesh``, or a list of one with no mesh.
 
-    ``backend="auto"`` becomes ``dense``, as in the reference's fused
-    sweep (one sweep serves the whole evolving pattern; resolve "auto"
-    against a concrete pattern before the chain, as ``launch/purify.py``
-    does).
+    Without ``envelope``, ``backend="auto"`` becomes ``dense`` as in the
+    reference's fused sweep (one sweep serves the whole evolving pattern;
+    resolve "auto" against a concrete pattern before the chain, as
+    ``launch/purify.py`` does), and the panel transport is pinned dense: a
+    packing capacity taken from the first pattern would drop fill-in
+    blocks mid-iteration, so a non-dense ``transport`` raises.
+
+    With an ``envelope.Envelope``: a compacted backend without
+    ``stack_capacity`` takes the envelope's (``local_capacity`` on one
+    device, ``device_capacity`` on a mesh), and a non-dense transport
+    ("auto" / "compressed") resolves its per-panel capacities from the
+    envelope's operand-mask unions — both sound for every sweep the
+    envelope covers.  ``backend="auto"`` there is the tuner's choice and
+    raises (item 10).
     """
-    if backend == "auto":
-        backend = "dense"
+    if envelope is not None:
+        stack_capacity, transport = _envelope_statics(
+            envelope, mesh, engine, l, backend, stack_capacity, transport)
+    else:
+        if backend == "auto":
+            backend = "dense"
+        if (transport not in (None, "dense")
+                and getattr(transport, "mode", None) != "dense"):
+            raise ValueError(
+                "non-dense chain transport needs an envelope: a packing "
+                "capacity derived from the first pattern would drop "
+                "fill-in panels mid-iteration (core/envelope.py)"
+            )
+        transport = None
+    if mesh is None or transport == T.DENSE:
+        transport = None
     where = mesh if mesh is not None else str(x.device)
     key = ("signiter", where, engine if mesh is not None else None, l,
            x.nb_r, x.nb_c, x.bs_r, x.bs_c, str(x.dtype), float(threshold),
-           float(filter_eps), backend)
+           float(filter_eps), backend, stack_capacity)
+    if transport is not None:
+        key += (transport.key,)
     total_blocks = x.nb_r * x.nb_c
 
     def make_program():
@@ -180,7 +239,8 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
             def mm(ab, am, an, bb, bm, bn):
                 c = local_filtered_mm(ab[0], am[0], an[0], bb[0], bm[0],
                                       bn[0], threshold=threshold,
-                                      backend=backend)
+                                      backend=backend,
+                                      stack_capacity=stack_capacity)
                 return [c[0]], [c[1]]
 
             return _make_sweep(mm, lambda ps: ps, filter_eps,
@@ -188,7 +248,9 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
         plan = plan_mod.plan_multiply(mesh, engine, l)
         plan.validate_blocks(x.nb_r, x.nb_c)
         mm = plan_mod.build_shard_body(plan, threshold=threshold,
-                                       backend=backend)
+                                       backend=backend,
+                                       stack_capacity=stack_capacity,
+                                       transport=transport)
         return _make_sweep(mm, lambda ps: T.psum(mesh, ps, ("r", "c")),
                            filter_eps, total_blocks=total_blocks)
 
@@ -216,9 +278,9 @@ def sign_iteration_legacy(
 ) -> tuple[B.BlockSparseMatrix, SignIterStats]:
     """The host-driven per-op loop (parity oracle): two ``multiply()``
     re-entries per sweep from replicated matrices (on ``mesh`` with
-    ``engine`` when given), eager algebra between them, a host residual
-    sync every sweep."""
-    engine = _check_engine(mesh, engine, assignment)
+    ``engine`` and ``assignment`` when given), eager algebra between them,
+    a host residual sync every sweep."""
+    engine = _check_engine(mesh, engine)
     nb, bs = x0.nb_r, x0.bs_r
     ident = B.identity(nb, bs, x0.dtype, device=x0.device)
     x = _scale_to_unit_spectrum(x0)
@@ -232,7 +294,7 @@ def sign_iteration_legacy(
     residual = float("inf")
     misses0 = plan_mod.cache_stats()["pattern_misses"]
     mm_kw = dict(engine=engine, threshold=threshold, filter_eps=filter_eps,
-                 backend=backend, l=l)
+                 backend=backend, l=l, assignment=assignment)
     it = 0
     for it in range(1, max_iter + 1):
         x2 = multiply(x, x, mesh, **mm_kw)
@@ -282,6 +344,8 @@ def sign_iteration(
     l: int | None = None,
     storage_dtype: torch.dtype | None = None,
     assignment=None,
+    envelope=None,
+    transport=None,
 ) -> tuple[B.BlockSparseMatrix | B.ShardedBSM, SignIterStats]:
     """Newton-Schulz iteration X <- 1/2 X (3I - X^2) to sign(x0).
 
@@ -297,8 +361,24 @@ def sign_iteration(
     storage_dtype — reduced-precision block storage for the whole chain:
                  X and I are quantized once after the spectral scale, with
                  norms recalibrated; every multiply accumulates in f32.
+    envelope   — fused only: None, ``"auto"`` (forecast here from the
+                 finalized operand by ``plan.get_envelope`` with
+                 ``sweeps=max_iter``: one host copy of its mask and norms)
+                 or an ``envelope.Envelope``.  The local stage compacts at
+                 the envelope's capacity, and a non-dense ``transport``
+                 takes its capacities from the envelope (see
+                 ``get_sweep_program``).
+    transport  — fused only: panel transport of the sweep's multiplies on
+                 a mesh ("auto" | "dense" | "compressed" or a
+                 ``PanelTransport``; None is dense).  Non-dense needs an
+                 envelope.
+    assignment — the block->rank distribution of the WHOLE chain, resolved
+                 once at the shard boundary (None / a mode string / a
+                 ``distribute.Assignment``; see ``bsm.shard_bsm``).  Needs
+                 a mesh.
 
-    A ShardedBSM ``x0`` stays sharded end to end and the result is a
+    A ShardedBSM ``x0`` stays sharded end to end (under its own carried
+    assignment; a conflicting ``assignment`` raises) and the result is a
     ShardedBSM; a BlockSparseMatrix with ``mesh`` given is sharded once at
     entry and gathered once at exit (the chain boundaries).  The legacy
     loop takes replicated matrices only.
@@ -312,6 +392,10 @@ def sign_iteration(
         if sharded_in:
             raise TypeError("legacy mode operates on replicated matrices; "
                             "unshard first (bsm.unshard_bsm)")
+        if envelope is not None or transport is not None:
+            raise ValueError(
+                "envelope/transport are fused-chain controls; the legacy "
+                "loop re-enters multiply() per pattern")
         return sign_iteration_legacy(
             x0, mesh=mesh, engine=engine, threshold=threshold,
             filter_eps=filter_eps, max_iter=max_iter, tol=tol,
@@ -322,18 +406,45 @@ def sign_iteration(
         raise ValueError(f"unknown mode {mode!r}; 'fused' or 'legacy'")
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    engine = _check_engine(mesh, engine, assignment)
+    engine = _check_engine(mesh, engine)
+    if sharded_in and assignment is not None and (
+            getattr(assignment, "mode", assignment)
+            != B._assign_name(x0.assignment)):
+        raise ValueError(
+            f"operand is sharded under assignment "
+            f"{B._assign_name(x0.assignment)}; unshard before iterating "
+            "under a different layout")
     nb, bs = x0.nb_r, x0.bs_r
     if mesh is not None:
-        x = B.shard_bsm(x0, mesh)
-        ident = B.sharded_identity(nb, bs, mesh, x0.dtype)
+        # one layout decision for the whole chain, made at the shard
+        # boundary; the identity inherits it (P I P^T = I)
+        x = B.shard_bsm(x0, mesh, assignment=assignment)
+        ident = B.sharded_identity(nb, bs, mesh, x0.dtype,
+                                   assignment=x.assignment)
     else:
+        if assignment not in (None, "identity"):
+            raise ValueError("assignment needs a mesh: a block->rank "
+                             "distribution has no meaning on one device")
         x = x0
         ident = B.identity(nb, bs, x0.dtype, device=x0.device)
     x = _scale_to_unit_spectrum(x)
     if storage_dtype is not None:
         x = B.cast_bsm(x, storage_dtype)
         ident = B.cast_bsm(ident, storage_dtype)
+    env, forecast_s = envelope, 0.0
+    if env is True or env == "auto":
+        # forecast from the FINALIZED operand (scaled, cast, in the chain's
+        # layout): its norm bounds must dominate the norms the filters see
+        t0 = time.perf_counter()
+        norms = x.gather(x.norms) if mesh is not None else x.norms
+        env = plan_mod.get_envelope(
+            B.host_mask(x), B.host_array(norms), sweeps=max_iter,
+            threshold=threshold, filter_eps=filter_eps, bs=x.bs_r)
+        forecast_s = time.perf_counter() - t0
+    stack_capacity = None
+    if env is not None:  # resolved once: the cube's digest is not free
+        stack_capacity, transport = _envelope_statics(
+            env, mesh, engine, l, backend, None, transport)
 
     def ranks(m):
         if mesh is None:
@@ -353,7 +464,9 @@ def sign_iteration(
         # fetched per sweep: the chain counters then record how many sweeps
         # reused one program
         sweep = get_sweep_program(x, mesh, engine=engine, threshold=threshold,
-                                  filter_eps=filter_eps, backend=backend, l=l)
+                                  filter_eps=filter_eps, backend=backend, l=l,
+                                  stack_capacity=stack_capacity,
+                                  envelope=env, transport=transport)
         xb, xm, xn, res_d, occ_d = sweep(xb, xm, xn, ib, im)
         pending.append((res_d, occ_d))
         if it % sync_every == 0 or it == max_iter:
@@ -369,7 +482,8 @@ def sign_iteration(
                 break
 
     if mesh is not None:
-        out = B.ShardedBSM(tuple(xb), tuple(xm), tuple(xn), mesh)
+        out = B.ShardedBSM(tuple(xb), tuple(xm), tuple(xn), mesh,
+                           x.assignment)
         result = out if sharded_in else out.unshard()
     else:
         result = B.BlockSparseMatrix(blocks=xb[0], mask=xm[0], norms=xn[0])
@@ -384,6 +498,8 @@ def sign_iteration(
         sync_every=sync_every,
         host_syncs=syncs,
         retraces=plan_mod.cache_stats()["chain_misses"] - chain_misses0,
+        envelope=env is not None,
+        forecast_s=forecast_s,
     )
     return result, stats
 
@@ -404,12 +520,17 @@ def density_matrix(
     l: int | None = None,
     storage_dtype: torch.dtype | None = None,
     assignment=None,
+    envelope=None,
+    transport=None,
 ) -> tuple[B.BlockSparseMatrix | B.ShardedBSM, SignIterStats]:
     """P = 1/2 (I - sign(H - mu I))  (paper Eq. (1) with S = I).  The shift,
     the sign iteration and the projector run where ``h`` lives: a
-    ShardedBSM H gives a ShardedBSM P with no gather in between."""
+    ShardedBSM H gives a ShardedBSM P with no gather in between, under H's
+    assignment.  ``assignment``, ``envelope`` and ``transport`` are
+    ``sign_iteration``'s."""
     if isinstance(h, B.ShardedBSM):
-        ident = B.sharded_identity(h.nb_r, h.bs_r, h.mesh, h.dtype)
+        ident = B.sharded_identity(h.nb_r, h.bs_r, h.mesh, h.dtype,
+                                   assignment=h.assignment)
         shifted = ident.scale(-mu).add(h)
     else:
         ident = B.identity(h.nb_r, h.bs_r, h.dtype, device=h.device)
@@ -419,6 +540,7 @@ def density_matrix(
         filter_eps=filter_eps, max_iter=max_iter, tol=tol, mode=mode,
         sync_every=sync_every, backend=backend, l=l,
         storage_dtype=storage_dtype, assignment=assignment,
+        envelope=envelope, transport=transport,
     )
     if sgn.dtype != ident.dtype:  # projector algebra in storage dtype
         ident = B.cast_bsm(ident, sgn.dtype)

@@ -1,45 +1,67 @@
 """Panel transport: how A/B panels move between the ranks of a mesh — the
-twin of ``repro/core/transport.py``, dense mode.
+twin of ``repro/core/transport.py``.
 
 Engine bodies run over rank lists (``launch/mesh.py``): every panel state
-is a tuple of per-rank lists, ``(blocks, mask)``, and the collectives here
-take and return such lists.  They follow the reference's ``lax``
-collectives:
+is a tuple of per-rank lists and the collectives here take and return such
+lists.  They follow the reference's ``lax`` collectives:
 
 * ``permute``  — ``lax.ppermute``: ``pairs`` index the flattened domain of
   ``axes``; a single axis name permutes inside every group of the other
   axes (every row for ``"c"``).  A rank no pair addresses receives zeros,
   and a received tensor never aliases its source.
-* ``all_gather_panels`` — tiled ``lax.all_gather`` of blocks and mask.
+* ``all_gather_panels`` — the gather engine's pull-from-home.
 * ``psum`` / ``psum_scatter`` — the sums over ``l`` of the stacked engine
   (and the sweep's convergence partials over ``(r, c)``).
 
+Two panel states, as in the reference (DBCSR ships only occupied blocks):
+
+* ``dense``      — ``(blocks, mask)``: the whole panel and its 1-byte mask.
+* ``compressed`` — ``(packed, idx1)``: the panel's occupied blocks packed
+  into a ``(capacity, bs_r, bs_c)`` buffer (padding zeroed) and their
+  one-based flat positions, int32, 0 for padding (``pack_panel``).  A
+  rank that a permute does not address receives zeros, which decode as an
+  empty panel (``unpack_panel``).  Capacities come from the plan layer
+  (``plan.get_transport``: the bucketed maximum occupied-block count over
+  every panel the schedule ships), so every block arrives: decoding gives
+  the dense panel bit for bit, and compressed runs are bit-exact against
+  dense ones.
+
 Norms never ride the wire: ``panel_norms`` recomputes them from the
-received blocks when the filter needs them.
+received blocks when the filter needs them.  A reduced wire element
+(``PanelTransport.wire``: bfloat16, float8_e4m3fn) rounds blocks at the
+sender and widens them at the receiver: lossy, so only on request.
 
 Every collective adds the bytes it moves per destination rank to one
 counter (``bytes_moved`` / ``reset_bytes``) under
 ``commvolume.plan_volume``'s conventions: a permute costs its full payload
-(blocks and the 1-byte mask) whichever ranks it addresses, an all-gather
-(n-1)/n of its output, a psum 2(n-1)/n of its input, a psum-scatter (n-1)
-times its output.  The sum over one multiply equals the plan's volume.
-
-The occupancy-compressed wire (``pack_panel``, capacities) and reduced
-wire formats are ROADMAP.md Queue A item 8; asking for them raises.
-The reference documents compressed transport as bit-exact against dense,
-so results do not depend on the mode.
+whichever ranks it addresses (dense: blocks and mask; compressed:
+capacity x (block bytes + 4)), an all-gather (n-1)/n of its output, a psum
+2(n-1)/n of its input, a psum-scatter (n-1) times its output.  The sum
+over one multiply equals the plan's volume for the resolved transport.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core.bsm import block_norms
 
 MODES = ("dense", "compressed")
-_ITEM_8 = ("compressed and reduced-wire panel transport are ROADMAP.md "
-           "Queue A item 8; this port moves dense panels")
+
+# wire element formats: "native" ships blocks at their storage dtype; a
+# reduced wire on wider storage is a lossy opt-in that the auto path never
+# picks
+WIRES = ("native", "bfloat16", "float8_e4m3fn")
+
+# bucketed-capacity fill above which auto transport keeps dense panels:
+# past it the 4-byte index per packed block and the pack / unpack work eat
+# the byte saving, and evolving patterns would flap across the boundary
+AUTO_COMPRESS_MAX_FILL = 0.25
+
+# smallest compressed buffer (the product lists' floor too)
+MIN_CAPACITY = 8
 
 _bytes = 0.0  # bytes per destination rank since the last reset
 
@@ -73,7 +95,12 @@ def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class PanelTransport:
-    """Resolved transport of one multiply (dense only in the port)."""
+    """Resolved transport of one multiply: mode + per-panel capacities.
+
+    ``cap_a`` / ``cap_b`` are the packed-buffer capacities (occupied
+    blocks) of one shipped A / B panel — 0 in dense mode.  ``wire`` selects
+    the wire element format (``WIRES``).
+    """
 
     mode: str = "dense"
     cap_a: int = 0
@@ -84,40 +111,102 @@ class PanelTransport:
         if self.mode not in MODES:
             raise ValueError(f"unknown transport mode {self.mode!r}; "
                              f"one of {MODES}")
-        if self.mode != "dense" or self.wire != "native":
-            raise NotImplementedError(_ITEM_8)
+        if self.mode == "compressed" and min(self.cap_a, self.cap_b) <= 0:
+            raise ValueError(
+                "compressed transport needs positive panel capacities "
+                f"(got cap_a={self.cap_a}, cap_b={self.cap_b})"
+            )
+        if self.wire not in WIRES:
+            raise ValueError(f"unknown wire format {self.wire!r}; "
+                             f"one of {WIRES}")
+
+    @property
+    def compressed(self) -> bool:
+        return self.mode == "compressed"
+
+    @property
+    def wire_dtype(self) -> torch.dtype | None:
+        """torch dtype blocks are cast to on the wire; None = storage."""
+        return None if self.wire == "native" else getattr(torch, self.wire)
+
+    def wire_itemsize(self, storage_itemsize: float) -> float:
+        """Bytes per block element on the wire: the storage width under a
+        native wire, the reduced width otherwise."""
+        wd = self.wire_dtype
+        if wd is None:
+            return storage_itemsize
+        return float(torch.empty((), dtype=wd).element_size())
+
+    @property
+    def key(self) -> tuple:
+        """Cache-key contribution; the wire element is appended only when
+        non-native."""
+        base = (self.mode, self.cap_a, self.cap_b)
+        return base if self.wire == "native" else base + (self.wire,)
 
 
 DENSE = PanelTransport()
 
 
-def resolve(spec) -> PanelTransport:
-    """A transport argument as a ``PanelTransport``: None, ``"auto"`` and
-    ``"dense"`` are dense; ``"compressed"`` raises (item 8)."""
-    if isinstance(spec, PanelTransport):
-        return spec
-    if spec is None or spec in ("auto", "dense"):
-        return DENSE
-    if spec == "compressed":
-        raise NotImplementedError(_ITEM_8)
-    raise ValueError(f"unknown transport {spec!r}; a PanelTransport or one "
-                     "of auto | dense | compressed")
+# ---------------------------------------------------------------------------
+# packing format
+# ---------------------------------------------------------------------------
 
 
-def ingest(tr: PanelTransport, capacity: int, blocks: list, mask: list):
-    """Panel state entering an engine body: the (blocks, mask) lists."""
-    del tr, capacity  # dense: the panels travel as they are
-    return (blocks, mask)
+def pack_panel(blocks: torch.Tensor, mask: torch.Tensor, capacity: int):
+    """Pack a (nr, nc, bs_r, bs_c) panel into its wire form.
+
+    Returns ``(packed, idx1)``: the first ``capacity`` occupied blocks in
+    flat order gathered into a ``(capacity, bs_r, bs_c)`` buffer (padding
+    zeroed) and their one-based flat positions, int32 (0 = padding) — the
+    reference's ``flatnonzero(size=capacity)`` order.  No host sync: each
+    occupied block's slot is a cumulative sum over the flattened mask, and
+    the slots below ``capacity`` are scattered (the rest, and every empty
+    block, go to a spare slot that is dropped).  Blocks past ``capacity``
+    are dropped; the plan layer derives capacities that cover the panel.
+    """
+    nr, nc = mask.shape
+    n = nr * nc
+    dev = blocks.device
+    flat = mask.reshape(n).to(torch.bool)
+    slot = torch.cumsum(flat, 0, dtype=torch.int64) - 1
+    take = flat & (slot < capacity)
+    dest = torch.where(take, slot, capacity)
+    pos1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    idx = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+    idx.index_copy_(0, dest, torch.where(take, pos1, 0))
+    idx1 = idx[:capacity]
+    valid = idx1 > 0
+    src = torch.where(valid, idx1.long() - 1, 0)
+    packed = blocks.reshape((n,) + tuple(blocks.shape[2:])).index_select(
+        0, src)
+    return packed.masked_fill_(~valid[:, None, None], 0), idx1
 
 
-def dense_view(tr: PanelTransport, state, dtype=None):
-    """(blocks, mask) lists of a panel state for the local GEMM, blocks
-    cast to ``dtype`` when given."""
-    del tr
-    blocks, mask = state
-    if dtype is not None:
-        blocks = [b.to(dtype) for b in blocks]
-    return blocks, mask
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def unpack_panel(packed: torch.Tensor, idx1: torch.Tensor, nr: int, nc: int):
+    """Inverse of :func:`pack_panel`: the dense ``(nr, nc, bs_r, bs_c)``
+    panel and its boolean mask.  Each valid row is copied to its block
+    (padding rows go to a spare block that is dropped), so the panel equals
+    the packed one bit for bit.  An all-zero ``idx1`` (an unaddressed
+    rank's zeros) decodes as an empty panel."""
+    n = nr * nc
+    dev = packed.device
+    valid = idx1 > 0
+    dest = torch.where(valid, idx1.long() - 1, n)
+    # copied as bits (an integer view of the same width), so every wire
+    # element type takes the same path; zero bits are +0.0
+    bits = _BITS[packed.element_size()]
+    flatb = torch.zeros((n + 1,) + tuple(packed.shape[1:]), dtype=bits,
+                        device=dev)
+    flatb.index_copy_(0, dest, packed.contiguous().view(bits))
+    flatm = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    flatm.index_fill_(0, dest, True)
+    return (flatb[:n].view(packed.dtype).reshape(
+                (nr, nc) + tuple(packed.shape[1:])),
+            flatm[:n].reshape(nr, nc))
 
 
 def panel_norms(blocks: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -129,6 +218,42 @@ def panel_norms(blocks: torch.Tensor, threshold: float) -> torch.Tensor:
         return block_norms(blocks)
     return torch.zeros(blocks.shape[:2], dtype=torch.float32,
                        device=blocks.device)
+
+
+# ---------------------------------------------------------------------------
+# panel states (what the engine bodies carry through their tick loops)
+# ---------------------------------------------------------------------------
+
+
+def _to_wire(tr: PanelTransport, blocks: torch.Tensor) -> torch.Tensor:
+    """Cast blocks to the wire element format (no-op for native)."""
+    wd = tr.wire_dtype
+    return blocks if wd is None or blocks.dtype == wd else blocks.to(wd)
+
+
+def ingest(tr: PanelTransport, capacity: int, blocks: list, mask: list):
+    """Panel state entering an engine body, from per-rank (blocks, mask)
+    lists: ``(packed, idx1)`` lists when compressed (``pack_panel`` at
+    ``capacity``), else ``(blocks, mask)``; blocks cast to the wire dtype
+    when one is selected."""
+    if tr.compressed:
+        packed, idx1 = zip(*(pack_panel(b, m, capacity)
+                             for b, m in zip(blocks, mask)))
+        return [_to_wire(tr, p) for p in packed], list(idx1)
+    return [_to_wire(tr, b) for b in blocks], mask
+
+
+def dense_view(tr: PanelTransport, state, nr: int, nc: int, dtype=None):
+    """(blocks, mask) lists of a panel state for the local GEMM, each panel
+    (nr, nc) blocks; blocks widened back to ``dtype`` when given."""
+    if tr.compressed:
+        blocks, mask = map(list, zip(*(unpack_panel(p, i, nr, nc)
+                                       for p, i in zip(*state))))
+    else:
+        blocks, mask = state
+    if dtype is not None:
+        blocks = [b if b.dtype == dtype else b.to(dtype) for b in blocks]
+    return blocks, mask
 
 
 def permute(mesh, state, axes, pairs):
@@ -159,23 +284,41 @@ def permute(mesh, state, axes, pairs):
 
 def all_gather_panels(mesh, tr: PanelTransport, capacity: int, blocks: list,
                       mask: list, axis_name: str, axis: int):
-    """The gather engine's pull-from-home: a tiled all-gather of blocks
-    and mask along ``axis_name``, concatenated on tensor ``axis`` (1: an A
-    row panel, 0: a B column panel)."""
-    del tr, capacity
+    """The gather engine's pull-from-home along ``axis_name``, concatenated
+    on tensor ``axis`` (1: an A row panel, 0: a B column panel).
+
+    Dense: a tiled all-gather of blocks and mask.  Compressed: an
+    all-gather of each home shard's packed buffer and indices, each decoded
+    into its place in the row / column panel — the gathered bytes scale
+    with occupancy."""
     if axis not in (0, 1):
         raise ValueError(f"gather axis must be 0 or 1, got {axis}")
+    dtype = blocks[0].dtype  # widen wire-cast blocks back after the gather
+    nr, nc = mask[0].shape
     out_b, out_m = [None] * mesh.size, [None] * mesh.size
     groups = mesh.groups(axis_name)
     for g in groups:
         d0 = mesh.devices[g[0]]
-        gb = torch.cat([blocks[r].to(d0) for r in g], dim=axis)
-        gm = torch.cat([mask[r].to(d0) for r in g], dim=axis)
+        if tr.compressed:
+            parts = []
+            for r in g:
+                packed, idx1 = pack_panel(blocks[r], mask[r], capacity)
+                parts.append(unpack_panel(_to_wire(tr, packed).to(d0),
+                                          idx1.to(d0), nr, nc))
+            payload = _nbytes(_to_wire(tr, packed)) + _nbytes(idx1)
+            gb = torch.cat([b for b, _ in parts], dim=axis)
+            gm = torch.cat([m for _, m in parts], dim=axis)
+        else:
+            gb = torch.cat([_to_wire(tr, blocks[r]).to(d0) for r in g],
+                           dim=axis)
+            gm = torch.cat([mask[r].to(d0) for r in g], dim=axis)
+            payload = (_nbytes(gb) + _nbytes(gm)) / len(g)
+        gb = gb.to(dtype)
         for r in g:
             out_b[r] = gb.to(mesh.devices[r])
             out_m[r] = gm.to(mesh.devices[r])
-    n = len(groups[0])
-    _count((n - 1) / n * (_nbytes(out_b[0]) + _nbytes(out_m[0])))
+    # (n - 1) / n of the gathered output, n payloads
+    _count((len(groups[0]) - 1) * payload)
     return out_b, out_m
 
 
@@ -220,3 +363,72 @@ def psum_scatter(mesh, xs: list, axes, dim: int = 0) -> list:
             out[r] = chunk.to(mesh.devices[r], copy=True)
     _count((n - 1) * _nbytes(out[0]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# capacity bounds (host numpy, the transport analogue of
+# plan.device_stack_bound)
+# ---------------------------------------------------------------------------
+
+
+def panel_nnz_bound(mask, row_parts: int, col_parts: int) -> int:
+    """Max occupied-block count over a (row_parts x col_parts) partition
+    of ``mask`` — the sound capacity for a schedule that ships those
+    partitions as panels."""
+    m = np.asarray(mask, bool)
+    nb_r, nb_c = m.shape
+    if nb_r % row_parts or nb_c % col_parts:
+        raise ValueError(
+            f"mask {m.shape} does not divide a {row_parts}x{col_parts} "
+            "panel partition"
+        )
+    hr, hc = nb_r // row_parts, nb_c // col_parts
+    counts = m.reshape(row_parts, hr, col_parts, hc).sum(axis=(1, 3))
+    return int(counts.max()) if counts.size else 0
+
+
+def plan_panel_parts(plan) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(row_parts, col_parts) of the A and B panels a plan ships: whole 2D
+    home shards for ring / stacked / gather plans, virtual-grid subpanels
+    (``ca`` column slices of an A shard, ``cb`` row slices of a B shard)
+    for the pull formulation."""
+    if plan.kind == "pull":
+        return ((plan.p_r, plan.p_c * plan.ca),
+                (plan.p_r * plan.cb, plan.p_c))
+    return ((plan.p_r, plan.p_c), (plan.p_r, plan.p_c))
+
+
+def bucket(n: int) -> int:
+    """Power-of-two capacity bucket with the transport floor."""
+    from repro_torch.kernels.stacks import bucket_capacity
+
+    return max(MIN_CAPACITY, bucket_capacity(n))
+
+
+def capacities_for(mask_a, mask_b, plan) -> tuple[int, int, int, int]:
+    """Bucketed per-panel packing capacities + panel block counts of one
+    (operand-mask pair, plan): ``(cap_a, cap_b, blocks_a, blocks_b)``.
+    Monotone in the masks, so capacities derived from a pattern envelope
+    cover every concrete panel of the chain."""
+    am = np.asarray(mask_a, bool)
+    bm = np.asarray(mask_b, bool)
+    (ar, ac), (br, bc) = plan_panel_parts(plan)
+    cap_a = bucket(panel_nnz_bound(am, ar, ac))
+    cap_b = bucket(panel_nnz_bound(bm, br, bc))
+    blocks_a = (am.shape[0] // ar) * (am.shape[1] // ac)
+    blocks_b = (bm.shape[0] // br) * (bm.shape[1] // bc)
+    return cap_a, cap_b, blocks_a, blocks_b
+
+
+def resolve_mode(
+    mode: str, cap_a: int, cap_b: int, blocks_a: int, blocks_b: int
+) -> str:
+    """``auto`` policy: compress only while the bucketed capacities stay at
+    most ``AUTO_COMPRESS_MAX_FILL`` of the panel block counts."""
+    if mode != "auto":
+        return mode
+    fill_a = cap_a / max(blocks_a, 1)
+    fill_b = cap_b / max(blocks_b, 1)
+    if max(fill_a, fill_b) <= AUTO_COMPRESS_MAX_FILL:
+        return "compressed"
+    return "dense"

@@ -25,7 +25,9 @@ products, and the stacked ring is double-buffered like Cannon's.
 Per-rank volume under dense transport: the pull body moves Eq. (7), (V /
 sqrt(L)) (S_A + S_B) panel pulls plus (L-1) S_C partial sends; the stacked
 body (s/L)(S_A + S_B) panels plus the reduction over ``l``
-(``commvolume.plan_volume``).
+(``commvolume.plan_volume``).  Under compressed transport every A / B
+panel travels packed (``transport.ingest`` / ``dense_view``); the partial
+C panels are accumulator state and stay dense.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ def pull_body(
         del an, bn  # norms are not pulled (recomputed per received panel)
         wa = ab[0].shape[1] // plan.ca  # A subpanel width (block cols)
         wb = bb[0].shape[0] // plan.cb  # B subpanel height (block rows)
+        ar, bc = ab[0].shape[0], bb[0].shape[1]
         adt, bdt = ab[0].dtype, bb[0].dtype
 
         def pull_group(g):
@@ -77,17 +80,17 @@ def pull_body(
             a_pan, b_pan = [None] * l_r, [None] * l_c
             for rd in plan.a_pulls[g]:
                 sl = slice(rd.q * wa, (rd.q + 1) * wa)
-                st = T.ingest(tr, 0, [x[:, sl] for x in ab],
+                st = T.ingest(tr, tr.cap_a, [x[:, sl] for x in ab],
                               [x[:, sl] for x in am])
                 got = T.dense_view(tr, T.permute(mesh, st, axes, rd.pairs),
-                                   adt)
+                                   ar, wa, dtype=adt)
                 a_pan[rd.slot] = _accumulate(a_pan[rd.slot], got)
             for rd in plan.b_pulls[g]:
                 sl = slice(rd.q * wb, (rd.q + 1) * wb)
-                st = T.ingest(tr, 0, [x[sl] for x in bb],
+                st = T.ingest(tr, tr.cap_b, [x[sl] for x in bb],
                               [x[sl] for x in bm])
                 got = T.dense_view(tr, T.permute(mesh, st, axes, rd.pairs),
-                                   bdt)
+                                   wb, bc, dtype=bdt)
                 b_pan[rd.slot] = _accumulate(b_pan[rd.slot], got)
             return a_pan, b_pan
 
@@ -156,20 +159,23 @@ def stacked_body(
     def body(ab, am, an, bb, bm, bn):
         del an, bn  # norms never ride the ring (recomputed at compute time)
         adt, bdt = ab[0].dtype, bb[0].dtype
+        sa, sb = am[0].shape, bm[0].shape
         acc = None
 
         def compute(pa, pb, t):
             nonlocal acc
             # only the ticks of each rank's k-chunk (uneven L)
-            acc = local_stage(T.dense_view(tr, pa, adt),
-                              T.dense_view(tr, pb, bdt), acc,
+            acc = local_stage(T.dense_view(tr, pa, *sa, dtype=adt),
+                              T.dense_view(tr, pb, *sb, dtype=bdt), acc,
                               ranks=[r for r in range(n) if t < my_groups[r]],
                               **mm_kw)
 
         # pre-shift with per-layer chunk offset: A_ij <- A_{i, j+i+start_l},
         # B_ij <- B_{i+j+start_l, j}; one static flattened permutation
-        pa = T.permute(mesh, T.ingest(tr, 0, ab, am), plan.axes, plan.pre_a)
-        pb = T.permute(mesh, T.ingest(tr, 0, bb, bm), plan.axes, plan.pre_b)
+        pa = T.permute(mesh, T.ingest(tr, tr.cap_a, ab, am), plan.axes,
+                       plan.pre_a)
+        pb = T.permute(mesh, T.ingest(tr, tr.cap_b, bb, bm), plan.axes,
+                       plan.pre_b)
         ring_ticks(plan, pa, pb, compute)
         cb, cm = zero_fill(*acc, ab, bb)
 

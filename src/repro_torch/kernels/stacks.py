@@ -15,6 +15,7 @@ from __future__ import annotations
 import hashlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -90,11 +91,18 @@ def pair_cube(mask_a: torch.Tensor, mask_b: torch.Tensor,
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits' big-endian order
 
 
-def pattern_signature(pair_ok: torch.Tensor) -> bytes:
-    """Digest of a (ni, nk, nj) filter cube — the plan-cache key for
-    product lists.  Same bytes as the reference: sha1 of the shape's tuple
-    repr, then of ``np.packbits`` of the cube.  The bits are packed on the
-    cube's device, so only size/8 bytes come to the host."""
+def pattern_signature(pair_ok) -> bytes:
+    """Digest of a boolean pattern (a (ni, nk, nj) filter cube, or a mask)
+    — the plan-cache key for product lists, capacities and transports.
+    Same bytes as the reference: sha1 of the shape's tuple repr, then of
+    ``np.packbits`` of the pattern.  A tensor's bits are packed on its
+    device, so only size/8 bytes come to the host; a numpy pattern is
+    packed by numpy."""
+    if not isinstance(pair_ok, torch.Tensor):
+        ok = np.asarray(pair_ok).astype(bool)
+        h = hashlib.sha1(repr(ok.shape).encode())
+        h.update(np.packbits(ok).tobytes())
+        return h.digest()
     ok = pair_ok.to(torch.bool)
     h = hashlib.sha1(repr(tuple(ok.shape)).encode())
     flat = ok.reshape(-1).to(torch.int32)

@@ -160,6 +160,58 @@ def test_sharded_density_matrix_on_cuda(cuda):
     assert abs(float(S.trace(got)) - float(S.trace(want))) < 1e-4
 
 
+@pytest.mark.parametrize("capacity", [4, 64, 512])
+def test_pack_panel_syncs_nothing_and_matches_cpu(cuda, capacity):
+    """``pack_panel`` / ``unpack_panel`` on the card run without a host
+    sync (CUDA sync debug mode raises on one) and equal the CPU's result
+    element for element; a covering capacity decodes the panel exactly."""
+    rng = np.random.default_rng(capacity)
+    mask = torch.from_numpy(rng.random((16, 24)) < 0.3)
+    blocks = torch.from_numpy(rng.standard_normal((16, 24, 23, 23),
+                                                  dtype=np.float32))
+    blocks = blocks * mask[:, :, None, None]
+    want = TR.pack_panel(blocks, mask, capacity)
+    bc, mc = blocks.to(cuda), mask.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed, idx1 = TR.pack_panel(bc, mc, capacity)
+        db, dm = TR.unpack_panel(packed, idx1, 16, 24)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(packed.cpu(), want[0])
+    assert torch.equal(idx1.cpu(), want[1])
+    if capacity >= int(mask.sum()):
+        assert torch.equal(db, bc) and torch.equal(dm, mc)
+
+
+@pytest.mark.parametrize("engine,mk,l", [("twofive", dict(p=2, l=2), None),
+                                         ("gather", dict(p=2), None)],
+                         ids=str)
+def test_compressed_equals_dense_on_cuda(cuda, engine, mk, l):
+    """Compressed panels on the card: C equal to dense transport's bit for
+    bit, the kernel launched, and the bytes of the resolved transport."""
+    from repro_torch.core import commvolume as CV
+    from repro_torch.core import plan as P
+
+    h = B.random_bsm(0, nb=32, bs=23, occupancy=0.1, pattern="decay",
+                     symmetric=True, device=cuda)
+    mesh = make_spgemm_mesh(**mk, device=cuda)
+    out = {}
+    for mode in ("dense", "compressed"):
+        before = K.launches
+        TR.reset_bytes()
+        out[mode] = E.multiply(h, h, mesh, engine=engine, l=l, backend="cuda",
+                               threshold=1e-9, transport=mode)
+        tr = P.resolve_transport(mode, h, h, mesh, engine, l)
+        assert tr.compressed == (mode == "compressed")
+        assert K.launches > before and TR.bytes_moved() == CV.plan_volume(
+            P.plan_multiply(mesh, engine, l), 32, 23, itemsize=4,
+            transport=tr).total
+    assert torch.equal(out["dense"].mask, out["compressed"].mask)
+    assert torch.equal(out["dense"].blocks, out["compressed"].blocks)
+
+
 # kernel vs plain: f32 up to summation order; bf16 the kernel's rounding of
 # p to bf16 before P.V (the TPU kernel's), which the plain loop skips —
 # the reference's own bf16 tolerance (tests/test_kernels.py)

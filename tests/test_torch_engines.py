@@ -178,8 +178,14 @@ def test_sharded_algebra_matches_replicated():
     assert int(sa.nnz_blocks()) == int(a.nnz_blocks())
     torch.testing.assert_close(sa.occupancy(), a.occupancy())
     torch.testing.assert_close(trace(sa), trace(a))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        B.shard_bsm(a, mesh, assignment="nnz_greedy")
+    # under an assignment: unshard undoes it, and layouts do not mix
+    sg = B.shard_bsm(a, mesh, assignment="nnz_greedy")
+    assert sg.assignment is not None and sg.assignment.mode == "nnz_greedy"
+    back = sg.unshard()
+    for f in ("blocks", "mask", "norms"):
+        assert torch.equal(getattr(back, f), getattr(a, f)), f
+    with pytest.raises(ValueError, match="different block assignments"):
+        sg.add(sa)
     with pytest.raises(ValueError, match="divide"):
         B.shard_bsm(B.identity(6, 4, device="cpu"),
                     make_mesh((4, 4), ("r", "c"), device="cpu"))

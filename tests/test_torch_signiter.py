@@ -113,15 +113,24 @@ def test_storage_dtype_bf16_converges_near_f32():
 
 
 def test_mesh_raises():
-    """On a mesh, what later items bring raises, naming them: the tuner
-    (engine="auto") and block assignments; the legacy loop takes no
-    sharded matrix, as in the reference."""
+    """What the chain refuses raises, as in the reference: the tuner
+    (engine="auto" on a mesh, backend="auto" under an envelope) names its
+    item; an assignment needs a mesh; a non-dense chain transport needs an
+    envelope; the legacy loop takes no sharded matrix and no fused-chain
+    controls."""
     _, port = _sym(8)
     mesh = make_spgemm_mesh(p=2, device="cpu")
     with pytest.raises(NotImplementedError, match="tuner"):
         PS.sign_iteration(port, mesh=mesh, engine="auto")
-    with pytest.raises(NotImplementedError, match="assignment"):
-        PS.sign_iteration(port, mesh=mesh, assignment="nnz_greedy")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        PS.sign_iteration(port, mesh=mesh, envelope="auto", backend="auto",
+                          max_iter=2)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        PS.sign_iteration(port, assignment="nnz_greedy")
+    with pytest.raises(ValueError, match="needs an envelope"):
+        PS.sign_iteration(port, mesh=mesh, transport="compressed")
+    with pytest.raises(ValueError, match="fused-chain"):
+        PS.sign_iteration(port, mesh=mesh, mode="legacy", envelope="auto")
     with pytest.raises(TypeError, match="replicated"):
         PS.sign_iteration(B.shard_bsm(port, mesh), mode="legacy")
 

@@ -117,6 +117,30 @@ def test_sharded_chain_stays_sharded(mk):
                                                                 + psum))
 
 
+@pytest.mark.parametrize("assignment", ["randomized", "nnz_greedy"])
+@pytest.mark.parametrize("mk,engine", MESHES[:3], ids=str)
+def test_density_matrix_under_an_assignment_matches_reference(
+        mk, engine, assignment):
+    """The chain sharded under a block->rank assignment (replicated H in,
+    fused and legacy, and a ShardedBSM H that carries its layout) against
+    the reference's single-device P; P comes home in original block
+    coordinates."""
+    _, port, want, want_stats = _hamiltonian()
+    mesh = make_spgemm_mesh(**mk, device="cpu")
+    kw = dict(engine=engine, threshold=THR, filter_eps=EPS, max_iter=100,
+              tol=1e-6, backend="stacks")
+    for mode in ("fused", "legacy"):
+        p, stats = PS.density_matrix(port, MU, mesh=mesh, mode=mode,
+                                     assignment=assignment, **kw)
+        _assert_matches(p, stats, want, want_stats)
+    h = B.shard_bsm(port, mesh, assignment=assignment)
+    p, stats = PS.density_matrix(h, MU, **kw)
+    assert isinstance(p, B.ShardedBSM) and p.assignment == h.assignment
+    _assert_matches(p, stats, want, want_stats)
+    with pytest.raises(ValueError, match="unshard before"):
+        PS.density_matrix(h, MU, assignment="identity", **kw)
+
+
 def test_purify_entry_point_on_a_stacked_mesh(capsys):
     argv = ["--device", "cpu", "--nb", "8", "--p", "2", "--l", "2"]
     report = purify.run(argv)

@@ -127,18 +127,39 @@ def test_all_gather_and_sums():
         assert torch.equal(sc[r], s[r].chunk(2, dim=0)[l])
 
 
-def test_transport_modes():
-    assert T.resolve(None) is T.DENSE and T.resolve("auto") is T.DENSE
-    assert T.resolve("dense") == T.PanelTransport()
-    for bad in ("compressed",):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            T.resolve(bad)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.PanelTransport(mode="compressed", cap_a=8, cap_b=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.PanelTransport(wire="bfloat16")
+def test_transport_modes(monkeypatch):
+    """A ``PanelTransport`` validates like the reference's; specs resolve
+    to one (None through ``REPRO_TRANSPORT``), an under-capacity explicit
+    compressed transport raises."""
+    ct = T.PanelTransport(mode="compressed", cap_a=8, cap_b=16)
+    assert ct.compressed and not T.DENSE.compressed
+    assert ct.key == ("compressed", 8, 16) and T.DENSE.key == ("dense", 0, 0)
+    bf = T.PanelTransport(wire="bfloat16")
+    assert bf.wire_dtype == torch.bfloat16 and bf.wire_itemsize(4) == 2
+    assert bf.key == ("dense", 0, 0, "bfloat16") and T.DENSE.wire_itemsize(4) == 4
+    for kw, match in ((dict(mode="compressed"), "positive"),
+                      (dict(mode="zip"), "unknown transport"),
+                      (dict(wire="f16"), "unknown wire")):
+        with pytest.raises(ValueError, match=match):
+            T.PanelTransport(**kw)
+    mesh = make_spgemm_mesh(p=2, device="cpu")
+    a = B.random_bsm(1, nb=16, bs=2, occupancy=0.05, pattern="decay",
+                     device="cpu")
+    assert PP.resolve_transport("dense", a, a, mesh, "cannon") is T.DENSE
+    want = PP.resolve_transport("compressed", a, a, mesh, "cannon")
+    assert want.compressed
+    monkeypatch.setenv("REPRO_TRANSPORT", "dense")
+    assert PP.resolve_transport(None, a, a, mesh, "cannon") is T.DENSE
+    monkeypatch.setenv("REPRO_TRANSPORT", "compressed")
+    assert PP.resolve_transport(None, a, a, mesh, "cannon") == want
+    monkeypatch.delenv("REPRO_TRANSPORT")
+    assert PP.resolve_transport(None, a, a, mesh, "cannon") == \
+        PP.resolve_transport("auto", a, a, mesh, "cannon")
     with pytest.raises(ValueError, match="unknown transport"):
-        T.resolve("zip")
+        PP.resolve_transport("zip", a, a, mesh, "cannon")
+    with pytest.raises(ValueError, match="under-cover"):
+        PP.resolve_transport(T.PanelTransport("compressed", 1, 1), a, a,
+                             mesh, "cannon")
 
 
 @pytest.mark.parametrize(
@@ -146,8 +167,9 @@ def test_transport_modes():
     [(*p, "2d") for p in PLANS]
     + [(e, s, l, "scatter") for e, s, l in PLANS if len(s) == 3], ids=str)
 def test_bytes_equal_plan_volume(engine, sizes, l, c_layout):
-    """One multiply's counted bytes per rank == ``plan_volume`` (dense),
-    from the port's plan and from the reference's."""
+    """One multiply's counted bytes per rank == ``plan_volume`` of the
+    transport the multiply resolved (``transport=None``: the configured
+    "auto"), from the port's plan and from the reference's."""
     nb, bs = (12, 3) if sizes == (3, 3) else (16, 3)
     mesh = make_mesh(sizes, _mesh(sizes), device="cpu")
     a = B.random_bsm(3, nb=nb, bs=bs, occupancy=0.3, pattern="decay",
@@ -156,10 +178,11 @@ def test_bytes_equal_plan_volume(engine, sizes, l, c_layout):
     E.multiply(a, a, mesh, engine=engine, l=l, c_layout=c_layout,
                backend="stacks")
     moved = T.bytes_moved()
+    tr = PP.resolve_transport(None, a, a, mesh, engine, l)
     mine = PC.plan_volume(PP.plan_multiply(mesh, engine, l), nb, bs,
-                          itemsize=4, c_layout=c_layout)
+                          itemsize=4, c_layout=c_layout, transport=tr)
     ref = RC.plan_volume(RP.plan_multiply(DuckMesh(sizes, _mesh(sizes)),
                                           engine, l), nb, bs, itemsize=4,
-                         c_layout=c_layout)
+                         c_layout=c_layout, transport=tr)
     assert moved == mine.total == ref.total
     assert np.isclose(mine.ab_volume + mine.c_volume, moved)
