@@ -63,9 +63,21 @@ Phases, each raising on failure:
     forecast envelope and with compressed panels (bit for bit phase 11's
     P; every realized sweep mask inside the forecast; host syncs per
     sweep), and under the randomized and nnz-greedy assignments (phase
-    11's gates; the product-load imbalance of each).
+    11's gates; the product-load imbalance of each);
+14. the pattern-aware tuner on H2O-DFT-LS at nb = 512 on a (r 2, c 2)
+    mesh of ranks: the card's rank-to-rank copy rate (one dense panel
+    hop), ``engine.multiply(H, H, mesh, engine="auto")`` on a fresh tuning
+    database (candidates, pruned, the analytic stage's host seconds, every
+    trial; C against the oracle, no trial error, CUDA candidates only),
+    the same decision from the decision cache and then from the database
+    file after ``plan.clear_cache()`` (no trial), the purification entry
+    point with ``--engine auto --tuning-db`` cold (one decision, at most 3
+    trials) and warm (no trial, the same engine), both inside phase 11's
+    chain gates, and the kernel against its plain version at the default
+    group layout and two smaller ones, each timed.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
+Timed phases print the card's SM and memory clocks and temperature
+before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of jax or of the JAX package.
 """
@@ -120,6 +132,26 @@ SERVE_ARGV = ["--arch", "olmo-1b", "--batch", "8", "--prompt-len", "2048",
               "--max-new", "64", "--max-len", "2176", "--queue", "16",
               "--seed", str(SEED)]
 FLASH_SHAPE = dict(b=8, h=16, s=2048, d=128)  # one prefill round's layer
+
+
+def _clocks(tag: str) -> None:
+    """Print the card's SM and memory clocks and temperature, as nvidia-smi
+    reads them, on a line of its own (before and after each timed phase:
+    a card held below its clocks runs slower, whatever the code)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"{tag} clocks (sm, mem, temperature): {out}", flush=True)
+
+
+def _timed(n: int, fn, *args):
+    """Run phase ``n`` between two clock readings."""
+    _clocks(f"[{n}] before:")
+    out = fn(*args)
+    _clocks(f"[{n}] after:")
+    return out
 
 
 def _time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -291,8 +323,9 @@ def phase_full_width_multiply(torch, K, S, B, E, plan) -> dict:
           f"(of which group masks {masks_ms:.4f} ms), "
           f"kernel {full_ms:.4f} ms, bound {full_bound_ms:.4f} ({full_by}), "
           f"{2.0 * n_full * BS**3 / full_ms / 1e9:.3f} TFLOP/s; library "
-          f"(torch.matmul dense f32) {full_library_ms:.4f} ms, kernel / "
-          f"library {full_ms / full_library_ms:.2f}x", flush=True)
+          f"(torch.matmul dense f32) {full_library_ms:.4f} ms, "
+          f"{2.0 * (NB * BS)**3 / full_library_ms / 1e9:.3f} TFLOP/s, "
+          f"kernel / library {full_ms / full_library_ms:.2f}x", flush=True)
     del x, xd
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1080,6 +1113,205 @@ def phase_dbcsr(torch, B, E, CV, SI, TR, K, plan, mesh_mod, D, purify,
     return launches
 
 
+TUNER_TOP_K = 3  # the tuner's default: trials of the analytic top three
+TUNER_REPS = 2  # the tuner's default: timed rounds per trial
+# phase 14.4: the default group (None, 4 x 4 for 23 x 23 blocks) and two
+# smaller ones the kernel takes; the tuner ranks the default only
+# (``tile_candidates``), and these times are why
+GROUP_LAYOUTS = (None, (2, 2), (1, 1))
+
+
+def _label(dec) -> str:
+    """A decision's label without its source tag."""
+    return dec.label.rsplit("[", 1)[0]
+
+
+def phase_tuner(torch, B, E, TR, K, S, plan, mesh_mod, tuner, purify,
+                single: dict) -> int:
+    """Phase 14: the pattern-aware tuner on H2O-DFT-LS at nb = 512 on a 2D
+    mesh (r 2, c 2) of ranks on the card (cannon, onesided, gather and
+    twofive L = 4 to choose from).  14.0 the card's rank-to-rank copy
+    rate; 14.1 ``multiply(H, H, mesh, engine="auto")`` on a fresh
+    database; 14.2 the decision again (a cache hit), then from the
+    database file after ``clear_cache``; 14.3 the purification entry point
+    with ``--engine auto --tuning-db`` cold and warm; 14.4 the kernel
+    against its plain version at the default group layout and two smaller
+    ones (the tuner ranks the default only).
+    Returns the kernel launches of 14.3's two chains."""
+    import tempfile
+
+    h = B.random_bsm(SEED, nb=NB, bs=BS, occupancy=OCC, pattern=PATTERN,
+                     symmetric=True, device="cuda")
+    mesh = mesh_mod.make_spgemm_mesh(p=2, device="cuda")
+
+    # --- 14.0: wire bytes per rank of one dense panel hop over its time ---
+    hs = B.shard_bsm(h, mesh)
+    state = (list(hs.blocks), list(hs.mask))
+    TR.reset_bytes()
+    TR.permute(mesh, state, "c", ((0, 1), (1, 0)))
+    per_rank = TR.bytes_moved()
+    hop_ms = _time_ms(lambda: TR.permute(mesh, state, "c",
+                                         ((0, 1), (1, 0))), reps=7)
+    rate = per_rank / (hop_ms / 1e3)
+    print(f"[14] copy rate: one dense panel hop on (r 2, c 2), "
+          f"{per_rank:.0f} bytes per rank in {hop_ms:.4f} ms (4 ranks in "
+          f"turn): {rate:.6g} bytes per rank per second (model COPY_BW "
+          f"{tuner.model.COPY_BW:.6g})", flush=True)
+    del hs, state
+
+    # --- 14.1: engine="auto" on a fresh database ---------------------------
+    want = B.filter_bsm(E.multiply_reference(h, h, threshold=THRESHOLD,
+                                             backend="cuda"), THRESHOLD)
+    plan.clear_cache()
+    torch.cuda.empty_cache()
+    db_dir = tempfile.mkdtemp(prefix="tuning-db-")
+    path = f"{db_dir}/multiply.json"
+    tuner.set_default_db(path)
+    K.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = E.multiply(h, h, mesh, engine="auto", threshold=THRESHOLD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, run, st = K.launches, tuner.last_run(), plan.cache_stats()
+    dec = tuner.autotune(h, h, mesh, threshold=THRESHOLD)
+    print(f"[14] 14.1 multiply(H, H, engine='auto') on (r 2, c 2): "
+          f"{run.candidates} candidates, {run.pruned} pruned (Eq. 6, "
+          f"{tuner.model.device_memory_budget(mesh) / 1e9:.3f} GB per "
+          f"rank), analytic stage {run.analytic_s:.3f} host s, "
+          f"{st['tuner_trials']} trials, wall {wall:.3f} s with the trials, "
+          f"kernel launches {launches}", flush=True)
+    for label, seconds, err in run.trials:
+        print(f"[14]   trial {label}: {seconds * 1e3:.4f} ms"
+              + (f" ERROR {err}" if err else ""), flush=True)
+    print(f"[14]   winner {dec.label} (measured {dec.measured_s * 1e3:.4f} "
+          f"ms)", flush=True)
+    # the dense-panel identity gather, named, timed as a trial is (a
+    # warm-up, then the minimum of TUNER_REPS): the gap to the pick
+    named = []
+    for rep in range(1 + TUNER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        E.multiply(h, h, mesh, engine="gather", backend="cuda",
+                   transport="dense", threshold=THRESHOLD)
+        torch.cuda.synchronize()
+        if rep:
+            named.append(time.perf_counter() - t0)
+    print(f"[14]   named gather/cuda: {min(named) * 1e3:.4f} ms, the pick "
+          f"{dec.measured_s / min(named):.4f}x of it", flush=True)
+    good, err = _close(c.blocks, want.blocks, TOL["float32"])
+    same_mask = bool(torch.equal(c.mask, want.mask))
+    cuda_trials = any("/cuda" in label for label, _, _ in run.trials)
+    if not (good and same_mask):
+        raise AssertionError(f"tuned C: masks equal {same_mask}, max |err| "
+                             f"{err}")
+    if any(e for _, _, e in run.trials) or any(
+            "/stacks" in label for label, _, _ in run.trials):
+        raise AssertionError(f"trials: {run.trials}")
+    if (cuda_trials and launches == 0) or not (
+            1 <= st["tuner_trials"] <= TUNER_TOP_K):
+        raise AssertionError(f"launches {launches}, counters {st}")
+    del c
+
+    # --- 14.2: the decision cache, then the database file -------------------
+    E.multiply(h, h, mesh, engine="auto", threshold=THRESHOLD)
+    st2 = plan.cache_stats()
+    if (st2["tuner_hits"] != st["tuner_hits"] + 2
+            or st2["tuner_trials"] != st["tuner_trials"]):
+        raise AssertionError(f"repeat: {st} -> {st2}")
+    plan.clear_cache()
+    tuner.set_default_db(path)
+    c = E.multiply(h, h, mesh, engine="auto", threshold=THRESHOLD)
+    st3 = plan.cache_stats()
+    warm = tuner.autotune(h, h, mesh, threshold=THRESHOLD)
+    print(f"[14] 14.2 repeat: tuner hits {st['tuner_hits']} -> "
+          f"{st2['tuner_hits']} (the multiply and the decision read), "
+          f"trials {st2['tuner_trials']}; after clear_cache from the "
+          f"database: {warm.label}, trials {st3['tuner_trials']}, misses "
+          f"{st3['tuner_misses']}", flush=True)
+    if (warm.source != "db" or _label(warm) != _label(dec)
+            or st3["tuner_trials"] != 0 or st3["tuner_misses"] != 0
+            or not torch.equal(c.mask, want.mask)):
+        raise AssertionError(f"warm database: {warm}, {st3}")
+    del c, want
+    plan.clear_cache()
+    torch.cuda.empty_cache()
+
+    # --- 14.3: the entry point, --engine auto --tuning-db, cold and warm ---
+    argv = PURIFY_ARGV + ["--p", "2", "--l", "1", "--engine", "auto",
+                          "--tuning-db", f"{db_dir}/purify.json"]
+    r1 = single["runs"][0]
+    total = 0
+    engines = []
+    for name in ("cold", "warm"):
+        K.launches = 0
+        report = purify.run(argv)
+        total += K.launches
+        r, t = report["runs"][0], report["tuner"]
+        engines.append((report["engine"], r["l"]))
+        tr_err, idem, rel = _p_gates(torch, report["p"], report["n_occ"],
+                                     single["p"])
+        print(f"[14] 14.3 purify --engine auto --tuning-db ({name}): engine "
+              f"{report['engine']}" + ("" if r["l"] is None else
+                                      f" L={r['l']}")
+              + f", tuner {t['tuner_hits']}h/{t['tuner_misses']}m/"
+              f"{t['tuner_trials']}t, {r['iterations']} sweeps (phase 4: "
+              f"{r1['iterations']}), wall {r['wall_s']:.3f} s, kernel "
+              f"launches {K.launches}, |trace(P) - {report['n_occ']}| "
+              f"{tr_err:.3e}, max|P^2-P| {idem:.3e}, relative Frobenius to "
+              f"phase 4's P {rel:.3e}", flush=True)
+        if name == "cold":
+            run = tuner.last_run()
+            for label, seconds, err in run.trials:
+                print(f"[14]   chain trial {label}: {seconds * 1e3:.4f} ms"
+                      + (f" ERROR {err}" if err else ""), flush=True)
+            bad = t["tuner_misses"] != 1 or not (
+                1 <= t["tuner_trials"] <= TUNER_TOP_K) or any(
+                e for _, _, e in run.trials)
+        else:
+            bad = t["tuner_trials"] != 0 or t["tuner_misses"] != 0 \
+                or engines[1] != engines[0]
+        if (bad or not (report["ok"] and r["converged"])
+                or K.launches == 0
+                or abs(r["iterations"] - r1["iterations"]) > 1
+                or idem > IDEMPOTENCY_TOL or not rel <= SHARDED_P_TOL):
+            raise AssertionError(f"purify {name}: {t}, {r['iterations']} "
+                                 f"sweeps, {tr_err}, {idem}, {rel}")
+        del report
+        torch.cuda.empty_cache()
+
+    # --- 14.4: the kernel at three group layouts, on H.H --------------------
+    ok = S.pair_cube(h.mask, h.mask, h.norms, h.norms, THRESHOLD)
+    stacks, _n = plan.get_product_stacks(ok)
+    plain = K.block_spgemm_stacks_plain(h.blocks, h.blocks, stacks, ni=NB,
+                                        nj=NB)
+    times = []
+    for g in GROUP_LAYOUTS:
+        tile = K.kernel_tile(BS, BS, group=g)
+        gm = K.group_masks(stacks, ni=NB, nk=NB, nj=NB, g_r=tile.g_r,
+                           g_c=tile.g_c)
+
+        def kernel():
+            return K.block_spgemm_groups(h.blocks, h.blocks, gm, ni=NB,
+                                         nj=NB)
+
+        good, err = _close(kernel(), plain, TOL["float32"])
+        ms = _time_ms(kernel, reps=7, warmup=2)
+        times.append((tile.g_r, tile.g_c, ms))
+        print(f"[14] 14.4 group {tile.g_r} x {tile.g_c}"
+              + (" (default)" if g is None else "")
+              + f": {gm.groups.shape[0]} active groups, {ms:.4f} ms, max "
+              f"|err| vs plain {err:.3e}", flush=True)
+        if not good:
+            raise AssertionError(f"group {g}: max |err| {err}")
+    print("[14] 14.4 kernel ms by group layout: " + ", ".join(
+        f"{r} x {c} {ms:.4f}" for r, c, ms in times), flush=True)
+    del h, ok, stacks, plain
+    plan.clear_cache()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1087,6 +1319,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    from repro_torch import tuner
     from repro_torch.configs import get_arch
     from repro_torch.core import bsm as B
     from repro_torch.core import commvolume as CV
@@ -1125,29 +1358,35 @@ def main() -> int:
           f"{_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
 
     phase_kernel_vs_plain(torch, np, K, S, ref, lm, B)
-    m = phase_full_width_multiply(torch, K, S, B, E, plan)
-    launches, single = phase_purify(torch, K, purify)
+    m = _timed(3, phase_full_width_multiply, torch, K, S, B, E, plan)
+    launches, single = _timed(4, phase_purify, torch, K, purify)
     print(f"[4] phases 1-4 in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_flash_vs_plain(torch, np, FA, ref)
     phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch)
-    served, engine, toks = phase_serve(torch, np, T, K, FA, serve)
-    phase_breakdown(torch, T, engine, toks)
+    served, engine, toks = _timed(7, phase_serve, torch, np, T, K, FA,
+                                  serve)
+    _timed(8, phase_breakdown, torch, T, engine, toks)
     del engine, toks
     torch.cuda.empty_cache()
-    f = phase_flash_serving_shape(torch, np, FA)
-    phase_engines(torch, B, E, CV, TR, lm, K, plan, mesh_mod)
-    sharded_launches, sharded = phase_sharded_purify(
-        torch, K, CV, plan, mesh_mod, purify, single)
-    phase_purify_breakdown(torch, B, SI, mesh_mod)
-    dbcsr_launches = phase_dbcsr(torch, B, E, CV, SI, TR, K, plan, mesh_mod,
-                                 D, purify, single, sharded)
-    del single, sharded
+    f = _timed(9, phase_flash_serving_shape, torch, np, FA)
+    _timed(10, phase_engines, torch, B, E, CV, TR, lm, K, plan, mesh_mod)
+    sharded_launches, sharded = _timed(
+        11, phase_sharded_purify, torch, K, CV, plan, mesh_mod, purify,
+        single)
+    _timed(12, phase_purify_breakdown, torch, B, SI, mesh_mod)
+    dbcsr_launches = _timed(13, phase_dbcsr, torch, B, E, CV, SI, TR, K,
+                            plan, mesh_mod, D, purify, single, sharded)
+    del sharded
+    tuner_launches = _timed(14, phase_tuner, torch, B, E, TR, K, S, plan,
+                            mesh_mod, tuner, purify, single)
+    del single
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
         source="src/repro_torch/kernels/csrc/block_spgemm.cu",
         replaces="src/repro/kernels/block_spgemm.py:217",
-        launches=launches + sharded_launches + dbcsr_launches,
+        launches=(launches + sharded_launches + dbcsr_launches
+                  + tuner_launches),
         max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -1160,10 +1399,11 @@ def main() -> int:
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[14] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[15] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
-          f"four chains)", flush=True)
+          f"four chains) + {tuner_launches} (phase 14's two tuned chains)",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -211,6 +211,13 @@ def host_mask(m) -> np.ndarray:
     return host_array(m.mask)
 
 
+def host_norms(m) -> np.ndarray:
+    """The global block norms of a matrix as float32 numpy, in the layout
+    of ``host_mask``."""
+    norms = m.gather(m.norms) if isinstance(m, ShardedBSM) else m.norms
+    return np.asarray(host_array(norms), np.float32)
+
+
 def cast_bsm(m, dtype: torch.dtype):
     """Storage-dtype cast with norm recalibration for either matrix kind
     (``BlockSparseMatrix`` or ``ShardedBSM``); identity when already at
@@ -300,6 +307,11 @@ class ShardedBSM:
     @property
     def dtype(self) -> torch.dtype:
         return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first rank's device (every rank's on a one-card mesh)."""
+        return self.blocks[0].device
 
     # ---- rank-local algebra (norms updated incrementally) --------------
     def add(self, other: "ShardedBSM") -> "ShardedBSM":
@@ -587,6 +599,14 @@ def random_bsm(
     if symmetric:
         blocks = 0.5 * (blocks + blocks.permute(1, 0, 3, 2))
     return make_bsm(blocks, mask)
+
+
+def random_load_balance_permutation(seed, nb: int) -> np.ndarray:
+    """DBCSR's randomized row/column permutation for static load balance:
+    ``np.random.default_rng(seed).permutation(nb)``.  ``seed`` is anything
+    ``default_rng`` takes; the reference seeds from a jax key's first two
+    data words, so passing those words gives its permutation."""
+    return np.random.default_rng(seed).permutation(nb)
 
 
 def permute(m: BlockSparseMatrix, perm_r, perm_c) -> BlockSparseMatrix:

@@ -94,10 +94,11 @@ def ring_body(
     backend: str = "dense",
     stack_capacity: int | None = None,
     transport: T.PanelTransport = T.DENSE,
+    tile: tuple[int, int] | None = None,
 ):
     """The PTP Cannon body over rank lists (shards in, C shards out)."""
     mm_kw = dict(threshold=threshold, backend=backend,
-                 stack_capacity=stack_capacity)
+                 stack_capacity=stack_capacity, tile=tile)
     mesh, tr = plan.mesh, transport
 
     def body(ab, am, an, bb, bm, bn):

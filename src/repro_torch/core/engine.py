@@ -21,9 +21,9 @@ body on an (l, r, c) mesh).  ``ShardedBSM`` operands stay sharded
 (``transport=``, ``core/transport.py``), under a block->rank assignment
 (``assignment=``, ``core/distribute.py``), and a pattern envelope
 (``envelope=``, ``core/envelope.py``) can stand in for the call's own
-pattern when capacities are derived.  The tuner behind ``engine="auto"``
-with a mesh is ROADMAP.md Queue A item 10 and raises
-``NotImplementedError``.
+pattern when capacities are derived.  ``engine="auto"`` with a mesh hands
+the whole decision (engine, depth, backend, capacity, transport, group
+layout, assignment) to the tuner (``repro_torch.tuner.autotune``).
 """
 from __future__ import annotations
 
@@ -52,14 +52,29 @@ ENGINES = ("cannon", "onesided", "gather", "twofive")
 # backends break even under the shared analytic model
 AUTO_DENSE_FILL = 1.0 / GATHER_OVERHEAD
 
-_ITEM_10 = ("engine='auto' with a mesh is the tuner, ROADMAP.md Queue A item "
-            "10; name an engine")
-
 
 def _pair_filter(a: BlockSparseMatrix, b: BlockSparseMatrix,
                  threshold: float) -> torch.Tensor:
     """(i, k, j) filter cube on the operands' device."""
     return pair_cube(a.mask, b.mask, a.norms, b.norms, threshold)
+
+
+def _host_pair_filter(a, b, threshold: float, *, host=None) -> np.ndarray:
+    """Concrete (i, k, j) filter cube on the host (numpy), from one host
+    copy of each operand's mask and norms (a ``ShardedBSM``'s gathered
+    home layout).  ``host`` — ``(mask_a, norms_a, mask_b, norms_b)`` when
+    the caller already holds them."""
+    if host is None:
+        from repro_torch.core.bsm import host_mask, host_norms
+
+        host = (host_mask(a), host_norms(a), host_mask(b), host_norms(b))
+    am, an, bm, bn = host
+    ok = np.asarray(am, bool)[:, :, None] & np.asarray(bm, bool)[None, :, :]
+    if threshold > 0.0:
+        an = np.asarray(an, np.float32)
+        bn = np.asarray(bn, np.float32)
+        ok &= an[:, :, None] * bn[None, :, :] > threshold
+    return ok
 
 
 def choose_backend(a: BlockSparseMatrix, b: BlockSparseMatrix,
@@ -95,10 +110,11 @@ def _reference_compacted(
     threshold: float,
     backend: str,
     ok: torch.Tensor | None = None,
+    tile: tuple[int, int] | None = None,
 ) -> BlockSparseMatrix:
     """Single-device stacks/cuda path over the plan layer's pattern cache:
     compaction at the exact bucketed capacity, product list cached per
-    pattern signature."""
+    pattern signature; ``tile`` is the kernel's group layout."""
     from repro_torch.core.local_mm import stacks_mm
     from repro_torch.kernels.block_spgemm import block_spgemm_stacks
 
@@ -107,10 +123,13 @@ def _reference_compacted(
     ni, _nk, nj = ok.shape
     stacks, _n = plan_mod.get_product_stacks(ok)
     cm = ok.any(dim=1)
-    mm = block_spgemm_stacks if backend == "cuda" else stacks_mm
     # both start from zero, so tiles without a survivor are already zero
     # (the reference zeroes them here: its Pallas grid never visits them)
-    cb = mm(a.blocks, b.blocks, stacks, ni=ni, nj=nj)
+    if backend == "cuda":
+        cb = block_spgemm_stacks(a.blocks, b.blocks, stacks, ni=ni, nj=nj,
+                                 group=tile)
+    else:
+        cb = stacks_mm(a.blocks, b.blocks, stacks, ni=ni, nj=nj)
     return BlockSparseMatrix(blocks=cb, mask=cm, norms=block_norms(cb))
 
 
@@ -122,21 +141,24 @@ def multiply_reference(
     *,
     stack_capacity: int | None = None,
     ok: torch.Tensor | None = None,
+    tile: tuple[int, int] | None = None,
 ) -> BlockSparseMatrix:
     """Single-device filtered block multiply (oracle).
 
     ``ok`` — optional precomputed filter cube; one derivation then serves
-    backend choice, compaction and the C mask.
+    backend choice, compaction and the C mask.  ``tile`` — the ``cuda``
+    kernel's group layout (None the default).
     """
     if backend == "auto":
         if ok is None:
             ok = _pair_filter(a, b, threshold)
         backend = choose_backend(a, b, threshold, ok=ok)
     if backend in ("stacks", "cuda") and stack_capacity is None:
-        return _reference_compacted(a, b, threshold, backend, ok)
+        return _reference_compacted(a, b, threshold, backend, ok, tile)
     cb, cm = local_filtered_mm(
         a.blocks, a.mask, a.norms, b.blocks, b.mask, b.norms,
         threshold=threshold, backend=backend, stack_capacity=stack_capacity,
+        tile=tile,
     )
     return BlockSparseMatrix(blocks=cb, mask=cm, norms=block_norms(cb))
 
@@ -153,6 +175,7 @@ def multiply(
     c_layout: str = "2d",
     l: int | None = None,
     stack_capacity: int | None = None,
+    tile: tuple[int, int] | None = None,
     transport=None,
     assignment=None,
     envelope=None,
@@ -167,12 +190,15 @@ def multiply(
                  "auto" (occupancy heuristic on the whole product, see
                  ``choose_backend``; "dense" for sharded operands, whose
                  pattern the reference does not walk); None is "dense",
-                 as the reference's None is "jnp".
+                 as the reference's None is "jnp" — and, with
+                 ``engine="auto"``, left to the tuner.
     c_layout   — stacked 2.5D only: "2d" or "scatter" (``twofive``).
     l          — depth of the 2D-mesh ``twofive`` pull engine on square
                  grids (non-square grids force L = mx/mn).
     stack_capacity — product bound for the compacted backends; derived
                  exactly from each local multiply's pattern when omitted.
+    tile       — the ``cuda`` kernel's group layout ``(g_r, g_c)``
+                 (``kernels.block_spgemm.kernel_tile``; None the default).
     transport  — panel transport on a mesh: a ``transport.PanelTransport``
                  or "auto" | "dense" | "compressed"; None is the configured
                  default (``REPRO_TRANSPORT``, else "auto").  "auto" packs
@@ -200,7 +226,9 @@ def multiply(
     ShardedBSM operands (both, on one mesh) run on their shards and come
     back sharded, post-filtered rank-local; replicated operands with a
     mesh are sharded once, multiplied and gathered.  ``engine="auto"``
-    with a mesh raises ``NotImplementedError`` (the tuner, item 10).
+    with a mesh is one ``tuner.autotune`` decision (cached on the
+    pattern); for sharded operands it pins the identity assignment (the
+    layout was chosen at ``shard_bsm``).
     """
     if engine != "auto" and engine not in ENGINES:
         raise ValueError(
@@ -218,10 +246,8 @@ def multiply(
             # from this call's own pattern
             plan_mod.note_drift_retune()
             env = None
-    if backend is None:
-        backend = "dense"
-    eps = threshold if filter_eps is None else filter_eps
-    if isinstance(a, ShardedBSM) or isinstance(b, ShardedBSM):
+    sharded = isinstance(a, ShardedBSM) or isinstance(b, ShardedBSM)
+    if sharded:
         if not (isinstance(a, ShardedBSM) and isinstance(b, ShardedBSM)):
             raise TypeError(
                 "mixed ShardedBSM / BlockSparseMatrix operands; shard both "
@@ -232,8 +258,29 @@ def multiply(
         if mesh is not None and mesh != a.mesh:
             raise ValueError("mesh argument conflicts with operand mesh")
         mesh = a.mesh
-        if engine == "auto":
-            raise NotImplementedError(_ITEM_10)
+    elif mesh is None and assignment not in (None, "identity"):
+        raise ValueError(
+            "assignment needs a mesh: a block->rank distribution has no "
+            "meaning on a single device"
+        )
+    if engine == "auto":
+        if mesh is None:
+            engine = "twofive"  # single device: the engine is vestigial
+        else:
+            from repro_torch.tuner import resolve_multiply
+
+            # None: the caller left the backend open to the tuner
+            engine, kw = resolve_multiply(
+                a, b, mesh, threshold=threshold, backend=backend, l=l,
+                stack_capacity=stack_capacity, tile=tile,
+                transport=transport, assignment=assignment, envelope=env)
+            return multiply(a, b, mesh, engine=engine,
+                            filter_eps=filter_eps, c_layout=c_layout, **kw)
+    # None: the caller left the backend open — "dense" for a named engine
+    if backend is None:
+        backend = "dense"
+    eps = threshold if filter_eps is None else filter_eps
+    if sharded:
         if backend == "auto":
             # without an envelope the heuristic would walk the pattern on
             # the host, a round trip the sharded path avoids
@@ -249,18 +296,9 @@ def multiply(
         c = plan_mod.execute_sharded(
             a, b, engine, threshold=threshold, backend=backend,
             c_layout=c_layout, l=l, stack_capacity=stack_capacity,
-            transport=transport, assignment=assignment,
+            transport=transport, assignment=assignment, tile=tile,
         )
         return c.filter(eps) if eps > 0.0 else c
-    if mesh is None and assignment not in (None, "identity"):
-        raise ValueError(
-            "assignment needs a mesh: a block->rank distribution has no "
-            "meaning on a single device"
-        )
-    if engine == "auto":
-        if mesh is not None:
-            raise NotImplementedError(_ITEM_10)
-        engine = "twofive"  # single device: the engine is vestigial
     if backend == "auto":
         backend = choose_backend(a, b, threshold,
                                  ok=None if env is None else env.cube)
@@ -270,7 +308,7 @@ def multiply(
             # one capacity for the whole stream the envelope covers
             stack_capacity = env.local_capacity()
         c = multiply_reference(a, b, threshold=threshold, backend=backend,
-                               stack_capacity=stack_capacity)
+                               stack_capacity=stack_capacity, tile=tile)
     else:
         asg = plan_mod.resolve_assignment(assignment, a, b, mesh)
         if env is not None:
@@ -289,7 +327,7 @@ def multiply(
         c = plan_mod.execute(
             a, b, mesh, engine, threshold=threshold, backend=backend,
             c_layout=c_layout, l=l, stack_capacity=stack_capacity,
-            transport=transport, assignment=asg,
+            transport=transport, assignment=asg, tile=tile,
         )
     if eps > 0.0:
         c = filter_bsm(c, eps)
@@ -316,3 +354,23 @@ def _envelope_transport(mask_a, mask_b, transport, mesh, engine: str,
             "auto | dense | compressed"
         )
     return plan_mod.get_transport(mask_a, mask_b, mesh, engine, l, transport)
+
+
+def _transport_pin(transport) -> str | None:
+    """The tuner constraint a caller's transport implies: an explicit mode
+    (or a ready ``PanelTransport``'s) pins it, None / "auto" leave it to
+    the tuner."""
+    if isinstance(transport, T.PanelTransport):
+        return transport.mode
+    if transport in ("dense", "compressed"):
+        return transport
+    return None
+
+
+def _assign_pin(assignment) -> str | None:
+    """The tuner constraint a caller's assignment implies: an explicit
+    mode (or a ready ``Assignment``'s) pins it, None leaves the layout to
+    the tuner."""
+    if assignment is None:
+        return None
+    return getattr(assignment, "mode", assignment)

@@ -37,8 +37,8 @@ result is identical to propagating all ``sweeps`` sweeps.
 union of a family of operand masks and its product cube.
 
 ``DispatchCache`` and its helpers (the serving stream's pattern-bucketed
-decision cache) call into the tuner; they belong to the tuner and MoE
-slices (ROADMAP.md Queue A items 10, 13.1 and 14) and raise here.
+decision cache) belong to the MoE dispatch slices (ROADMAP.md Queue A
+items 13.1 and 14) and raise here.
 """
 from __future__ import annotations
 
@@ -59,33 +59,14 @@ DEFAULT_MARGIN = 0.05
 # capped bounds stay finite (1e200 < float64 max).
 _NORM_CAP = 1e100
 
-_DISPATCH = ("the serving dispatch cache calls into the tuner: ROADMAP.md "
-             "Queue A item 10 (tuner), with items 13.1 and 14 (MoE dispatch)")
+_DISPATCH = ("the serving dispatch cache is the MoE dispatch path: "
+             "ROADMAP.md Queue A items 13.1 and 14")
 
 
 def _frozen(arr: np.ndarray) -> np.ndarray:
     arr = np.ascontiguousarray(arr)
     arr.flags.writeable = False
     return arr
-
-
-def mask_union(masks) -> np.ndarray:
-    """Bitwise union of a family of equal-shape boolean masks (a copy of
-    the reference's ``tuner.features.mask_union``)."""
-    it = iter(masks)
-    try:
-        first = next(it)
-    except StopIteration:
-        raise ValueError("mask_union needs at least one mask") from None
-    out = np.asarray(first, bool).copy()
-    for m in it:
-        mm = np.asarray(m, bool)
-        if mm.shape != out.shape:
-            raise ValueError(
-                f"mask shapes differ: {mm.shape} vs {out.shape}"
-            )
-        out |= mm
-    return out
 
 
 @dataclass(frozen=True)
@@ -253,6 +234,8 @@ def union_envelope(masks_a, masks_b=None) -> Envelope:
     stream).  The cube is the product cube of the unions — sound for any
     threshold, since the norm filter only removes products.
     """
+    from repro_torch.tuner.features import mask_union
+
     ua = mask_union(masks_a)
     ub = ua if masks_b is None else mask_union(masks_b)
     if ua.shape[1] != ub.shape[0]:
@@ -265,26 +248,27 @@ def union_envelope(masks_a, masks_b=None) -> Envelope:
 
 
 # ---------------------------------------------------------------------------
-# the serving dispatch cache: the tuner's, not ported yet
+# the serving dispatch cache: the MoE dispatch slices', not ported yet
 # ---------------------------------------------------------------------------
 
 
 class DispatchBucket:
-    """One warmed request-mix regime of ``DispatchCache`` (tuner slice)."""
+    """One warmed request-mix regime of ``DispatchCache`` (items 13.1,
+    14)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(_DISPATCH)
 
 
 def _analytic_dispatch_decision(*args, **kwargs) -> dict:
-    """Backend + capacity for a dispatch envelope (tuner slice)."""
+    """Backend + capacity for a dispatch envelope (items 13.1, 14)."""
     raise NotImplementedError(_DISPATCH)
 
 
 class DispatchCache:
     """Pattern-bucketed envelope/decision cache for serving streams; its
     buckets are the tuner's feature buckets and its decisions the tuner's
-    database records (tuner slice)."""
+    database records (items 13.1, 14)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(_DISPATCH)

@@ -24,6 +24,7 @@ def gather_body(
     backend: str = "dense",
     stack_capacity: int | None = None,
     transport: T.PanelTransport = T.DENSE,
+    tile: tuple[int, int] | None = None,
 ):
     """The all-gather body over rank lists (shards in, C shards out)."""
     mesh, tr = plan.mesh, transport
@@ -34,7 +35,8 @@ def gather_body(
         ga = T.all_gather_panels(mesh, tr, tr.cap_a, ab, am, "c", axis=1)
         gb = T.all_gather_panels(mesh, tr, tr.cap_b, bb, bm, "r", axis=0)
         return local_stage(ga, gb, threshold=threshold,
-                           backend=backend, stack_capacity=stack_capacity)
+                           backend=backend, stack_capacity=stack_capacity,
+                           tile=tile)
 
     return body
 

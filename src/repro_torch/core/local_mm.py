@@ -26,7 +26,11 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.block_spgemm import PANEL, block_spgemm_stacks_plain
+from repro_torch.kernels.block_spgemm import (
+    PANEL,
+    block_spgemm_stacks_plain,
+    kernel_tile,
+)
 from repro_torch.kernels.stacks import (
     ProductStacks,
     bucket_capacity,
@@ -85,15 +89,22 @@ def local_stage_cost(
     fill: float,
     backend: str,
     dtype: torch.dtype = torch.float32,
-    tile: tuple[int, int, int] | None = None,
+    tile: tuple[int, int] | None = None,
     capacity: int | None = None,
 ) -> LocalCost:
     """Analytic cost of one local-stage call, in the reference's shape:
     ``dense`` pays the whole cube; the compacted backends pay the
     surviving products (``capacity``, else ``fill`` times the cube) times
     the gather overhead; ``cuda`` adds the operand re-reads of its output
-    sub-tiles (``tile`` defaults to the kernel's own, at most ``PANEL``) and
-    the working-set pressure terms."""
+    sub-tiles (at most ``PANEL`` per block edge) and the working-set
+    pressure terms.
+
+    ``tile`` is the ``cuda`` kernel's group layout ``(g_r, g_c)``
+    (``kernels.block_spgemm.kernel_tile``; None the default group, where
+    the reference's is a Pallas MXU tile).  A group stages each A block
+    once for its ``g_c`` outputs and each B block once for its ``g_r``, so
+    a group smaller than the default re-reads operands, priced like the
+    sub-tile re-reads; the default group adds nothing."""
     itemsize = float(torch.empty((), dtype=dtype).element_size())
     speed = _DTYPE_SPEEDUP.get(int(itemsize), 1.0)
     cube = float(ni) * nk * nj
@@ -111,14 +122,17 @@ def local_stage_cost(
     per_product = (bs_r * bs_k + bs_k * bs_c + bs_r * bs_c) * itemsize
     if backend == "stacks":
         return LocalCost(flops, cap * per_product, compute)
-    if tile is None:
-        tile = (min(bs_r, PANEL), bs_k, min(bs_c, PANEL))
-    tm, tk, tn = tile
+    tm, tk, tn = min(bs_r, PANEL), bs_k, min(bs_c, PANEL)
     n_tm, n_tn = -(-bs_r // tm), -(-bs_c // tn)
     hbm = cap * (n_tn * bs_r * bs_k + n_tm * bs_k * bs_c
                  + bs_r * bs_c) * itemsize
     extra = cap * ((n_tn - 1) * bs_r * bs_k
                    + (n_tm - 1) * bs_k * bs_c) * itemsize
+    if tile is not None:
+        g_r, g_c = kernel_tile(bs_r, bs_c, group=tile)[:2]
+        d_r, d_c = kernel_tile(bs_r, bs_c)[:2]
+        extra += cap * (bs_r * bs_k * (1.0 / g_c - 1.0 / d_c)
+                        + bs_k * bs_c * (1.0 / g_r - 1.0 / d_r)) * itemsize
     ws = tile_working_set_bytes(bs_r, bs_k, bs_c, (tm, tk, tn), dtype)
     if ws > VMEM_BUDGET_BYTES:
         return LocalCost(flops, hbm, float("inf"), feasible=False)
@@ -132,7 +146,7 @@ def backend_local_cost(
     fill: float,
     backend: str,
     dtype: torch.dtype = torch.float32,
-    tile: tuple[int, int, int] | None = None,
+    tile: tuple[int, int] | None = None,
 ) -> float:
     """Effective-FLOP ranking cost (``local_stage_cost(...).effective``)."""
     return local_stage_cost(
@@ -194,6 +208,7 @@ def local_filtered_mm(
     threshold: float = 0.0,
     backend: str = "dense",
     stack_capacity: int | None = None,
+    tile: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """C_ij = sum_k A_ik B_kj with on-the-fly norm filtering.
 
@@ -204,7 +219,9 @@ def local_filtered_mm(
     backends; None takes the exact bucketed count of this call's cube (one
     sync), where the reference's traced callers took the full cube.
     Padding adds nothing, so the result is the same.  Every backend
-    accumulates in f32 regardless of the storage dtype.
+    accumulates in f32 regardless of the storage dtype.  ``tile`` is the
+    ``cuda`` kernel's group layout (None the default; ignored by the other
+    backends, as the reference's Pallas tile is).
     """
     global calls
     calls += 1
@@ -215,7 +232,7 @@ def local_filtered_mm(
         from repro_torch.kernels import ops as kops
 
         c_blocks = kops.block_spgemm(a_blocks, b_blocks, ok,
-                                     capacity=stack_capacity)
+                                     capacity=stack_capacity, group=tile)
     elif backend == "stacks":
         if stack_capacity is None:
             cap = bucket_capacity(product_count(ok))

@@ -39,8 +39,12 @@ The resolution layer, LRU-cached on pattern signatures and counted in
 signature, so a repeated pattern skips compaction; ``get_chain_program``
 caches the fused sign-iteration sweep per key.  The reference's
 jit-program cache (``get_compiled``) has no twin: PyTorch runs eagerly.
-The tuner behind ``engine="auto"`` on a mesh is ROADMAP.md Queue A item
-10.
+
+``engine="auto"`` in ``execute`` / ``execute_sharded`` resolves through
+the tuner (``repro_torch.tuner.resolve_multiply``), whose decision caches
+join ``clear_cache`` through ``register_cache`` and whose counters
+(``tuner_hits`` / ``tuner_misses`` / ``tuner_trials``) join
+``cache_stats()``.
 """
 from __future__ import annotations
 
@@ -80,6 +84,9 @@ class CacheStats:
     envelope_hits: int = 0  # chain-envelope forecasts served from cache
     envelope_misses: int = 0  # forecasts that ran the symbolic propagation
     drift_retunes: int = 0  # patterns that escaped their envelope
+    tuner_hits: int = 0  # engine="auto" decisions served without trials
+    tuner_misses: int = 0  # decisions that needed the analytic rank / trials
+    tuner_trials: int = 0  # candidates the tuner actually timed
 
 
 _CACHE_MAXSIZE = 128
@@ -93,20 +100,32 @@ _transport_cache: OrderedDict[tuple, object] = OrderedDict()
 _assign_cache: OrderedDict[tuple, object] = OrderedDict()
 _envelope_cache: OrderedDict[tuple, object] = OrderedDict()
 _stats = CacheStats()
+# clear functions of the layers above (the tuner's decision caches)
+_extra_caches: list = []
+
+
+def register_cache(clear_fn) -> None:
+    """Have ``clear_cache()`` also call ``clear_fn`` (a layer above the
+    plan, such as the tuner, registers its own state here)."""
+    if clear_fn not in _extra_caches:
+        _extra_caches.append(clear_fn)
 
 
 def cache_stats() -> dict:
-    """Pattern / chain / resolution cache counters."""
+    """Pattern / chain / resolution / tuner cache counters."""
     return asdict(_stats)
 
 
 def clear_cache() -> None:
-    """Drop every plan-layer cache and zero every counter."""
+    """Drop every plan-layer cache and every registered one, and zero
+    every counter."""
     global _stats
     for cache in (_pattern_cache, _chain_cache, _bound_cache,
                   _transport_cache, _assign_cache, _envelope_cache):
         cache.clear()
     plan_multiply.cache_clear()
+    for fn in _extra_caches:
+        fn()
     _stats = CacheStats()
 
 
@@ -680,7 +699,8 @@ def plan_multiply(mesh, engine: str, l: int | None = None) -> MultiplyPlan:
 
 def build_shard_body(plan: MultiplyPlan, *, threshold: float, backend: str,
                      stack_capacity: int | None = None, transport=None,
-                     c_layout: str = "2d"):
+                     c_layout: str = "2d",
+                     tile: tuple[int, int] | None = None):
     """The engine's body over rank lists: ``(ab, am, an, bb, bm, bn) ->
     (cb, cm)``, each a list of per-rank shards in flattened-rank order.
 
@@ -691,6 +711,7 @@ def build_shard_body(plan: MultiplyPlan, *, threshold: float, backend: str,
     over ``l`` along block rows); other plans ignore ``c_layout``, as in
     the reference.  ``transport`` is a resolved ``PanelTransport``; None
     is dense (a fused chain without an envelope keeps dense panels).
+    ``tile`` is the ``cuda`` kernel's group layout (None the default).
     """
     from repro_torch.core import transport as T
 
@@ -703,7 +724,7 @@ def build_shard_body(plan: MultiplyPlan, *, threshold: float, backend: str,
                         f"or None, not {transport!r}")
     kw = dict(
         threshold=threshold, backend=backend,
-        stack_capacity=stack_capacity, transport=transport,
+        stack_capacity=stack_capacity, transport=transport, tile=tile,
     )
     if plan.kind == "ring":
         from repro_torch.core.cannon import ring_body
@@ -762,9 +783,10 @@ def run_body(plan: MultiplyPlan, body, a, b, *, c_layout: str = "2d",
 
 
 def execute(a, b, mesh, engine: str, *, threshold: float = 0.0,
-            backend: str = "dense", c_layout: str = "2d",
+            backend: str | None = None, c_layout: str = "2d",
             l: int | None = None, stack_capacity: int | None = None,
-            transport=None, assignment=None):
+            transport=None, assignment=None,
+            tile: tuple[int, int] | None = None):
     """One distributed multiply from replicated operands: shard, run the
     engine's body, gather C — the path behind ``engine.multiply`` and the
     per-engine wrappers (``multiply_2d`` / ``multiply_gather`` /
@@ -774,22 +796,34 @@ def execute(a, b, mesh, engine: str, *, threshold: float = 0.0,
     block->rank layout the multiply runs under: the operands are permuted
     at the shard boundary and C comes back in original block coordinates.
     The transport is resolved on the permuted masks, the pattern the
-    engine ships."""
+    engine ships.  ``engine="auto"`` asks the tuner
+    (``tuner.resolve_multiply``) for the engine and every option the
+    caller left open; a ``backend`` left at None is then the tuner's, and
+    "dense" for a named engine."""
+    if engine == "auto":
+        from repro_torch.tuner import resolve_multiply
+
+        engine, kw = resolve_multiply(
+            a, b, mesh, threshold=threshold, backend=backend, l=l,
+            stack_capacity=stack_capacity, transport=transport,
+            assignment=assignment, tile=tile)
+        return execute(a, b, mesh, engine, c_layout=c_layout, **kw)
+    backend = backend or "dense"
     plan = _validated_plan(a, b, mesh, engine, l)
     asg = resolve_assignment(assignment, a, b, mesh)
     ta, tb = (a, b) if asg is None else _permuted_mask_views(a, b, asg)
     tr = resolve_transport(transport, ta, tb, mesh, engine, l)
     body = build_shard_body(plan, threshold=threshold, backend=backend,
                             stack_capacity=stack_capacity,
-                            transport=tr, c_layout=c_layout)
+                            transport=tr, c_layout=c_layout, tile=tile)
     return run_body(plan, body, a, b, c_layout=c_layout, assignment=asg)
 
 
 def execute_sharded(a, b, engine: str, *, threshold: float = 0.0,
-                    backend: str = "dense", c_layout: str = "2d",
+                    backend: str | None = None, c_layout: str = "2d",
                     l: int | None = None,
                     stack_capacity: int | None = None, transport=None,
-                    assignment=None):
+                    assignment=None, tile: tuple[int, int] | None = None):
     """Sharded multiply: ShardedBSM in, ShardedBSM out, no gather.  C stays
     in the 2D home layout its next multiply consumes (``c_layout`` must be
     "2d") and inherits the operands' assignment.
@@ -799,7 +833,9 @@ def execute_sharded(a, b, engine: str, *, threshold: float = 0.0,
     transport is resolved on; an ``assignment`` here can only confirm the
     carried layout.  Resolving a transport other than dense reads the
     masks on the host (one copy per operand and call); fused chains never
-    come here."""
+    come here.  ``engine="auto"`` asks the tuner with the assignment
+    pinned to identity: the layout was chosen at ``shard_bsm``, and the
+    tuner sees the permuted pattern.  ``backend`` None is ``execute``'s."""
     from repro_torch.core import bsm as B
 
     if c_layout != "2d":
@@ -815,9 +851,19 @@ def execute_sharded(a, b, engine: str, *, threshold: float = 0.0,
                 f"{B._assign_name(asg)}; cannot execute under {want!r} — "
                 "unshard and redistribute instead"
             )
+    if engine == "auto":
+        from repro_torch.tuner import resolve_multiply
+
+        engine, kw = resolve_multiply(
+            a, b, a.mesh, threshold=threshold, backend=backend, l=l,
+            stack_capacity=stack_capacity, transport=transport,
+            assignment=assignment, tile=tile)
+        return execute_sharded(a, b, engine, c_layout=c_layout, **kw)
+    backend = backend or "dense"
     plan = _validated_plan(a, b, a.mesh, engine, l)
     tr = resolve_transport(transport, a, b, a.mesh, engine, l)
     body = build_shard_body(plan, threshold=threshold, backend=backend,
-                            stack_capacity=stack_capacity, transport=tr)
+                            stack_capacity=stack_capacity, transport=tr,
+                            tile=tile)
     cb, cm = body(a.blocks, a.mask, a.norms, b.blocks, b.mask, b.norms)
     return B.ShardedBSM.from_shards(cb, cm, a.mesh, asg)

@@ -44,9 +44,13 @@ post-multiplication filtering.
 S = I); trace(P) = #{eigenvalues < mu} is the convergence observable.  A
 sharded H stays sharded to the chain boundary.
 
-The tuner (ROADMAP.md Queue A item 10) raises ``NotImplementedError``:
-behind ``engine="auto"`` with a mesh, and behind ``backend="auto"`` under
-an envelope (its ``choose_local_backend``).
+``engine="auto"`` on a mesh is one tuner decision per chain
+(``tuner.autotune(x, x, mesh, chain=True)`` on the finalized operand:
+chain-safe candidates only, or the whole space under an envelope); the
+chain keeps the caller's backend and runs the chosen engine and depth.
+``backend="auto"`` under an envelope is the tuner's
+``choose_local_backend`` on the envelope's fill; the operand's device
+picks the compacted flavour (``cuda`` or ``stacks``).
 """
 from __future__ import annotations
 
@@ -59,7 +63,7 @@ from repro_torch.core import bsm as B
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import transport as T
 from repro_torch.core.bsm import block_norms
-from repro_torch.core.engine import _ITEM_10, _envelope_transport, multiply
+from repro_torch.core.engine import _envelope_transport, multiply
 from repro_torch.core.local_mm import local_filtered_mm
 
 
@@ -78,21 +82,28 @@ class SignIterStats:
     #   legacy: fresh product-list compactions (pattern_misses delta)
     envelope: bool = False  # the chain ran against a pattern envelope
     forecast_s: float = 0.0  # host seconds getting the envelope ("auto")
+    engine: str = ""  # the engine the chain ran ("auto" resolved)
+    l: int | None = None  # and its depth
 
 
-_BACKEND_AUTO = ("backend='auto' under an envelope is the tuner's "
-                 "choose_local_backend, ROADMAP.md Queue A item 10; name a "
-                 "backend")
+def _resolve_engine(x, mesh, engine: str, threshold: float,
+                    l: int | None, envelope=None) -> tuple[str, int | None]:
+    """``engine="auto"`` for a chain: ONE tuner decision on the chain's
+    operand (X . X, the purification's own multiply), then every sweep
+    runs the chosen (engine, L).  ``chain=True`` keeps to chain-safe
+    candidates (dense local stage, dense panels): a capacity taken from
+    the first pattern could drop fill-in mid-chain.  Under ``envelope``
+    the capacities come from the forecast cube, so the whole space is
+    ranked.  Vestigial on one device."""
+    if engine != "auto":
+        return engine, l
+    if mesh is None:
+        return "twofive", l
+    from repro_torch import tuner
 
-
-def _check_engine(mesh, engine: str) -> str:
-    """The chain's engine: ``"auto"`` is vestigial on one device and the
-    tuner (item 10) on a mesh."""
-    if engine == "auto":
-        if mesh is not None:
-            raise NotImplementedError(_ITEM_10)
-        return "twofive"
-    return engine
+    dec = tuner.autotune(x, x, mesh, threshold=threshold, l=l, chain=True,
+                         envelope=envelope)
+    return dec.engine, dec.l
 
 
 def _scale_to_unit_spectrum(x):
@@ -170,30 +181,39 @@ def _make_sweep(mm, reduce, filter_eps: float, *, total_blocks: int):
     return sweep
 
 
-def _envelope_statics(env, mesh, engine: str, l: int | None, backend: str,
-                      stack_capacity: int | None, transport):
-    """(product-list capacity, transport) of a chain under envelope
-    ``env``: the envelope's capacity for a compacted backend left without
-    one, and the transport resolved on the envelope's mask unions."""
+def _envelope_statics(env, x, mesh, engine: str, l: int | None,
+                      backend: str, stack_capacity: int | None, transport):
+    """(backend, product-list capacity, transport) of chain operand ``x``
+    under envelope ``env``: ``"auto"`` resolved by the tuner's analytic
+    crossover on the envelope's fill (``x``'s device picks ``cuda`` or
+    ``stacks``), the envelope's capacity for a compacted backend left
+    without one, and the transport resolved on the envelope's mask
+    unions."""
     if backend == "auto":
-        raise NotImplementedError(_BACKEND_AUTO)
+        from repro_torch.tuner.model import choose_local_backend
+
+        backend = choose_local_backend(
+            x.nb_r, x.nb_c, x.nb_c, x.bs_r, x.bs_c, x.bs_c,
+            fill=float(env.cube.mean()), device=x.device)
     if stack_capacity is None and backend in ("stacks", "cuda"):
         stack_capacity = (env.local_capacity() if mesh is None
                           else env.device_capacity(mesh, engine))
     if mesh is not None:  # a chain's None is dense, not the configured mode
         transport = _envelope_transport(env.mask_a, env.mask_b,
                                         transport or "dense", mesh, engine, l)
-    return stack_capacity, transport
+    return backend, stack_capacity, transport
 
 
 def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
                       threshold: float, filter_eps: float, backend: str,
                       l: int | None = None, stack_capacity: int | None = None,
-                      envelope=None, transport=None):
+                      envelope=None, transport=None,
+                      tile: tuple[int, int] | None = None):
     """The fused sweep for (mesh, engine, L, shape, dtype, device,
-    thresholds, backend, capacity, transport), cached in the plan layer
-    (``chain_hits`` / ``chain_misses``).  It takes and returns rank lists:
-    one shard per rank of ``mesh``, or a list of one with no mesh.
+    thresholds, backend, capacity, group layout, transport), cached in the
+    plan layer (``chain_hits`` / ``chain_misses``).  It takes and returns
+    rank lists: one shard per rank of ``mesh``, or a list of one with no
+    mesh.
 
     Without ``envelope``, ``backend="auto"`` becomes ``dense`` as in the
     reference's fused sweep (one sweep serves the whole evolving pattern;
@@ -207,12 +227,17 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
     device, ``device_capacity`` on a mesh), and a non-dense transport
     ("auto" / "compressed") resolves its per-panel capacities from the
     envelope's operand-mask unions — both sound for every sweep the
-    envelope covers.  ``backend="auto"`` there is the tuner's choice and
-    raises (item 10).
+    envelope covers.  ``backend="auto"`` there is the tuner's
+    ``choose_local_backend`` on the envelope's fill.  ``tile`` is the
+    ``cuda`` kernel's group layout (None the default).
     """
+    if engine == "auto":
+        raise ValueError("resolve engine='auto' before building a chain "
+                         "program (sign_iteration does, through the tuner)")
     if envelope is not None:
-        stack_capacity, transport = _envelope_statics(
-            envelope, mesh, engine, l, backend, stack_capacity, transport)
+        backend, stack_capacity, transport = _envelope_statics(
+            envelope, x, mesh, engine, l, backend, stack_capacity,
+            transport)
     else:
         if backend == "auto":
             backend = "dense"
@@ -229,7 +254,8 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
     where = mesh if mesh is not None else str(x.device)
     key = ("signiter", where, engine if mesh is not None else None, l,
            x.nb_r, x.nb_c, x.bs_r, x.bs_c, str(x.dtype), float(threshold),
-           float(filter_eps), backend, stack_capacity)
+           float(filter_eps), backend, stack_capacity,
+           None if tile is None else tuple(tile))
     if transport is not None:
         key += (transport.key,)
     total_blocks = x.nb_r * x.nb_c
@@ -240,7 +266,8 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
                 c = local_filtered_mm(ab[0], am[0], an[0], bb[0], bm[0],
                                       bn[0], threshold=threshold,
                                       backend=backend,
-                                      stack_capacity=stack_capacity)
+                                      stack_capacity=stack_capacity,
+                                      tile=tile)
                 return [c[0]], [c[1]]
 
             return _make_sweep(mm, lambda ps: ps, filter_eps,
@@ -250,7 +277,7 @@ def get_sweep_program(x, mesh=None, *, engine: str = "twofive",
         mm = plan_mod.build_shard_body(plan, threshold=threshold,
                                        backend=backend,
                                        stack_capacity=stack_capacity,
-                                       transport=transport)
+                                       transport=transport, tile=tile)
         return _make_sweep(mm, lambda ps: T.psum(mesh, ps, ("r", "c")),
                            filter_eps, total_blocks=total_blocks)
 
@@ -271,19 +298,23 @@ def sign_iteration_legacy(
     filter_eps: float = 0.0,
     max_iter: int = 50,
     tol: float = 1e-6,
+    scale_input: bool = True,
     backend: str = "dense",
     l: int | None = None,
     storage_dtype: torch.dtype | None = None,
+    tile: tuple[int, int] | None = None,
     assignment=None,
 ) -> tuple[B.BlockSparseMatrix, SignIterStats]:
     """The host-driven per-op loop (parity oracle): two ``multiply()``
     re-entries per sweep from replicated matrices (on ``mesh`` with
     ``engine`` and ``assignment`` when given), eager algebra between them,
-    a host residual sync every sweep."""
-    engine = _check_engine(mesh, engine)
+    a host residual sync every sweep.  ``engine="auto"`` is resolved once,
+    on the entering pattern; ``scale_input=False`` iterates on ``x0`` as
+    given (its spectrum already in [-1, 1])."""
+    engine, l = _resolve_engine(x0, mesh, engine, threshold, l)
     nb, bs = x0.nb_r, x0.bs_r
     ident = B.identity(nb, bs, x0.dtype, device=x0.device)
-    x = _scale_to_unit_spectrum(x0)
+    x = _scale_to_unit_spectrum(x0) if scale_input else x0
     if storage_dtype is not None:
         # cast AFTER the spectral scale; norms recalibrated (bsm.astype)
         x = B.cast_bsm(x, storage_dtype)
@@ -294,7 +325,7 @@ def sign_iteration_legacy(
     residual = float("inf")
     misses0 = plan_mod.cache_stats()["pattern_misses"]
     mm_kw = dict(engine=engine, threshold=threshold, filter_eps=filter_eps,
-                 backend=backend, l=l, assignment=assignment)
+                 backend=backend, l=l, tile=tile, assignment=assignment)
     it = 0
     for it in range(1, max_iter + 1):
         x2 = multiply(x, x, mesh, **mm_kw)
@@ -325,6 +356,8 @@ def sign_iteration_legacy(
         sync_every=1,
         host_syncs=it,
         retraces=plan_mod.cache_stats()["pattern_misses"] - misses0,
+        engine=engine,
+        l=l,
     )
     return x, stats
 
@@ -338,16 +371,22 @@ def sign_iteration(
     filter_eps: float = 0.0,
     max_iter: int = 50,
     tol: float = 1e-6,
+    scale_input: bool = True,
     mode: str = "fused",
     sync_every: int = 1,
     backend: str = "dense",
     l: int | None = None,
+    stack_capacity: int | None = None,
     storage_dtype: torch.dtype | None = None,
+    tile: tuple[int, int] | None = None,
     assignment=None,
     envelope=None,
     transport=None,
 ) -> tuple[B.BlockSparseMatrix | B.ShardedBSM, SignIterStats]:
     """Newton-Schulz iteration X <- 1/2 X (3I - X^2) to sign(x0).
+
+    scale_input — scale X0 by 1 / ||X0||_F first, so its spectrum lies in
+                 [-1, 1]; False iterates on ``x0`` as given.
 
     mode       — "fused" (default) or "legacy" (per-op host loop; oracle).
     sync_every — fused only: host-sync the device-resident residual every
@@ -355,9 +394,16 @@ def sign_iteration(
                  past convergence (the sign fixed point is stable, so extra
                  sweeps only polish); the traces stay complete.
     backend    — local stage of every multiply: "dense" | "stacks" |
-                 "cuda" ("auto" is "dense" in the fused sweep).
+                 "cuda" ("auto" is "dense" in the fused sweep without an
+                 envelope, the tuner's ``choose_local_backend`` under one).
+    stack_capacity — product-list bound of the compacted backends, used
+                 as given; None takes the envelope's under an envelope,
+                 else each local multiply's exact bucketed count.
+    tile       — the ``cuda`` kernel's group layout (None the default).
     engine, l  — the distributed engine on ``mesh`` (and the pull
-                 engine's depth); vestigial without a mesh.
+                 engine's depth); vestigial without a mesh.  "auto" on a
+                 mesh is one tuner decision for the chain
+                 (``_resolve_engine``).
     storage_dtype — reduced-precision block storage for the whole chain:
                  X and I are quantized once after the spectral scale, with
                  norms recalibrated; every multiply accumulates in f32.
@@ -399,14 +445,13 @@ def sign_iteration(
         return sign_iteration_legacy(
             x0, mesh=mesh, engine=engine, threshold=threshold,
             filter_eps=filter_eps, max_iter=max_iter, tol=tol,
-            backend=backend, l=l, storage_dtype=storage_dtype,
-            assignment=assignment,
+            scale_input=scale_input, backend=backend, l=l,
+            storage_dtype=storage_dtype, tile=tile, assignment=assignment,
         )
     if mode != "fused":
         raise ValueError(f"unknown mode {mode!r}; 'fused' or 'legacy'")
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    engine = _check_engine(mesh, engine)
     if sharded_in and assignment is not None and (
             getattr(assignment, "mode", assignment)
             != B._assign_name(x0.assignment)):
@@ -427,7 +472,8 @@ def sign_iteration(
                              "distribution has no meaning on one device")
         x = x0
         ident = B.identity(nb, bs, x0.dtype, device=x0.device)
-    x = _scale_to_unit_spectrum(x)
+    if scale_input:
+        x = _scale_to_unit_spectrum(x)
     if storage_dtype is not None:
         x = B.cast_bsm(x, storage_dtype)
         ident = B.cast_bsm(ident, storage_dtype)
@@ -441,10 +487,12 @@ def sign_iteration(
             B.host_mask(x), B.host_array(norms), sweeps=max_iter,
             threshold=threshold, filter_eps=filter_eps, bs=x.bs_r)
         forecast_s = time.perf_counter() - t0
-    stack_capacity = None
+    # the engine is resolved on the finalized operand and the envelope:
+    # with one, the tuner ranks the whole candidate space
+    engine, l = _resolve_engine(x, mesh, engine, threshold, l, envelope=env)
     if env is not None:  # resolved once: the cube's digest is not free
-        stack_capacity, transport = _envelope_statics(
-            env, mesh, engine, l, backend, None, transport)
+        backend, stack_capacity, transport = _envelope_statics(
+            env, x, mesh, engine, l, backend, stack_capacity, transport)
 
     def ranks(m):
         if mesh is None:
@@ -466,7 +514,8 @@ def sign_iteration(
         sweep = get_sweep_program(x, mesh, engine=engine, threshold=threshold,
                                   filter_eps=filter_eps, backend=backend, l=l,
                                   stack_capacity=stack_capacity,
-                                  envelope=env, transport=transport)
+                                  envelope=env, transport=transport,
+                                  tile=tile)
         xb, xm, xn, res_d, occ_d = sweep(xb, xm, xn, ib, im)
         pending.append((res_d, occ_d))
         if it % sync_every == 0 or it == max_iter:
@@ -500,6 +549,8 @@ def sign_iteration(
         retraces=plan_mod.cache_stats()["chain_misses"] - chain_misses0,
         envelope=env is not None,
         forecast_s=forecast_s,
+        engine=engine,
+        l=l,
     )
     return result, stats
 
@@ -519,6 +570,7 @@ def density_matrix(
     backend: str = "dense",
     l: int | None = None,
     storage_dtype: torch.dtype | None = None,
+    tile: tuple[int, int] | None = None,
     assignment=None,
     envelope=None,
     transport=None,
@@ -526,8 +578,8 @@ def density_matrix(
     """P = 1/2 (I - sign(H - mu I))  (paper Eq. (1) with S = I).  The shift,
     the sign iteration and the projector run where ``h`` lives: a
     ShardedBSM H gives a ShardedBSM P with no gather in between, under H's
-    assignment.  ``assignment``, ``envelope`` and ``transport`` are
-    ``sign_iteration``'s."""
+    assignment.  ``tile``, ``assignment``, ``envelope`` and
+    ``transport`` are ``sign_iteration``'s (``engine="auto"`` too)."""
     if isinstance(h, B.ShardedBSM):
         ident = B.sharded_identity(h.nb_r, h.bs_r, h.mesh, h.dtype,
                                    assignment=h.assignment)
@@ -539,7 +591,7 @@ def density_matrix(
         shifted, mesh=mesh, engine=engine, threshold=threshold,
         filter_eps=filter_eps, max_iter=max_iter, tol=tol, mode=mode,
         sync_every=sync_every, backend=backend, l=l,
-        storage_dtype=storage_dtype, assignment=assignment,
+        storage_dtype=storage_dtype, tile=tile, assignment=assignment,
         envelope=envelope, transport=transport,
     )
     if sgn.dtype != ident.dtype:  # projector algebra in storage dtype

@@ -53,11 +53,12 @@ def pull_body(
     backend: str = "dense",
     stack_capacity: int | None = None,
     transport: T.PanelTransport = T.DENSE,
+    tile: tuple[int, int] | None = None,
 ):
     """The Algorithm-2 pull body over rank lists (shards in, C shards
     out)."""
     mm_kw = dict(threshold=threshold, backend=backend,
-                 stack_capacity=stack_capacity)
+                 stack_capacity=stack_capacity, tile=tile)
     topo = plan.topo
     l_r, l_c, depth, s = topo.l_r, topo.l_c, topo.l, topo.side3d
     mesh, axes, tr = plan.mesh, plan.axes, transport
@@ -137,6 +138,7 @@ def stacked_body(
     c_layout: str = "2d",
     stack_capacity: int | None = None,
     transport: T.PanelTransport = T.DENSE,
+    tile: tuple[int, int] | None = None,
 ):
     """The (l, r, c)-mesh 2.5D body over rank lists.
 
@@ -150,7 +152,7 @@ def stacked_body(
     if c_layout not in ("2d", "scatter"):
         raise ValueError(f"unknown c_layout {c_layout!r}")
     mm_kw = dict(threshold=threshold, backend=backend,
-                 stack_capacity=stack_capacity)
+                 stack_capacity=stack_capacity, tile=tile)
     mesh, tr = plan.mesh, transport
     n = mesh.size
     l_axis = mesh.axis_names.index("l")

@@ -116,21 +116,72 @@ def _check_operands(a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> None:
                          f" vs {b_blocks.device}")
 
 
-def kernel_tile(bs_r: int, bs_c: int) -> KernelTile:
+def _edge(bs: int, micro: int) -> tuple[int, int, int]:
+    """(default group edge, panel stride, sub-tiles) of one block edge."""
+    if bs > PANEL:
+        return 1, PANEL, -(-bs // PANEL)
+    stride = micro * -(-bs // micro)
+    return min(PANEL // stride, GROUP_MAX), stride, 1
+
+
+def validate_tile(bs_r: int, bs_c: int, tile,
+                  dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """Check a group layout ``(g_r, g_c)`` against a block shape up front:
+    the rules the kernel's launcher applies (``edge_ok`` in
+    ``csrc/block_spgemm.cu``) at the layout's own panel strides — at least
+    one block per edge, ``g * stride`` within the ``PANEL``, one block per
+    CTA for an edge above ``PANEL``, at most 16 mask bits, and a storage
+    dtype the kernel takes.  Returns ``(g_r, g_c)``; raises ``ValueError``
+    otherwise, so a refused layout never reaches a launch."""
+    try:
+        g_r, g_c = (int(g) for g in tile)
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"a group layout is a (g_r, g_c) integer pair, got {tile!r}"
+        ) from e
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes float32 or bfloat16 blocks, "
+                         f"not {dtype}")
+    for name, bs, g, micro in (("bs_r", bs_r, g_r, MICRO[0]),
+                               ("bs_c", bs_c, g_c, MICRO[1])):
+        _, stride, _ = _edge(bs, micro)
+        if g < 1:
+            raise ValueError(f"group edge {g} for {name}={bs}: at least 1")
+        if g * stride > PANEL:
+            raise ValueError(
+                f"group edge {g} x stride {stride} for {name}={bs} exceeds "
+                f"the kernel's {PANEL}-wide panel")
+    if g_r * g_c > GROUP_MAX * GROUP_MAX:
+        raise ValueError(f"group {g_r} x {g_c} needs more than "
+                         f"{GROUP_MAX * GROUP_MAX} mask bits")
+    return g_r, g_c
+
+
+def kernel_tile(bs_r: int, bs_c: int, group=None) -> KernelTile:
     """The kernel's group and panel layout for one block shape.  A block
     edge up to ``PANEL`` is stacked ``min(PANEL // stride, GROUP_MAX)``
-    times into the panel (4 x 23-row blocks at stride 24 fill 96 rows); a
-    larger edge is cut into ``PANEL`` sub-tiles."""
-
-    def edge(bs: int, micro: int) -> tuple[int, int, int]:
-        if bs > PANEL:
-            return 1, PANEL, -(-bs // PANEL)
-        stride = micro * -(-bs // micro)
-        return min(PANEL // stride, GROUP_MAX), stride, 1
-
-    g_r, stride_r, n_sub_r = edge(bs_r, MICRO[0])
-    g_c, stride_c, n_sub_c = edge(bs_c, MICRO[1])
+    times into the panel by default (4 x 23-row blocks at stride 24 fill 96
+    rows); a larger edge is cut into ``PANEL`` sub-tiles.  ``group`` — a
+    ``(g_r, g_c)`` layout (``validate_tile``) in place of the default
+    group; None is the default."""
+    g_r, stride_r, n_sub_r = _edge(bs_r, MICRO[0])
+    g_c, stride_c, n_sub_c = _edge(bs_c, MICRO[1])
+    if group is not None:
+        g_r, g_c = validate_tile(bs_r, bs_c, group)
     return KernelTile(g_r, g_c, stride_r, stride_c, n_sub_r, n_sub_c)
+
+
+def tile_candidates(bs_r: int, bs_c: int,
+                    dtype: torch.dtype = torch.float32) -> list:
+    """Group layouts the tuner ranks for one block shape: only None, the
+    default ``kernel_tile`` group.  The kernel launches any layout
+    ``validate_tile`` accepts, but a smaller group only re-stages
+    operands: on the H100 at H2O-DFT-LS's H.H (2 % of the cube, the sparse
+    case a smaller group was meant for) 2 x 2 took 1.64x and 1 x 1 2.70x
+    the default's time (``chip_smoke.py`` phase 14.4).  A layout joins
+    this list once a measured pattern shows it winning."""
+    del bs_r, bs_c, dtype  # the reference's signature; one layout for all
+    return [None]
 
 
 def group_masks(stacks: ProductStacks, *, ni: int, nk: int, nj: int,
@@ -178,7 +229,7 @@ def block_spgemm_groups(
     nj: int,
 ) -> torch.Tensor:
     """Launch the CUDA kernel over prepared group masks (CUDA tensors
-    only).
+    only), in the masks' group layout (``gm.g_r x gm.g_c``).
 
     The output starts at zero, so blocks without a product stay zero.
     Launches on PyTorch's current stream without synchronising; raises if
@@ -193,11 +244,8 @@ def block_spgemm_groups(
     _, nj_b, _, bs_c = b_blocks.shape
     if (ni_a, nj_b) != (ni, nj):
         raise ValueError(f"grid ({ni_a}, {nj_b}) != (ni={ni}, nj={nj})")
-    tile = kernel_tile(bs_r, bs_c)
-    if (gm.g_r, gm.g_c) != tile[:2]:
-        raise ValueError(f"masks grouped {gm.g_r} x {gm.g_c}, the kernel "
-                         f"takes {tile.g_r} x {tile.g_c} for blocks "
-                         f"({bs_r}, {bs_c})")
+    # any layout the kernel takes (validate_tile raises on the others)
+    tile = kernel_tile(bs_r, bs_c, group=(gm.g_r, gm.g_c))
     n_groups = -(-ni // tile.g_r) * -(-nj // tile.g_c)
     if tuple(gm.masks.shape) != (n_groups, nk):
         raise ValueError(f"masks {tuple(gm.masks.shape)} != {(n_groups, nk)}")
@@ -273,10 +321,13 @@ def block_spgemm_stacks(
     *,
     ni: int,
     nj: int,
+    group=None,
 ) -> torch.Tensor:
     """C tiles of the compacted product list: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  Only tiles with a
-    surviving product get a value; the rest are zero."""
+    surviving product get a value; the rest are zero.  ``group`` — the
+    kernel's group layout (``kernel_tile``; None the default); the plain
+    version ignores it, since the result does not depend on it."""
     _check_operands(a_blocks, b_blocks)
     dev = a_blocks.device
     if dev.type == "cpu":
@@ -286,7 +337,7 @@ def block_spgemm_stacks(
         raise ValueError(f"block_spgemm runs on cpu or cuda tensors, not "
                          f"{dev}")
     nk, bs_r = a_blocks.shape[1], a_blocks.shape[2]
-    tile = kernel_tile(bs_r, b_blocks.shape[3])
+    tile = kernel_tile(bs_r, b_blocks.shape[3], group=group)
     gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r, g_c=tile.g_c)
     return block_spgemm_groups(a_blocks.contiguous(), b_blocks.contiguous(),
                                gm, ni=ni, nj=nj)
@@ -298,6 +349,7 @@ def block_spgemm(
     pair_ok: torch.Tensor,  # (ni, nk, nj) bool
     *,
     capacity: int | None = None,
+    group=None,
 ) -> torch.Tensor:
     """C_ij = sum_k ok[i,k,j] * A_ik @ B_kj via the compacted product list.
 
@@ -306,7 +358,7 @@ def block_spgemm(
     count is always at hand, where the reference's None meant the full
     cube for its traced callers.  Padding adds nothing, so both give the
     same C.  Tiles with no surviving product are zeroed through the tile
-    mask, as in the reference.
+    mask, as in the reference.  ``group`` is ``block_spgemm_stacks``'s.
     """
     ni, nk = a_blocks.shape[:2]
     nj = b_blocks.shape[1]
@@ -317,7 +369,8 @@ def block_spgemm(
     else:
         cap = resolve_capacity(capacity, ni * nk * nj)
     stacks = compact_pair_mask(pair_ok, capacity=cap)
-    c = block_spgemm_stacks(a_blocks, b_blocks, stacks, ni=ni, nj=nj)
+    c = block_spgemm_stacks(a_blocks, b_blocks, stacks, ni=ni, nj=nj,
+                            group=group)
     c_mask = pair_ok.to(torch.bool).any(dim=1)
     # in place: c is this call's own fresh output
     return c.masked_fill_(~c_mask[:, :, None, None], 0)

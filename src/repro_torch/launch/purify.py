@@ -18,9 +18,17 @@ reference's launcher it re-purifies a slightly scaled H ``--repeats`` times
 and the chain runs sharded with ``--engine``, and the report adds the
 mesh, the engine and the bytes the collectives moved per rank.  ``--p 1
 --l 1`` (the default here, where the reference defaults to a 2 x 2 mesh of
-fake host devices) is the single-device run.  ``--engine auto`` falls back
-to ``twofive``, as the reference's does without a tuning database;
-``--tuning-db`` (the tuner) is ROADMAP.md Queue A item 10 and raises.
+fake host devices) is the single-device run.
+
+Engine selection is tuned as in the reference: with ``--engine auto`` and
+``--tuning-db PATH`` the tuner picks (engine, L) for H's pattern once per
+chain (``tuner.autotune(..., chain=True)``), timing short trials on a cold
+database, resolving by lookup on a warm one, and writing winners to the
+file for the next launch; the tuner's counters are printed per repeat.
+Without a database ``--engine auto`` falls back to ``twofive``: a service
+loop should not re-measure on every start.  The reference's checks hold at
+the end: one sweep program for the whole run and at most one tuner
+decision that needed the model.
 
 Exits 1 when |trace(P) - n_occ| exceeds ``TRACE_TOL`` in any repeat.
 Runs on CUDA unless ``--device cpu`` is given.
@@ -48,7 +56,9 @@ def _parser() -> argparse.ArgumentParser:
                     choices=("auto", "cannon", "onesided", "gather",
                              "twofive"))
     ap.add_argument("--tuning-db", default=None,
-                    help="tuning database (the tuner: not ported yet)")
+                    help="tuning-database JSON path: with --engine auto, "
+                    "the tuner picks the engine (warm-started when the file "
+                    "exists, written after measuring)")
     ap.add_argument("--occupancy", type=float, default=0.10)
     ap.add_argument("--threshold", type=float, default=1e-9)
     ap.add_argument("--filter-eps", type=float, default=1e-8)
@@ -81,6 +91,7 @@ def run(argv=None) -> dict:
 
     import torch
 
+    from repro_torch import tuner
     from repro_torch.config import resolve_device
     from repro_torch.core import bsm as B
     from repro_torch.core import local_mm
@@ -91,15 +102,11 @@ def run(argv=None) -> dict:
     from repro_torch.kernels import block_spgemm as kernel
     from repro_torch.launch.mesh import make_spgemm_mesh
 
-    if args.tuning_db is not None:
-        raise NotImplementedError(
-            "--tuning-db drives the tuner, ROADMAP.md Queue A item 10; "
-            "name an --engine")
     dev = resolve_device(args.device)
     mesh = None
     if (args.p, args.l) != (1, 1):
         mesh = make_spgemm_mesh(p=args.p, l=args.l, device=dev)
-    engine = "twofive" if args.engine == "auto" else args.engine
+    engine = args.engine
     h = B.random_bsm(args.seed, nb=args.nb, bs=args.bs,
                      occupancy=args.occupancy, pattern="decay",
                      symmetric=True, device=dev)
@@ -107,11 +114,19 @@ def run(argv=None) -> dict:
     if backend == "auto":
         backend = choose_backend(h, h, args.threshold)
     plan_mod.clear_cache()
+    if engine == "auto":
+        if args.tuning_db and mesh is not None:
+            # after clear_cache, which unbinds the tuner's database
+            tuner.set_default_db(args.tuning_db)
+        else:
+            # no database to consult or write: the static engine
+            engine = "twofive"
     eig = torch.linalg.eigvalsh(h.to_dense().to(torch.float64))
     n_occ = int((eig < MU).sum())
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     where = "one device" if mesh is None else (
-        f"mesh {dict(mesh.shape)} ({mesh.size} ranks), engine {engine}")
+        f"mesh {dict(mesh.shape)} ({mesh.size} ranks), engine {engine}"
+        + (f" (db {args.tuning_db})" if engine == "auto" else ""))
     print(f"purify: H {h.shape[0]}x{h.shape[1]} (nb={args.nb}, "
           f"bs={args.bs}, {float(h.occupancy()):.2%} blocks), device "
           f"{name}, {where}, backend {backend}, sync_every "
@@ -145,13 +160,17 @@ def run(argv=None) -> dict:
             local_multiplies=local_mm.calls - calls0,
             bytes_per_rank=T.bytes_moved(), trace=tr,
             trace_err=abs(tr - n_occ), idempotency=idem,
-            chain=plan_mod.cache_stats(),
+            chain=plan_mod.cache_stats(), engine=stats.engine, l=stats.l,
         )
         runs.append(r)
         occ = " ".join(f"{o:.3f}" for o in stats.occupancy_trace)
+        cache = r["chain"]
         comm = "" if mesh is None else (
             f", {r['bytes_per_rank'] / stats.iterations:.6g} bytes per "
-            "rank per sweep")
+            f"rank per sweep, engine {stats.engine}"
+            + ("" if stats.l is None else f" L={stats.l}")
+            + f", tuner {cache['tuner_hits']}h/{cache['tuner_misses']}m/"
+            f"{cache['tuner_trials']}t")
         print(f"  repeat {rep}: {stats.iterations} sweeps "
               f"({stats.host_syncs} syncs) in {wall:.3f}s, converged="
               f"{stats.converged}, residual={stats.residual:.3e}, kernel "
@@ -162,13 +181,24 @@ def run(argv=None) -> dict:
         # SCF-like drift: the same pattern re-purified (the sweep is reused)
         scale = 1.0 + 1e-3 * (rep + 1)
         h = h.scale(scale) if mesh is not None else B.scale(h, scale)
+    final = plan_mod.cache_stats()
+    # one sweep program serves every repeat (PyTorch builds no other
+    # program, so it is also the reference's bound on builds); one tuner
+    # decision per pattern
+    if not (final["chain_misses"] == 1 and final["tuner_misses"] <= 1):
+        raise AssertionError(f"purify cache counters: {final}")
     ok = all(r["trace_err"] <= TRACE_TOL for r in runs)
     print(f"purify {'OK' if ok else 'FAILED'}: trace tolerance {TRACE_TOL}",
           flush=True)
+    db = tuner.get_default_db()
+    if db is not None and db.path:
+        print(f"tuning db: {len(db)} record(s) at {db.path}", flush=True)
     return dict(ok=ok, device=name, backend=backend, n=h.shape[0],
                 nb=args.nb, bs=args.bs, n_occ=n_occ, runs=runs,
                 mesh=None if mesh is None else dict(mesh.shape),
-                ranks=1 if mesh is None else mesh.size, engine=engine, p=p)
+                ranks=1 if mesh is None else mesh.size,
+                engine=runs[-1]["engine"] if runs else engine, tuner=final,
+                p=p)
 
 
 def main(argv=None) -> int:

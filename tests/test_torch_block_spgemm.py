@@ -298,3 +298,60 @@ def test_build_names_the_missing_compiler(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert list(tmp_path.iterdir()) == []
+
+
+def _edge_ok(bs: int, g: int, stride: int, n_sub: int, micro: int) -> bool:
+    """``edge_ok`` of ``csrc/block_spgemm.cu``'s launcher, transcribed."""
+    if g < 1 or stride < micro or stride % micro != 0 \
+            or g * stride > K.PANEL:
+        return False
+    if bs > K.PANEL:
+        return g == 1 and stride == K.PANEL \
+            and n_sub == (bs + K.PANEL - 1) // K.PANEL
+    return stride >= bs and n_sub == 1
+
+
+@pytest.mark.parametrize("bs_r,bs_c", [(4, 4), (8, 8), (23, 23), (24, 24),
+                                       (4, 8), (25, 25), (64, 64), (128, 128),
+                                       (4, 128), (30, 7)])
+def test_validate_tile_mirrors_the_launchers_checks(bs_r, bs_c):
+    """``validate_tile`` accepts exactly the group layouts the launcher
+    accepts at the layout's strides (``edge_ok`` per edge, at most 16 mask
+    bits), and ``kernel_tile(group=...)`` hands the launcher those."""
+    for g_r in range(0, 18):
+        for g_c in range(0, 18):
+            t = K.kernel_tile(bs_r, bs_c)
+            want = (_edge_ok(bs_r, g_r, t.stride_r, t.n_sub_r, K.MICRO[0])
+                    and _edge_ok(bs_c, g_c, t.stride_c, t.n_sub_c,
+                                 K.MICRO[1])
+                    and g_r * g_c <= 16)
+            try:
+                got = K.validate_tile(bs_r, bs_c, (g_r, g_c)) == (g_r, g_c)
+            except ValueError:
+                got = False
+            assert got == want, (g_r, g_c)
+            if want:
+                assert K.kernel_tile(bs_r, bs_c, group=(g_r, g_c)) == \
+                    t._replace(g_r=g_r, g_c=g_c)
+    for bad in ("4x4", (1, 2, 3), None):
+        with pytest.raises(ValueError, match="pair"):
+            K.validate_tile(bs_r, bs_c, bad)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K.validate_tile(bs_r, bs_c, (1, 1), torch.float64)
+    # the tuner ranks the default group only; it is always a valid layout
+    assert K.tile_candidates(bs_r, bs_c) == [None]
+    d = K.kernel_tile(bs_r, bs_c)[:2]
+    assert K.validate_tile(bs_r, bs_c, d) == d
+
+
+def test_group_layouts_on_the_cpu():
+    """The plain version ignores the layout (the result does not depend on
+    it); the 23 x 23 blocks of H2O-DFT-LS take 4 x 4, 2 x 2 and 1 x 1."""
+    assert K.kernel_tile(23, 23)[:2] == (4, 4)
+    a, b, ok = _operands(4, 5, 6, 4, (23, 23, 23), 0.4)
+    ta, tb, tok = map(torch.from_numpy, (a, b, ok))
+    want = ops.block_spgemm(ta, tb, tok)
+    for g in (None, (4, 4), (2, 2), (1, 1)):
+        assert torch.equal(ops.block_spgemm(ta, tb, tok, group=g), want)
+    with pytest.raises(ValueError, match="panel"):
+        K.kernel_tile(23, 23, group=(5, 5))  # 5 x 24 rows > 96

@@ -139,3 +139,18 @@ def test_entry_points_default_to_cuda():
         PB.identity(2, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PB.random_bsm(0, nb=2, bs=4)
+
+
+@pytest.mark.parametrize("seed,nb", [(0, 8), (3, 16), (11, 64)])
+def test_random_load_balance_permutation_matches_reference(seed, nb):
+    """DBCSR's randomized permutation: ``default_rng(seed).permutation``;
+    given a jax key's two data words it is the reference's."""
+    got = PB.random_load_balance_permutation(seed, nb)
+    np.testing.assert_array_equal(
+        got, np.random.default_rng(seed).permutation(nb))
+    assert sorted(got.tolist()) == list(range(nb))
+    key = jax.random.key(seed)
+    words = np.asarray(jax.random.key_data(key)).ravel()[:2]
+    np.testing.assert_array_equal(
+        PB.random_load_balance_permutation(words, nb),
+        RB.random_load_balance_permutation(key, nb))

@@ -1,7 +1,8 @@
 """Checks that need the card: each CUDA kernel against its plain version
-and oracle, the launch counters, and the slices on CUDA tensors (the
-distributed engines and the sharded sweep with every rank on the card
-included).  Marked ``gpu``; each
+and oracle (block_spgemm at every group layout the tuner may pick), the
+launch counters, and the slices on CUDA tensors (the distributed engines,
+the sharded sweep and one measured tuner decision with every rank on the
+card included).  Marked ``gpu``; each
 test skips without a CUDA device.  On the card (no jax needed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -90,6 +91,71 @@ def test_kernel_group_edges_and_partial_masks(cuda, shape, dtype):
     assert K.launches == before + 1
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(23, 23, 23), (4, 16, 8), (30, 7, 25)])
+def test_every_group_layout_matches_plain(cuda, shape, dtype):
+    """The default layout, the default halved per edge and one block per
+    CTA launch and agree with the plain version over ragged group edges
+    and a threshold that filters part of a group."""
+    bs_r, bs_k, bs_c = shape
+    ni, nk, nj = 9, 6, 7
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((ni, nk, bs_r, bs_k)) / np.sqrt(bs_k)
+    b = rng.standard_normal((nk, nj, bs_k, bs_c)) / np.sqrt(bs_k)
+    a *= 10.0 ** rng.uniform(-2, 0, (ni, nk, 1, 1))
+    a, b = (torch.from_numpy(x).to(cuda, dtype) for x in (a, b))
+    am = torch.from_numpy(rng.random((ni, nk)) < 0.6).to(cuda)
+    bm = torch.from_numpy(rng.random((nk, nj)) < 0.6).to(cuda)
+    ok = stacks.pair_cube(am, bm, B.block_norms(a), B.block_norms(b), 0.05)
+    st = stacks.compact_pair_mask(
+        ok, capacity=stacks.bucket_capacity(stacks.product_count(ok)))
+    want = K.block_spgemm_stacks_plain(a, b, st, ni=ni, nj=nj)
+    d_r, d_c = K.kernel_tile(bs_r, bs_c)[:2]
+    layouts = [None, (max(1, d_r // 2), max(1, d_c // 2)), (1, 1)]
+    tol = TOL[dtype]
+    for g in layouts:
+        before = K.launches
+        got = K.block_spgemm_stacks(a, b, st, ni=ni, nj=nj, group=g)
+        assert K.launches == before + 1, g
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=str(g))
+
+
+def test_measured_autotune_on_the_card(tmp_path):
+    """One measured ``engine="auto"`` multiply on a 2 x 2 mesh of ranks on
+    the card: CUDA candidates only, no trial error, the kernel launched by
+    the cuda trials, C equal to the single-device oracle, a database
+    record naming the card, and a warm hit with no trial."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import tuner
+    from repro_torch.core import plan
+
+    cuda = torch.device("cuda")
+    h = B.random_bsm(0, nb=16, bs=23, occupancy=0.2, pattern="decay",
+                     symmetric=True, device=cuda)
+    mesh = make_spgemm_mesh(p=2, device=cuda)
+    plan.clear_cache()
+    tuner.set_default_db(str(tmp_path / "db.json"))
+    before = K.launches
+    c = E.multiply(h, h, mesh, engine="auto", threshold=1e-9)
+    run = tuner.last_run()
+    assert run.trials and all(not err for _, _, err in run.trials)
+    assert all("/stacks" not in label for label, _, _ in run.trials)
+    if any("/cuda" in label for label, _, _ in run.trials):
+        assert K.launches > before
+    want = E.multiply_reference(h, h, threshold=1e-9, backend="cuda")
+    assert torch.equal(c.mask, want.mask)
+    torch.testing.assert_close(c.blocks, want.blocks, rtol=1e-5, atol=1e-5)
+    rec = next(iter(tuner.get_default_db().records.values()))
+    assert rec["device"] == "cuda:" + torch.cuda.get_device_name(cuda)
+    trials = plan.cache_stats()["tuner_trials"]
+    E.multiply(h, h, mesh, engine="auto", threshold=1e-9)
+    assert plan.cache_stats()["tuner_trials"] == trials
+    plan.clear_cache()
 
 
 def test_empty_list_launches_nothing(cuda):

@@ -91,21 +91,20 @@ def test_choose_backend_follows_the_reference():
 @pytest.mark.parametrize("kwarg", ["transport", "assignment", "envelope"])
 def test_distributed_arguments_raise(kwarg):
     """What the distributed arguments refuse raises, as in the reference:
-    the tuner (engine="auto" with a mesh) is not ported and names its
-    item; an unknown transport, an assignment without a mesh or of an
-    unknown mode, and an envelope that is no ``Envelope`` raise."""
+    an unknown transport, an assignment without a mesh or of an unknown
+    mode, and an envelope that is no ``Envelope`` raise — with a named
+    engine and under ``engine="auto"`` (the tuner) alike."""
     _, pa = _pair(5, nb=8)
     mesh = make_spgemm_mesh(p=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        PE.multiply(pa, pa, mesh, engine="auto")
     bad = {"transport": [(mesh, "zip", ValueError, "unknown transport")],
            "assignment": [(None, "nnz_greedy", ValueError, "needs a mesh"),
                           (mesh, "spiral", ValueError,
                            "unknown assignment")],
            "envelope": [(m, "auto", TypeError, "Envelope")
                         for m in (None, mesh)]}[kwarg]
-    for m, value, err, match in bad:
-        with pytest.raises(err, match=match):
-            PE.multiply(pa, pa, m, **{kwarg: value})
+    for engine in ("twofive", "auto"):
+        for m, value, err, match in bad:
+            with pytest.raises(err, match=match):
+                PE.multiply(pa, pa, m, engine=engine, **{kwarg: value})
     with pytest.raises(ValueError, match="unknown engine"):
         PE.multiply(pa, pa, engine="summa")

@@ -138,9 +138,11 @@ def test_get_envelope_counts_hits_and_misses():
 
 
 def test_dispatch_cache_is_the_tuners():
+    """The serving dispatch cache waits for the MoE dispatch slices (the
+    tuner it builds on is ported) and names them."""
     for make in (lambda: PE.DispatchCache(np.eye(2, dtype=bool)),
                  lambda: PE._analytic_dispatch_decision(None, 1, 1, 1, "f")):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="items 13.1 and 14"):
             make()
 
 

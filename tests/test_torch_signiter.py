@@ -113,18 +113,16 @@ def test_storage_dtype_bf16_converges_near_f32():
 
 
 def test_mesh_raises():
-    """What the chain refuses raises, as in the reference: the tuner
-    (engine="auto" on a mesh, backend="auto" under an envelope) names its
-    item; an assignment needs a mesh; a non-dense chain transport needs an
-    envelope; the legacy loop takes no sharded matrix and no fused-chain
-    controls."""
+    """What the chain refuses raises, as in the reference: a chain program
+    needs a resolved engine (``sign_iteration`` resolves "auto" through
+    the tuner first); an assignment needs a mesh; a non-dense chain
+    transport needs an envelope; the legacy loop takes no sharded matrix
+    and no fused-chain controls."""
     _, port = _sym(8)
     mesh = make_spgemm_mesh(p=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        PS.sign_iteration(port, mesh=mesh, engine="auto")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PS.sign_iteration(port, mesh=mesh, envelope="auto", backend="auto",
-                          max_iter=2)
+    with pytest.raises(ValueError, match="resolve engine='auto'"):
+        PS.get_sweep_program(port, mesh, engine="auto", threshold=0.0,
+                             filter_eps=0.0, backend="dense")
     with pytest.raises(ValueError, match="needs a mesh"):
         PS.sign_iteration(port, assignment="nnz_greedy")
     with pytest.raises(ValueError, match="needs an envelope"):
@@ -133,6 +131,70 @@ def test_mesh_raises():
         PS.sign_iteration(port, mesh=mesh, mode="legacy", envelope="auto")
     with pytest.raises(TypeError, match="replicated"):
         PS.sign_iteration(B.shard_bsm(port, mesh), mode="legacy")
+
+
+def _prescaled(seed, nb=4, bs=6):
+    """A Hamiltonian scaled to a unit Frobenius norm on the host, carried
+    to both sides: the same input bits for ``scale_input=False``."""
+    ref, _ = _sym(seed, nb=nb, bs=bs)
+    ref = RB.scale(ref, float(1.0 / float(ref.frobenius_norm())))
+    return ref, interop.bsm_from_arrays(ref.blocks, ref.mask, ref.norms,
+                                        device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["fused", "legacy"])
+@pytest.mark.parametrize("thr,eps", [(0.0, 0.0), (1e-7, 1e-6)])
+def test_scale_input_false_matches_reference(mode, thr, eps):
+    """``scale_input=False`` iterates on X0 as given, as the reference's
+    does (``tests/test_envelope.py`` and ``tests/_dist.py`` call it)."""
+    ref, port = _prescaled(5)
+    kw = dict(threshold=thr, filter_eps=eps, max_iter=80, tol=1e-6,
+              mode=mode, scale_input=False)
+    want, want_stats = RS.sign_iteration(ref, backend="jnp", **kw)
+    got, got_stats = PS.sign_iteration(port, backend="stacks", **kw)
+    _assert_chain_matches(got, got_stats, want, want_stats)
+    # without the scale the chain really starts elsewhere: a matrix of
+    # norm 3 diverges from the unit-scaled chain's first residual
+    big, _ = PS.sign_iteration(B.scale(port, 3.0), scale_input=False,
+                               max_iter=1, tol=0.0)
+    scaled, _ = PS.sign_iteration(B.scale(port, 3.0), max_iter=1, tol=0.0)
+    assert not torch.allclose(big.blocks, scaled.blocks)
+
+
+@pytest.mark.parametrize("capacity", [64, 256])
+def test_explicit_stack_capacity_matches_reference(capacity):
+    """An explicit ``stack_capacity`` is used as given (at least the
+    4^3-product cube here, so sound), with the reference's result."""
+    ref, port = _prescaled(3)
+    kw = dict(threshold=1e-7, filter_eps=1e-6, max_iter=80, tol=1e-6,
+              scale_input=False, stack_capacity=capacity)
+    want, want_stats = RS.sign_iteration(ref, backend="stacks", **kw)
+    plan_mod.clear_cache()
+    got, got_stats = PS.sign_iteration(port, backend="stacks", **kw)
+    _assert_chain_matches(got, got_stats, want, want_stats)
+    # the capacity is part of the cached sweep's key: a new capacity is a
+    # new sweep, the same one a hit
+    PS.sign_iteration(port, backend="stacks", **kw)
+    assert plan_mod.cache_stats()["chain_misses"] == 1
+    PS.sign_iteration(port, backend="stacks", **{**kw,
+                                                 "stack_capacity": 512})
+    assert plan_mod.cache_stats()["chain_misses"] == 2
+
+
+def test_explicit_capacity_wins_over_the_envelope():
+    """Under an envelope the envelope's capacity applies only when the
+    caller gave none; an explicit (sound) one is used as given, with the
+    same result."""
+    _, port = _prescaled(4)
+    kw = dict(threshold=1e-7, filter_eps=1e-6, max_iter=6, tol=0.0,
+              scale_input=False, backend="stacks", envelope="auto")
+    plan_mod.clear_cache()
+    a, _ = PS.sign_iteration(port, **kw)
+    b, _ = PS.sign_iteration(port, stack_capacity=64, **kw)
+    assert torch.equal(a.blocks, b.blocks) and torch.equal(a.mask, b.mask)
+    keys = [k for k in plan_mod._chain_cache]
+    assert {k[-1] for k in keys} == {None}  # no group layout named
+    assert 64 in {k[-2] for k in keys}
 
 
 @pytest.mark.parametrize("backend", ["cuda", "auto"])

@@ -141,7 +141,7 @@ def test_density_matrix_under_an_assignment_matches_reference(
         PS.density_matrix(h, MU, assignment="identity", **kw)
 
 
-def test_purify_entry_point_on_a_stacked_mesh(capsys):
+def test_purify_entry_point_on_a_stacked_mesh(capsys, tmp_path):
     argv = ["--device", "cpu", "--nb", "8", "--p", "2", "--l", "2"]
     report = purify.run(argv)
     assert report["ok"] and report["mesh"] == {"l": 2, "r": 2, "c": 2}
@@ -151,5 +151,9 @@ def test_purify_entry_point_on_a_stacked_mesh(capsys):
         assert r["local_multiplies"] == 8 * 2 * r["iterations"]
     assert purify.main(argv + ["--repeats", "1"]) == 0
     assert "bytes per rank per sweep" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        purify.run(argv + ["--tuning-db", "db.json"])
+    # with a tuning database, --engine auto asks the tuner: a stacked
+    # mesh admits only twofive, so that is what it measures and picks
+    tuned = purify.run(argv + ["--tuning-db", str(tmp_path / "db.json"),
+                               "--repeats", "1"])
+    assert tuned["ok"] and tuned["engine"] == "twofive"
+    assert tuned["tuner"]["tuner_misses"] == 1
