@@ -9,7 +9,8 @@ Phases, each raising on failure:
    kernel build (``nvcc`` into ``build/kernels/``), with its seconds;
 2. the block-SpGEMM kernel against its plain PyTorch version and the
    ``ref`` oracle on the card, over block shapes (rectangular and above
-   the 96-wide panel included), f32 / bf16, occupancy and the on-the-fly
+   the 96-wide panel included), f32 / bf16 and f8 storage (e4m3fn, e5m2:
+   within one f8 ulp), occupancy and the on-the-fly
    threshold (capacity 0 included), on a 5 x 6 x 4 grid and on a 9 x 6 x 7
    grid with ragged group edges and scaled blocks that the threshold
    filters in part;
@@ -74,7 +75,27 @@ Phases, each raising on failure:
     point with ``--engine auto --tuning-db`` cold (one decision, at most 3
     trials) and warm (no trial, the same engine), both inside phase 11's
     chain gates, and the kernel against its plain version at the default
-    group layout and two smaller ones, each timed.
+    group layout and two smaller ones, each timed;
+15. blocked sparse tensors: ``core.tensor.contract("ijk,kl->ijl", T, B,
+    backend="cuda")`` on a screened three-center tensor (nb 32 and bs 23
+    on every index, occupancy 0.10 decay, f32) against the plain backend
+    and a dense f32 ``torch.einsum``; the kernel on the matricized
+    (529 x 23) x (23 x 23) blocks timed beside its bound, plain version
+    and the einsum;
+16. one MoE layer of deepseek-moe-16b at full width (8 x 256 tokens,
+    bf16) under dense, tp and spgemm (the dispatch cache's backend and
+    capacity): spgemm against dense within 3e-2 with nothing dropped,
+    3 kernel launches, under 4 GiB above the resident weights (the
+    stride-0 expert bank); the kernel at the MoE shape (4 x 2048 times
+    2048 x 1408 blocks) beside its bound and one ``torch.bmm``;
+17. deepseek-moe-16b served at full width and depth (28 layers, 16.88 B
+    bf16 parameters) through ``repro_torch.launch.serve``: 8 requests of
+    256-token prompts + 32 new tokens, under ``--moe-impl spgemm`` (the
+    decode decision names the kernel at capacity 128, launches 3 x 28 x
+    (prefill calls + decode steps), nothing dropped, every request as
+    generated alone; then one prefill round and four decode steps under
+    ``torch.profiler``: device time by kernel group, idle share) and the
+    config's ``tp`` (its drops printed).
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -112,6 +133,10 @@ PEAK_BYTES_S = 3.35e12
 # kernel vs plain / oracle: f32 up to summation order; bf16 one output
 # rounding of unit-scaled blocks (the reference's _DTYPE_TOL)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# f8 storage: the kernel and the plain version round f32 sums that differ
+# in order only, so they agree within one f8 ulp: (mantissa bits, least
+# normal exponent) of each format
+F8 = {"float8_e4m3fn": (3, -6), "float8_e5m2": (2, -14)}
 IDEMPOTENCY_TOL = 1e-3  # max |P^2 - P|, as the reference's own test
 # flash kernel vs plain / oracle: f32 up to summation order; bf16 the
 # kernel's rounding of p to bf16 before P.V (the TPU kernel's), which the
@@ -181,15 +206,35 @@ def _close(got, want, tol: float) -> tuple[bool, float]:
     return ok, float(d.max())
 
 
+def _f8_close(got, want, dtype: str) -> tuple[bool, float]:
+    """Within one f8 ulp of the larger of the two magnitudes (the
+    subnormal spacing below the least normal)."""
+    import torch
+
+    mant, emin = F8[dtype]
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** emin)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - mant)
+    d = (g - w).abs()
+    return bool((d <= ulp).all()), float(d.max()) if d.numel() else 0.0
+
+
 def _bound(ok, bs: int, itemsize: int) -> tuple[float, str]:
-    """Least time for this product list: its f32 FMAs at the f32 peak, or
-    each used operand block read once and each non-empty output tile
-    written once at the memory rate, whichever is larger."""
+    """``_bound_rect`` of square f32 blocks."""
+    return _bound_rect(ok, bs, bs, bs, itemsize, PEAK_F32_FLOPS)
+
+
+def _bound_rect(ok, bs_r: int, bs_k: int, bs_c: int, itemsize: int,
+                peak: float) -> tuple[float, str]:
+    """Least time for a product list: its FMAs at ``peak``, or each used
+    operand block read once and each non-empty output block written once
+    at the memory rate, whichever is larger."""
     n = int(ok.sum())
-    flops = 2.0 * n * bs**3
-    blocks = int(ok.any(2).sum() + ok.any(0).sum() + ok.any(1).sum())
-    t_ops = flops / PEAK_F32_FLOPS
-    t_bytes = blocks * bs * bs * itemsize / PEAK_BYTES_S
+    t_ops = 2.0 * n * bs_r * bs_k * bs_c / peak
+    words = (int(ok.any(2).sum()) * bs_r * bs_k
+             + int(ok.any(0).sum()) * bs_k * bs_c
+             + int(ok.any(1).sum()) * bs_r * bs_c)
+    t_bytes = words * itemsize / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -204,12 +249,13 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
     """Phase 2: kernel against plain version and oracle; returns max err."""
     rng = np.random.default_rng(SEED)
     worst, cases, bad = 0.0, 0, []
+    worst_f8 = dict.fromkeys(F8, 0.0)
     for shape, (ni, nk, nj, scaled) in (
             (shape, grid) for grid in SPGEMM_GRIDS
             for shape in ((4, 4, 4), (8, 8, 8), (23, 23, 23), (64, 64, 64),
                           (128, 128, 128), (4, 16, 8), (30, 7, 25))):
         bs_r, bs_k, bs_c = shape
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16", *F8):
             dt = getattr(torch, dtype)
             for occ in (0.0, 0.05, 0.3, 1.0):
                 for thr in (0.0, 0.05):
@@ -220,10 +266,11 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
                         b *= 10.0 ** rng.uniform(-2, 0, (nk, nj, 1, 1))
                     am = torch.from_numpy(rng.random((ni, nk)) < occ).cuda()
                     bm = torch.from_numpy(rng.random((nk, nj)) < occ).cuda()
-                    ta = torch.from_numpy(a.astype(np.float32)).cuda().to(dt)
-                    tb = torch.from_numpy(b.astype(np.float32)).cuda().to(dt)
-                    ta = ta * am[:, :, None, None].to(dt)
-                    tb = tb * bm[:, :, None, None].to(dt)
+                    # masked in f32, then stored (f8 has no multiply)
+                    ta = (torch.from_numpy(a.astype(np.float32)).cuda()
+                          * am[:, :, None, None]).to(dt)
+                    tb = (torch.from_numpy(b.astype(np.float32)).cuda()
+                          * bm[:, :, None, None]).to(dt)
                     ok = lm.pair_filter(am, B.block_norms(ta), bm,
                                         B.block_norms(tb), thr)
                     n = S.product_count(ok)
@@ -238,15 +285,21 @@ def phase_kernel_vs_plain(torch, np, K, S, ref, lm, B) -> float:
                                                         ni=ni, nj=nj)
                     oracle = ref.block_spgemm_ref(ta, tb, ok)
                     for want in (plain, oracle):
-                        good, err = _close(got, want, TOL[dtype])
-                        worst = max(worst, err)
+                        if dtype in F8:
+                            good, err = _f8_close(got, want, dtype)
+                            worst_f8[dtype] = max(worst_f8[dtype], err)
+                        else:
+                            good, err = _close(got, want, TOL[dtype])
+                            worst = max(worst, err)
                         if not good:
                             bad.append((shape, (ni, nk, nj), dtype, occ, thr,
                                         err))
                     cases += 1
     torch.cuda.synchronize()
     print(f"[2] kernel vs plain and oracle: {cases} cases, max |err| "
-          f"{worst:.3e}, tolerances {TOL}", flush=True)
+          f"{worst:.3e}, tolerances {TOL}; f8 storage max |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst_f8.items())
+          + " (each within one f8 ulp)", flush=True)
     if bad:
         raise AssertionError(f"kernel disagrees: {bad}")
     return worst
@@ -1312,6 +1365,343 @@ def phase_tuner(torch, B, E, TR, K, S, plan, mesh_mod, tuner, purify,
     return total
 
 
+# phase 15: a screened three-center tensor (ij|k) contracted with a (k, l)
+# operand, at H2O-DFT-LS's block size and bench_tensor.py's occupancy; nb
+# cut to 32 because the dense block grid holds all nb^3 bs^3 words (nb 64
+# would take 12.8 GB per operand)
+TENSOR_NB, TENSOR_OCC = 32, 0.10
+# phase 16: one MoE layer of deepseek-moe-16b at full width on 8 x 256
+# tokens; spgemm against dense within the reference's bf16 tolerance, and
+# the memory it may take above the resident weights
+MOE_SHAPE = (8, 256)
+MOE_TOL = 3e-2
+MOE_MEM_LIMIT = 4 * 2**30
+# phase 17: deepseek-moe-16b served at full width and depth, 8 requests of
+# 256-token prompts + 32 new tokens through 8 slots, under spgemm and tp
+MOE_SERVE_ARGV = ["--arch", "deepseek-moe-16b", "--batch", "8",
+                  "--prompt-len", "256", "--max-new", "32", "--max-len",
+                  "320", "--queue", "8", "--seed", str(SEED)]
+
+
+def phase_tensor(torch, K, S, plan, TN) -> dict:
+    """Phase 15: ``contract("ijk,kl->ijl", T, B, backend="cuda")`` on a
+    screened three-center tensor, against the plain backend (TOL) and a
+    dense f32 ``torch.einsum`` of the densified operands; the kernel on the
+    matricized (529 x 23) x (23 x 23) blocks timed beside its bound, its
+    plain version and the einsum."""
+    nb, bs = TENSOR_NB, BS
+    t = TN.random_tensor(SEED, (nb,) * 3, bs, occupancy=TENSOR_OCC,
+                         pattern=PATTERN, device="cuda")
+    b = TN.random_tensor(SEED + 1, (nb, nb), bs, occupancy=0.15,
+                         pattern=PATTERN, device="cuda")
+    plan.clear_cache()
+    K.launches = 0
+    got = TN.contract("ijk,kl->ijl", t, b, backend="cuda")
+    launches = K.launches
+    plain = TN.contract("ijk,kl->ijl", t, b, backend="stacks")
+    good, err = _close(got.blocks, plain.blocks, TOL["float32"])
+    if not (good and torch.equal(got.mask, plain.mask)):
+        raise AssertionError(f"contract cuda vs stacks: max |err| {err}")
+    td, bd = t.to_dense(), b.to_dense()
+    dense = torch.einsum("ijk,kl->ijl", td, bd)
+    good_d, err_d = _close(got.to_dense(), dense, TOL["float32"])
+    if not good_d:
+        raise AssertionError(f"contract vs dense einsum: max |err| {err_d}")
+    if launches != 1:
+        raise AssertionError(f"the contraction launched the kernel "
+                             f"{launches} times, not once")
+    del got, plain, dense
+    ma, mb = TN.matricize(t, (0, 1), (2,)), TN.matricize(b, (0,), (1,))
+    ok = S.pair_cube(ma.mask, mb.mask, ma.norms, mb.norms, 0.0)
+    stacks, n = plan.get_product_stacks(ok)
+    tile = K.kernel_tile(ma.bs_r, mb.bs_c)
+    gm = K.group_masks(stacks, ni=ma.nb_r, nk=ma.nb_c, nj=mb.nb_c,
+                       g_r=tile.g_r, g_c=tile.g_c)
+
+    def kernel():
+        return K.block_spgemm_groups(ma.blocks, mb.blocks, gm, ni=ma.nb_r,
+                                     nj=mb.nb_c)
+
+    ms = _time_ms(kernel, reps=7, warmup=2)
+    plain_ms = _time_ms(lambda: K.block_spgemm_stacks_plain(
+        ma.blocks, mb.blocks, stacks, ni=ma.nb_r, nj=mb.nb_c), reps=3)
+    library_ms = _time_ms(lambda: torch.einsum("ijk,kl->ijl", td, bd),
+                          reps=5)
+    bound_ms, bound_by = _bound_rect(ok, ma.bs_r, ma.bs_c, mb.bs_c, 4,
+                                     PEAK_F32_FLOPS)
+    print(f"[15] contract ijk,kl->ijl: T {nb}^3 blocks of {bs}^3 "
+          f"(occupancy {float(t.occupancy()):.4f}, {PATTERN}), B {nb}^2 "
+          f"(occupancy {float(b.occupancy()):.4f}); matricized "
+          f"({ma.nb_r} x {ma.nb_c}) blocks of {ma.bs_r} x {ma.bs_c} times "
+          f"({mb.nb_r} x {mb.nb_c}) of {mb.bs_r} x {mb.bs_c}, {n} products, "
+          f"group {tile.g_r} x {tile.g_c} x {tile.n_sub_r * tile.n_sub_c} "
+          f"sub-tiles; kernel launches {launches}; max |err| vs stacks "
+          f"{err:.3e}, vs dense einsum {err_d:.3e}", flush=True)
+    print(f"[15] times (ms, median of CUDA events): kernel {ms:.4f}  plain "
+          f"{plain_ms:.4f}  library(torch.einsum dense f32) "
+          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}); kernel "
+          f"{2.0 * n * ma.bs_r * ma.bs_c * mb.bs_c / ms / 1e9:.3f} TFLOP/s",
+          flush=True)
+    del t, b, td, bd, ma, mb, ok, stacks, gm
+    plan.clear_cache()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def phase_moe_layer(torch, K, S, MoE, get_arch, envelope) -> int:
+    """Phase 16: one MoE layer of deepseek-moe-16b at full width (64
+    experts, top-6, d_expert 1408, 2 shared) on 8 x 256 tokens, bf16,
+    under dense, tp and spgemm (the backend and capacity the dispatch
+    cache decides for this call's grid).  spgemm against dense within
+    MOE_TOL with nothing dropped, exactly 3 kernel launches, and under
+    MOE_MEM_LIMIT above the resident weights; then the kernel at the MoE
+    shape against its plain version, its bound and one ``torch.bmm`` over
+    the product list's A blocks grouped by expert."""
+    import dataclasses
+
+    import numpy as np
+
+    base = get_arch("deepseek-moe-16b")
+    e, de = MoE.moe_dims(base)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = MoE.init_moe(base, gen, torch.bfloat16)
+    b, s = MOE_SHAPE
+    x = torch.randn((b, s, base.d_model), generator=gen, device="cuda")
+    x = x.to(torch.bfloat16)
+    cfgs = {impl: dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl=impl)) for impl in ("dense", "tp", "spgemm")}
+    # the dispatch decision for this call's grid, from its own mask
+    logits = x.float() @ p["router"]
+    _, top_e, _ = MoE.router_probs(base.moe, logits)
+    tb = base.moe.token_block
+    mask = MoE.dispatch_block_mask(top_e.reshape(b * s, -1), e, tb)
+    cache = envelope.DispatchCache(np.eye(e, dtype=bool), dtype="bfloat16",
+                                   device="cuda")
+    env, dec = cache.resolve(mask.cpu().numpy())
+    spec = MoE.DispatchSpec(envelope=env, backend=dec["backend"],
+                            stack_capacity=dec["capacity"])
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    out = {}
+    for impl in ("dense", "tp", "spgemm"):
+        K.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with MoE.dispatch_scope(spec if impl == "spgemm" else None):
+            y, _, st = MoE.apply_moe(cfgs[impl], p, x, collect_stats=True)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
+            launches = K.launches
+            ms = _time_ms(lambda: MoE.apply_moe(cfgs[impl], p, x), reps=3)
+        out[impl] = (y, int(st["dropped"]), int(st["routed"]), launches,
+                     peak, ms)
+    yd, ys = out["dense"][0], out["spgemm"][0]
+    good, err = _close(ys, yd, MOE_TOL)
+    ratio = float(((ys.float() - yd.float()).abs()
+                   / (MOE_TOL + MOE_TOL * yd.float().abs())).max())
+    for impl, (_, dropped, routed, launches, peak, ms) in out.items():
+        print(f"[16] {impl}: {ms:.4f} ms per layer, dropped {dropped} of "
+              f"{routed} routed, kernel launches {launches}, peak "
+              f"{peak / 2**30:.3f} GiB above the resident "
+              f"{resident / 2**30:.3f} GiB", flush=True)
+    print(f"[16] deepseek-moe-16b layer, {b} x {s} tokens bf16: dispatch "
+          f"decision backend={dec['backend']} capacity={dec['capacity']} "
+          f"source={dec['source']}, {int(mask.sum())} occupied (block, "
+          f"expert) pairs of {mask.numel()}; spgemm vs dense max |err| "
+          f"{err:.3e}, worst |err| / ({MOE_TOL} + {MOE_TOL} |dense|) "
+          f"{ratio:.4f}", flush=True)
+    _, dropped, _, launches, peak, _ = out["spgemm"]
+    if not good or dropped:
+        raise AssertionError(f"spgemm vs dense: max |err| {err}, dropped "
+                             f"{dropped}")
+    if launches != 3:
+        raise AssertionError(f"spgemm launched the kernel {launches} times,"
+                             " not 3")
+    if peak >= MOE_MEM_LIMIT:
+        raise AssertionError(f"spgemm took {peak / 2**30:.3f} GiB above the "
+                             "weights")
+    del out, yd, ys
+    # the kernel at the MoE shape: A (nb, E) blocks of tb x d times the
+    # aliased w_in bank's (E, E) blocks of d x de
+    xt = x.reshape(b * s, base.d_model)
+    a = MoE._dispatch_bsm(xt, mask, tb)
+    bank = MoE.diag_expert_bsm(p["w_in"])
+    ok = S.pair_cube(a.mask, bank.mask, a.norms, bank.norms, 0.0)
+    n = S.product_count(ok)
+    stacks = S.compact_pair_mask(ok, capacity=S.bucket_capacity(n))
+    tile = K.kernel_tile(tb, de)
+    gm = K.group_masks(stacks, ni=a.nb_r, nk=e, nj=e, g_r=tile.g_r,
+                       g_c=tile.g_c)
+
+    def kernel():
+        return K.block_spgemm_groups(a.blocks, bank.blocks, gm, ni=a.nb_r,
+                                     nj=e)
+
+    def plain():
+        return K.block_spgemm_stacks_plain(a.blocks, bank.blocks, stacks,
+                                           ni=a.nb_r, nj=e)
+
+    good_k, err_k = _close(kernel(), plain(), TOL["bfloat16"])
+    if not good_k:
+        raise AssertionError(f"kernel vs plain at the MoE shape: {err_k}")
+    ms = _time_ms(kernel, reps=5)
+    plain_ms = _time_ms(plain, reps=2)
+    # the library figure: one bmm over the listed A blocks grouped by
+    # expert (padded to the largest group) against the expert weights
+    counts = mask.sum(0)
+    width = int(counts.max())
+    order = torch.argsort((~mask).t().to(torch.int8), dim=1, stable=True)
+    rows = order[:, :width]  # (E, width) token blocks of each expert
+    keep = torch.arange(width, device="cuda")[None, :] < counts[:, None]
+    grouped = (a.blocks[rows, torch.arange(e, device="cuda")[:, None]]
+               * keep[:, :, None, None].to(a.dtype))
+    grouped = grouped.reshape(e, width * tb, base.d_model)
+    library_ms = _time_ms(lambda: torch.bmm(grouped, p["w_in"]), reps=5)
+    bound_ms, bound_by = _bound_rect(ok, tb, base.d_model, de, 2,
+                                     PEAK_BF16_FLOPS)
+    print(f"[16] kernel at the MoE shape ({a.nb_r} x {e}) blocks of {tb} x "
+          f"{base.d_model} times the aliased ({e} x {e}) bank of "
+          f"{base.d_model} x {de}: {n} products, group {tile.g_r} x "
+          f"{tile.g_c}, {tile.n_sub_c} column sub-tiles; kernel vs plain "
+          f"max |err| {err_k:.3e}; times (ms, median of CUDA events): "
+          f"kernel {ms:.4f}  plain {plain_ms:.4f}  library(torch.bmm over "
+          f"A grouped by expert, {width} blocks each) {library_ms:.4f}  "
+          f"bound {bound_ms:.4f} ({bound_by}); kernel "
+          f"{2.0 * n * tb * base.d_model * de / ms / 1e9:.3f} TFLOP/s",
+          flush=True)
+    del p, x, a, bank, ok, stacks, gm, grouped
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _moe_group(name: str) -> str:
+    if "group_kernel" in name:
+        return "block_spgemm"
+    return _kernel_group(name)
+
+
+def _moe_breakdown(torch, T, MoE, engine, prompts, n_decode: int = 4):
+    """Phase 17's device time by kernel group and idle share: one prefill
+    round of the served prompts and ``n_decode`` decode steps under the
+    engine's dispatch spec (synchronised each step, as ``serve`` is)."""
+    import numpy as np
+
+    cfg, n = engine.cfg, engine.batch
+    toks = torch.from_numpy(np.stack(prompts[:n])).to(engine.device,
+                                                      torch.long)
+    cache = T.init_cache(cfg, n, engine.max_len, device=engine.device)
+    box = {}
+
+    def prefill():
+        with MoE.dispatch_scope(engine.dispatch_spec):
+            box["logits"], _ = T.prefill(cfg, engine.params, toks, cache)
+
+    def decode():
+        tok = box["logits"][:, -1].argmax(-1)
+        pos = torch.full((n,), toks.shape[1], device=engine.device)
+        with MoE.dispatch_scope(engine.dispatch_spec):
+            for _ in range(n_decode):
+                logits, _ = T.decode_step(cfg, engine.params, tok[:, None],
+                                          cache, pos)
+                tok = logits[:, -1].argmax(-1)
+                tok.tolist()  # the host reads each step's tokens
+                pos = pos + 1
+
+    names = ("block_spgemm", "flash", "matmul", "other")
+    for name, fn, steps in (("prefill", prefill, 1),
+                            ("decode", decode, n_decode)):
+        wall, groups, n_launches, top = _profile_window(torch, fn, _moe_group,
+                                                        names)
+        busy = sum(groups.values())
+        if busy <= 0:
+            raise AssertionError(f"the profiler saw no device time in {name}")
+        per = ", ".join(f"{k} {v / steps:.4f}" for k, v in groups.items())
+        unit = "round" if steps == 1 else "step"
+        print(f"[17] spgemm {name} ({steps} x): wall {wall / steps:.4f} ms, "
+              f"device busy {busy / steps:.4f} ms, idle share "
+              f"{1.0 - busy / wall:.4f}, {n_launches / steps:.0f} kernels "
+              f"per {unit}; device ms per {unit}: {per}", flush=True)
+        for ms, count, key in top[:4]:
+            print(f"[17]   {ms / steps:9.4f} ms  x{count // steps:<5d} "
+                  f"{key[:90]}", flush=True)
+    del cache, box
+
+
+def phase_moe_serve(torch, K, FA, T, MoE, serve) -> tuple[int, int]:
+    """Phase 17: deepseek-moe-16b at full width and depth (28 layers, 64
+    experts, 16.88 B bf16 parameters from seed 0) served through
+    ``repro_torch.launch.serve`` under ``--moe-impl spgemm`` and then the
+    config's ``tp`` on the same weights.  spgemm: every request gets its
+    tokens in the vocabulary, nothing dropped, the decode decision names
+    the kernel at capacity 128, kernel launches = 3 x layers x (prefill
+    calls + decode steps), and every served request equals the request
+    generated alone; then where spgemm's time goes (``_moe_breakdown``).
+    tp's drops make "as generated alone" untrue by design: its dropped /
+    routed are printed, not gated.  Returns the block-SpGEMM launches of
+    the spgemm run and the flash launches of both runs."""
+    torch.cuda.empty_cache()
+    print(f"[17] memory allocated before the weights: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    argv = MOE_SERVE_ARGV + ["--moe-impl", "spgemm"]
+    built = serve.build(argv)
+    engine = built[2]
+    cfg = built[1]
+    print(f"[17] weights resident: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB", flush=True)
+    K.launches = 0
+    FA.launches = 0
+    st = serve.run(argv, built=built)
+    launches, flash_launches = K.launches, FA.launches
+    want = 3 * cfg.n_layers * (st["prefill_calls"] + st["decode_steps"])
+    dec = st["dispatch"]
+    solo = [engine.generate([q])[0] for q in built[3]]
+    same = [a == b for a, b in zip(st["outputs"], solo)]
+    print(f"[17] spgemm: {st['tokens_per_s']:.3f} tok/s, prefill s "
+          f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
+          f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
+          f" decision capacity={dec['capacity']} backend={dec['backend']} "
+          f"source={dec['source']}; dispatch counters "
+          f"{st['dispatch_counters']}; dropped {st['moe']['dropped']} of "
+          f"{st['moe']['routed']}; kernel launches {launches} (3 x "
+          f"{cfg.n_layers} x ({st['prefill_calls']} prefill + "
+          f"{st['decode_steps']} decode) = {want}), flash launches "
+          f"{flash_launches}; served == generated alone: {sum(same)} of "
+          f"{len(same)}", flush=True)
+    if not st["ok"] or st["moe"]["dropped"]:
+        raise AssertionError("spgemm serving: a request got too few tokens "
+                             "or a token outside the vocabulary, or a "
+                             "choice was dropped")
+    if dec["backend"] != "cuda" or dec["capacity"] != 128:
+        raise AssertionError(f"decode decision {dec}")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    if not all(same):
+        raise AssertionError(f"served requests differ from the requests "
+                             f"generated alone: {same}")
+    _moe_breakdown(torch, T, MoE, engine, built[3])
+    tp_argv = MOE_SERVE_ARGV + ["--moe-impl", "tp"]
+    built_tp = serve.build(tp_argv, params=engine.params)
+    del built, engine
+    K.launches = 0
+    FA.launches = 0
+    st_tp = serve.run(tp_argv, built=built_tp)
+    flash_launches += FA.launches
+    print(f"[17] tp: {st_tp['tokens_per_s']:.3f} tok/s, prefill s "
+          f"{[round(v, 4) for v in st_tp['prefill_s']]}, decode ms median "
+          f"{st_tp['decode_ms_median']:.4f}, peak "
+          f"{st_tp['peak_mem_gib']:.3f} GiB; dropped "
+          f"{st_tp['moe']['dropped']} of {st_tp['moe']['routed']} routed; "
+          f"block_spgemm launches {K.launches}, flash launches "
+          f"{FA.launches}", flush=True)
+    if not st_tp["ok"]:
+        raise AssertionError("tp serving: a request got too few tokens or "
+                             "a token outside the vocabulary")
+    del built_tp
+    torch.cuda.empty_cache()
+    return launches, flash_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1323,11 +1713,13 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.core import bsm as B
     from repro_torch.core import commvolume as CV
+    from repro_torch.core import envelope
     from repro_torch.core import distribute as D
     from repro_torch.core import engine as E
     from repro_torch.core import local_mm as lm
     from repro_torch.core import plan
     from repro_torch.core import signiter as SI
+    from repro_torch.core import tensor as TN
     from repro_torch.core import transport as TR
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_spgemm as K
@@ -1335,6 +1727,7 @@ def main() -> int:
     from repro_torch.kernels import stacks as S
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import purify, serve
+    from repro_torch.models import moe as MoE
     from repro_torch.models import transformer as T
 
     # full f32 in every matmul the checks compare against
@@ -1380,13 +1773,19 @@ def main() -> int:
     tuner_launches = _timed(14, phase_tuner, torch, B, E, TR, K, S, plan,
                             mesh_mod, tuner, purify, single)
     del single
+    tensor = _timed(15, phase_tensor, torch, K, S, plan, TN)
+    moe_launches = _timed(16, phase_moe_layer, torch, K, S, MoE, get_arch,
+                          envelope)
+    serve_launches, serve_flash = _timed(17, phase_moe_serve, torch, K, FA,
+                                         T, MoE, serve)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
         source="src/repro_torch/kernels/csrc/block_spgemm.cu",
         replaces="src/repro/kernels/block_spgemm.py:217",
         launches=(launches + sharded_launches + dbcsr_launches
-                  + tuner_launches),
+                  + tuner_launches + tensor["launches"] + moe_launches
+                  + serve_launches),
         max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -1395,15 +1794,20 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
-        launches=served["flash_launches"], max_abs_err=f["max_abs_err"],
+        launches=served["flash_launches"] + serve_flash,
+        max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[15] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[18] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
-          f"four chains) + {tuner_launches} (phase 14's two tuned chains)",
-          flush=True)
+          f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
+          f"+ {tensor['launches']} (phase 15's contraction) + "
+          f"{moe_launches} (phase 16's MoE layer) + {serve_launches} "
+          f"(phase 17's spgemm serving); flash launches "
+          f"{served['flash_launches']} (phase 7) + {serve_flash} (phase "
+          f"17's two serving runs)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 ``get_arch(name)`` returns the full published config, with the aliases of
 the JAX package's registry.  Only the architectures the port can run are
-registered: the dense attention decoders.  A name the JAX package knows
-but the port cannot run yet raises ``NotImplementedError`` naming the
-ROADMAP item that ports its missing part; an unknown name raises
-``KeyError``, as in the reference.
+registered: the dense attention decoders and the MoE decoders
+(deepseek-moe-16b; llama4-maverick-400b-a17b, whose 397.7 B parameters
+need more than one card at full width).  A name the JAX package knows but
+the port cannot run yet raises ``NotImplementedError`` naming the ROADMAP
+item that ports its missing part; an unknown name raises ``KeyError``, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -18,16 +20,16 @@ ARCH_IDS = (
     "qwen2_72b",
     "olmo_1b",
     "qwen1_5_4b",
+    "deepseek_moe_16b",
+    "llama4_maverick_400b_a17b",
 )
 
 # known to the JAX package, not runnable here yet: what each one lacks
 UNPORTED = {
-    "pixtral_12b": "ROADMAP.md Queue A item 13 (vision prefix)",
-    "llama4_maverick_400b_a17b": "ROADMAP.md Queue A item 13 (MoE)",
-    "deepseek_moe_16b": "ROADMAP.md Queue A item 13 (MoE)",
-    "whisper_large_v3": "ROADMAP.md Queue A item 13 (whisper encoder)",
-    "jamba_v0_1_52b": "ROADMAP.md Queue A item 13 (mamba, MoE)",
-    "rwkv6_7b": "ROADMAP.md Queue A item 13 (rwkv6)",
+    "pixtral_12b": "ROADMAP.md Queue A item 13.5 (vision prefix)",
+    "whisper_large_v3": "ROADMAP.md Queue A item 13.4 (whisper encoder)",
+    "jamba_v0_1_52b": "ROADMAP.md Queue A item 13.2 (mamba)",
+    "rwkv6_7b": "ROADMAP.md Queue A item 13.3 (rwkv6)",
 }
 
 _ALIASES = {

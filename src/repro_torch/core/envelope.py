@@ -34,11 +34,14 @@ repeat it exactly, so its mask is repeated instead of recomputed.  The
 result is identical to propagating all ``sweeps`` sweeps.
 
 ``union_envelope`` is the stream-shaped constructor (no recurrence): the
-union of a family of operand masks and its product cube.
+union of a family of operand masks (serving batches, MoE expert dispatch,
+where no two batches share an exact mask) and its product cube, sound for
+any threshold.
 
-``DispatchCache`` and its helpers (the serving stream's pattern-bucketed
-decision cache) belong to the MoE dispatch slices (ROADMAP.md Queue A
-items 13.1 and 14) and raise here.
+``DispatchCache`` is the serving stream's pattern-bucketed envelope and
+decision cache (the MoE ``spgemm`` impl's dispatch): one union envelope
+per ``tuner.features.mask_bucket``, its decision resolved once per bucket
+and persisted in the bound tuning database.
 """
 from __future__ import annotations
 
@@ -58,10 +61,6 @@ DEFAULT_MARGIN = 0.05
 # norm is a finite float32 (<= ~3.4e38 << _NORM_CAP), and products of two
 # capped bounds stay finite (1e200 < float64 max).
 _NORM_CAP = 1e100
-
-_DISPATCH = ("the serving dispatch cache is the MoE dispatch path: "
-             "ROADMAP.md Queue A items 13.1 and 14")
-
 
 def _frozen(arr: np.ndarray) -> np.ndarray:
     arr = np.ascontiguousarray(arr)
@@ -248,27 +247,171 @@ def union_envelope(masks_a, masks_b=None) -> Envelope:
 
 
 # ---------------------------------------------------------------------------
-# the serving dispatch cache: the MoE dispatch slices', not ported yet
+# DispatchCache: the serving-grade pattern-bucketed decision cache
 # ---------------------------------------------------------------------------
 
 
+@dataclass
 class DispatchBucket:
-    """One warmed request-mix regime of ``DispatchCache`` (items 13.1,
-    14)."""
+    """One warmed request-mix regime: a union envelope plus the decision
+    resolved for it (local backend + stack capacity), and its counters."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_DISPATCH)
+    envelope: Envelope
+    decision: dict
+    hits: int = 0
+    widenings: int = 0
 
 
-def _analytic_dispatch_decision(*args, **kwargs) -> dict:
-    """Backend + capacity for a dispatch envelope (items 13.1, 14)."""
-    raise NotImplementedError(_DISPATCH)
+def _analytic_dispatch_decision(env: Envelope, bs_r: int, bs_k: int,
+                                bs_c: int, dtype: str,
+                                device="cpu") -> dict:
+    """Backend + capacity for a dispatch envelope, from the cost model.
+
+    The same dense / compacted crossover the engine's ``choose_backend``
+    runs on concrete patterns (``local_mm.backend_local_cost``), evaluated
+    once on the envelope's union cube.  The compacted backend is the
+    flavour of ``device``: ``cuda`` (the kernel) on a CUDA device, where
+    the reference names its jnp gather path ``stacks``, and ``stacks`` on
+    the CPU; the dense one is ``dense`` (the reference's ``jnp``).
+    """
+    import torch
+
+    from repro_torch.core.local_mm import backend_local_cost
+
+    dt = getattr(torch, str(dtype))
+    ni, nk, nj = env.cube.shape
+    fill = float(env.cube.mean()) if env.cube.size else 0.0
+    dense = backend_local_cost(ni, nk, nj, bs_r, bs_k, bs_c, fill=1.0,
+                               backend="dense", dtype=dt)
+    compact = backend_local_cost(ni, nk, nj, bs_r, bs_k, bs_c, fill=fill,
+                                 backend="stacks", dtype=dt)
+    if dense <= compact:
+        backend = "dense"
+    else:
+        backend = "cuda" if torch.device(device).type == "cuda" else "stacks"
+    return {"backend": backend, "capacity": env.local_capacity(),
+            "source": "analytic"}
 
 
 class DispatchCache:
-    """Pattern-bucketed envelope/decision cache for serving streams; its
-    buckets are the tuner's feature buckets and its decisions the tuner's
-    database records (items 13.1, 14)."""
+    """Pattern-bucketed envelope / decision cache for serving streams.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_DISPATCH)
+    Every batch routes tokens differently, so no two dispatch masks are
+    equal, but request MIXES are stable for long stretches.  The cache
+    groups masks into the coarse buckets of ``tuner.features.mask_bucket``
+    (log2 shape classes, occupancy deciles, row-load class) and keeps ONE
+    union envelope per bucket:
+
+    * ``resolve(mask)`` on a warmed bucket whose envelope covers the mask
+      is the warm path: the envelope's capacity serves every batch of the
+      mix (``dispatch_hits`` in ``plan.cache_stats()``);
+    * a mask in a NEW bucket warms it (``dispatch_misses``: once per
+      request-mix regime, not per batch);
+    * a mask that escapes its bucket's envelope WIDENS the union and
+      re-resolves the decision (``drift_retunes``).
+
+    The per-bucket decision is resolved once per bucket; with a tuning
+    database bound (``tuner.set_default_db``, the ``--tuning-db`` serving
+    flag) it is persisted under a ``dispatch|`` key with the device that
+    decided it, so a relaunched server warm-starts every mix it has seen.
+    ``device`` names where the multiplies run (CUDA unless the caller
+    names another): it picks the compacted backend's name.
+    """
+
+    def __init__(self, mask_b, *, bs_r: int = 1, bs_k: int = 1,
+                 bs_c: int = 1, dtype: str = "float32",
+                 decision_fn=None, device=None):
+        from repro_torch.config import resolve_device
+
+        self.mask_b = np.asarray(mask_b, bool)
+        self.bs_r, self.bs_k, self.bs_c = int(bs_r), int(bs_k), int(bs_c)
+        self.dtype = str(dtype)
+        self._decision_fn = decision_fn
+        self.device = resolve_device(device)
+        self._buckets: dict[tuple, DispatchBucket] = {}
+
+    # ---- keys ----------------------------------------------------------
+    def bucket_of(self, mask) -> tuple:
+        from repro_torch.tuner.features import mask_bucket
+
+        return mask_bucket(mask, self.bs_r, self.bs_c)
+
+    # ---- decision resolution (once per bucket) -------------------------
+    def _db_key(self, key: tuple) -> str:
+        return "dispatch|" + "|".join(str(p) for p in key)
+
+    def _decide(self, key: tuple, env: Envelope) -> dict:
+        from repro_torch import tuner
+        from repro_torch.tuner.db import device_tag
+
+        if self._decision_fn is not None:
+            return dict(self._decision_fn(env))
+        db = tuner.get_default_db()
+        need = env.local_capacity()
+        tag = device_tag(self.device)
+        if db is not None:
+            rec = db.lookup(self._db_key(key), tag)
+            # a persisted decision is reusable only while its capacity
+            # still covers this envelope (capacities grow with the union)
+            if rec is not None and int(rec.get("capacity", 0)) >= need:
+                return {"backend": rec["backend"],
+                        "capacity": int(rec["capacity"]), "source": "db"}
+        dec = _analytic_dispatch_decision(env, self.bs_r, self.bs_k,
+                                          self.bs_c, self.dtype, self.device)
+        if db is not None:
+            db.record(self._db_key(key), dict(dec, device=tag))
+        return dec
+
+    # ---- the serving-path API ------------------------------------------
+    def warm(self, masks) -> "DispatchCache":
+        """Fold a calibration stream into the buckets (no hit / miss
+        accounting: calibration is not serving traffic)."""
+        for m in masks:
+            self._observe(np.asarray(m, bool), calibration=True)
+        return self
+
+    def resolve(self, mask) -> tuple[Envelope, dict]:
+        """Serving-time lookup: (envelope, decision) for one batch's
+        dispatch mask, with warm / miss / drift accounting."""
+        return self._observe(np.asarray(mask, bool), calibration=False)
+
+    def _observe(self, m: np.ndarray, *, calibration: bool):
+        from repro_torch.core import plan as plan_mod
+
+        key = self.bucket_of(m)
+        bkt = self._buckets.get(key)
+        if bkt is None:
+            env = union_envelope([m], [self.mask_b])
+            bkt = DispatchBucket(envelope=env,
+                                 decision=self._decide(key, env))
+            self._buckets[key] = bkt
+            if not calibration:
+                plan_mod.note_dispatch_lookup(False)
+            return bkt.envelope, bkt.decision
+        if not bkt.envelope.covers(m):
+            # in-bucket drift: widen the union, re-resolve the decision
+            bkt.envelope = union_envelope(
+                [bkt.envelope.mask_a, m], [self.mask_b])
+            bkt.decision = self._decide(key, bkt.envelope)
+            bkt.widenings += 1
+            if not calibration:
+                plan_mod.note_drift_retune()
+            return bkt.envelope, bkt.decision
+        if not calibration:
+            bkt.hits += 1
+            plan_mod.note_dispatch_lookup(True)
+        return bkt.envelope, bkt.decision
+
+    # ---- introspection -------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._buckets)
+
+    def stats(self) -> dict:
+        return {
+            "buckets": len(self._buckets),
+            "hits": sum(b.hits for b in self._buckets.values()),
+            "widenings": sum(b.widenings for b in self._buckets.values()),
+            "capacities": sorted(
+                {int(b.decision["capacity"]) for b in self._buckets.values()}
+            ),
+        }

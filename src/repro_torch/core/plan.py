@@ -32,8 +32,10 @@ The resolution layer, LRU-cached on pattern signatures and counted in
   derived from the PERMUTED pattern (``_permuted_mask_views``).
 * ``get_device_capacity`` — the per-rank product-list bound of a cube.
 * ``get_envelope`` — the forecast pattern envelope of a purification
-  chain (``core/envelope.py``; ``envelope_*``), and ``note_drift_retune``
-  for a pattern that escaped its envelope (``drift_retunes``).
+  chain (``core/envelope.py``; ``envelope_*``), ``note_drift_retune``
+  for a pattern that escaped its envelope (``drift_retunes``), and
+  ``note_dispatch_lookup`` for the serving dispatch cache's bucket
+  lookups (``dispatch_hits`` / ``dispatch_misses``).
 
 ``get_product_stacks`` caches compacted product lists per sparsity-pattern
 signature, so a repeated pattern skips compaction; ``get_chain_program``
@@ -87,6 +89,8 @@ class CacheStats:
     tuner_hits: int = 0  # engine="auto" decisions served without trials
     tuner_misses: int = 0  # decisions that needed the analytic rank / trials
     tuner_trials: int = 0  # candidates the tuner actually timed
+    dispatch_hits: int = 0  # serving-dispatch bucket lookups served warm
+    dispatch_misses: int = 0  # ... that warmed a new bucket
 
 
 _CACHE_MAXSIZE = 128
@@ -383,6 +387,16 @@ def note_drift_retune() -> None:
     concrete pattern escaped its envelope and the multiply ran on
     capacities derived from its own pattern."""
     _stats.drift_retunes += 1
+
+
+def note_dispatch_lookup(hit: bool) -> None:
+    """Count one serving-dispatch bucket lookup (``dispatch_hits`` /
+    ``dispatch_misses``): ``core.envelope.DispatchCache`` resolved a
+    per-batch dispatch mask from a warmed bucket, or warmed a new one."""
+    if hit:
+        _stats.dispatch_hits += 1
+    else:
+        _stats.dispatch_misses += 1
 
 
 # ---------------------------------------------------------------------------

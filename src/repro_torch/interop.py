@@ -4,7 +4,9 @@ Both sides meet at numpy: ``bsm_from_arrays`` builds the port's matrix from
 ``np.asarray`` of each field of the reference's ``BlockSparseMatrix``, and
 ``bsm_to_numpy`` goes the other way; ``params_from_jax`` and
 ``cache_from_jax`` turn the reference LM's parameter and KV-cache pytrees
-(leaves as numpy) into the port's per-layer layout.  No jax import here.
+(leaves as numpy) into the port's per-layer layout — an MoE block's
+``moe`` dict included (``router`` f32; ``w_in``, ``w_gate``, ``w_out`` and
+the fused ``shared_*`` experts in the model dtype).  No jax import here.
 
 JAX's bf16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; they cross as float32 and are cast to

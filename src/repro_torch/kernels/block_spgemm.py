@@ -22,10 +22,18 @@ a small block pair does about 11.5 FMAs per word read, so the design
 reuses each staged block across a group.  The source note in the ``.cu``
 file says more.
 
+Storage dtypes: f32, bf16 and f8 (``float8_e4m3fn``, ``float8_e5m2``), as
+the reference's kernel takes; every element is widened to f32 as it is
+staged, the sum runs in f32 and is cast to the storage dtype once, at
+write-back.  The operands' block grids may have any strides, each block
+row-major and contiguous (``rowmajor_blocks``): a stride-0 view, such as
+the MoE layer's block-diagonal expert bank whose every column aliases one
+expert's weights, is read in place and never materialised.
+
 Beside the kernel, in this module: ``block_spgemm_stacks_plain``, the same
-function in plain PyTorch (gather, f32 ``bmm``, ``index_add_`` — the
-``stacks`` backend's algorithm), chunked so a full 512^3 cube never
-gathers all operands at once.  A wrapper uses the plain version only for
+function in plain PyTorch (gather, upcast, f32 ``bmm``, ``index_add_``,
+cast back — the ``stacks`` backend's algorithm), chunked so a full 512^3
+cube never gathers all operands at once.  A wrapper uses the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``launches`` counts kernel launches, and nothing else.
 """
@@ -50,9 +58,10 @@ launches = 0  # kernel launches since the last reset (a plain counter)
 # (2**28 words = 1 GiB; about 169k products of 23 x 23 blocks)
 PLAIN_CHUNK_WORDS = 2**28
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_F8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
-            if hasattr(torch, n))
+# storage dtypes the kernel takes, by the launcher's code; every one is
+# widened to f32 as it is staged and the f32 sum cast back at write-back
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1,
+               torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
 
 # the kernel's CTA covers a PANEL x PANEL panel of output (16 x 8 threads,
@@ -104,16 +113,21 @@ def _check_operands(a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> None:
     if a_blocks.dtype != b_blocks.dtype:
         raise TypeError(f"operand dtypes differ: {a_blocks.dtype} vs "
                         f"{b_blocks.dtype}")
-    if a_blocks.dtype in _F8:
-        raise NotImplementedError(
-            "f8 (e4m3) block storage is not ported yet: the kernel takes "
-            "float32 and bfloat16 (ROADMAP.md Queue B, f8 leg)")
     if a_blocks.dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported block dtype {a_blocks.dtype}: float32 "
-                        "or bfloat16")
+                        "or bfloat16, or f8 (float8_e4m3fn, float8_e5m2)")
     if a_blocks.device != b_blocks.device:
         raise ValueError(f"operands on different devices: {a_blocks.device}"
                          f" vs {b_blocks.device}")
+
+
+def rowmajor_blocks(t: torch.Tensor) -> bool:
+    """Whether every block of a (n, n, rows, cols) grid is row-major and
+    contiguous: what the kernel needs of an operand, whatever the strides
+    of the grid itself."""
+    rows, cols = t.shape[2:]
+    return (cols == 1 or t.stride(3) == 1) and (rows == 1
+                                                 or t.stride(2) == cols)
 
 
 def _edge(bs: int, micro: int) -> tuple[int, int, int]:
@@ -140,8 +154,8 @@ def validate_tile(bs_r: int, bs_c: int, tile,
             f"a group layout is a (g_r, g_c) integer pair, got {tile!r}"
         ) from e
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes float32 or bfloat16 blocks, "
-                         f"not {dtype}")
+        raise ValueError(f"the kernel takes float32 or bfloat16 blocks, or "
+                         f"f8 (float8_e4m3fn, float8_e5m2), not {dtype}")
     for name, bs, g, micro in (("bs_r", bs_r, g_r, MICRO[0]),
                                ("bs_c", bs_c, g_c, MICRO[1])):
         _, stride, _ = _edge(bs, micro)
@@ -215,7 +229,7 @@ def _launcher():
     fn = _build.load("block_spgemm").block_spgemm_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 13 + [vp]
+        fn.argtypes = [vp] * 5 + [ctypes.c_longlong] * 5 + [i] * 13 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -230,6 +244,10 @@ def block_spgemm_groups(
 ) -> torch.Tensor:
     """Launch the CUDA kernel over prepared group masks (CUDA tensors
     only), in the masks' group layout (``gm.g_r x gm.g_c``).
+
+    The operands' block grids may have any strides (a stride-0 view, such
+    as one block aliased across a grid axis, is read in place); each block
+    must be row-major and contiguous (``rowmajor_blocks``).
 
     The output starts at zero, so blocks without a product stay zero.
     Launches on PyTorch's current stream without synchronising; raises if
@@ -253,6 +271,11 @@ def block_spgemm_groups(
                     ("masks", gm.masks), ("groups", gm.groups)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, operands on {dev}")
+    for name, t in (("a_blocks", a_blocks), ("b_blocks", b_blocks)):
+        if not rowmajor_blocks(t):
+            raise ValueError(f"{name}: each block must be row-major and "
+                             f"contiguous, strides {t.stride()}")
+    for name, t in (("masks", gm.masks), ("groups", gm.groups)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("masks", gm.masks), ("groups", gm.groups)):
@@ -266,7 +289,8 @@ def block_spgemm_groups(
     with torch.cuda.device(dev):
         err = launch(
             a_blocks.data_ptr(), b_blocks.data_ptr(), out.data_ptr(),
-            gm.masks.data_ptr(), gm.groups.data_ptr(), n_active, ni, nk, nj,
+            gm.masks.data_ptr(), gm.groups.data_ptr(), n_active,
+            *a_blocks.stride()[:2], *b_blocks.stride()[:2], ni, nk, nj,
             bs_r, bs_k, bs_c, *tile, _DTYPE_CODE[a_blocks.dtype],
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -276,6 +300,24 @@ def block_spgemm_groups(
                            f" {bs_c}), dtype={a_blocks.dtype})")
     launches += 1
     return out
+
+
+def _gather(blocks: torch.Tensor, i: torch.Tensor,
+            k: torch.Tensor) -> torch.Tensor:
+    """``blocks[i, k]`` widened to f32.  1-byte floats are gathered as
+    their bytes, since not every device indexes float8 tensors."""
+    if blocks.element_size() == 1:
+        return blocks.view(torch.uint8)[i, k].view(blocks.dtype).float()
+    return blocks[i, k].float()
+
+
+def _zero_blocks(c: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Zero the (ni, nj) blocks of ``c`` where ``keep`` is False, in place
+    (1-byte floats through their bytes: +0.0 is the zero byte in both f8
+    formats)."""
+    raw = c.view(torch.uint8) if c.element_size() == 1 else c
+    raw.masked_fill_(~keep[:, :, None, None], 0)
+    return c
 
 
 def block_spgemm_stacks_plain(
@@ -308,7 +350,7 @@ def block_spgemm_stacks_plain(
         ia = stacks.ia[s:s + chunk].long()
         ik = stacks.ik[s:s + chunk].long()
         ij = stacks.ij[s:s + chunk].long()
-        prod = torch.bmm(a_blocks[ia, ik].float(), b_blocks[ik, ij].float())
+        prod = torch.bmm(_gather(a_blocks, ia, ik), _gather(b_blocks, ik, ij))
         prod *= stacks.valid[s:s + chunk].float()[:, None, None]
         c.index_add_(0, seg[s:s + chunk], prod)
     return c[: ni * nj].reshape(ni, nj, bs_r, bs_c).to(dtype)
@@ -339,8 +381,9 @@ def block_spgemm_stacks(
     nk, bs_r = a_blocks.shape[1], a_blocks.shape[2]
     tile = kernel_tile(bs_r, b_blocks.shape[3], group=group)
     gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r, g_c=tile.g_c)
-    return block_spgemm_groups(a_blocks.contiguous(), b_blocks.contiguous(),
-                               gm, ni=ni, nj=nj)
+    a_blocks, b_blocks = (t if rowmajor_blocks(t) else t.contiguous()
+                          for t in (a_blocks, b_blocks))
+    return block_spgemm_groups(a_blocks, b_blocks, gm, ni=ni, nj=nj)
 
 
 def block_spgemm(
@@ -373,4 +416,4 @@ def block_spgemm(
                             group=group)
     c_mask = pair_ok.to(torch.bool).any(dim=1)
     # in place: c is this call's own fresh output
-    return c.masked_fill_(~c_mask[:, :, None, None], 0)
+    return _zero_blocks(c, c_mask)

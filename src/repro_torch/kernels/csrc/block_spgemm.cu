@@ -44,21 +44,27 @@
 // blocks) through two buffers: the next stage's copies are started before
 // this stage's FMAs.  f32 blocks go by 4-byte cp.async: a 23 x 23 block is
 // 2,116 contiguous bytes, read coalesced, but its base is a multiple of 2,116
-// B, not 16, so 16-byte cp.async and TMA do not apply.  bf16 blocks are
-// widened to f32 as they are staged, with plain loads.  The 4-byte copies
-// and the operand reads go through the same shared-memory (MIO) pipe: at
-// full fill, builds without the copies and without the FMAs took times
-// that add up to the whole kernel's, so the double buffer hides latency
-// but the two do not overlap.
+// B, not 16, so 16-byte cp.async and TMA do not apply.  bf16 and f8
+// (e4m3fn, e5m2) blocks are widened to f32 as they are staged, with plain
+// loads, and the f32 sum is rounded to the storage dtype once, at
+// write-back (f8: to nearest even, unsaturated, as PyTorch casts).  The
+// 4-byte copies and the operand reads go through the same shared-memory
+// (MIO) pipe: at full fill, builds without the copies and without the FMAs
+// took times that add up to the whole kernel's, so the double buffer hides
+// latency but the two do not overlap.
 //
 // Left for later: copies that bypass the shared-memory pipe (a bulk copy
 // of each block's 16-byte-aligned hull, then compute from that layout), a
-// wgmma leg for bf16 blocks (padded to the tensor-core tile), 3xTF32
-// splitting for f32, the f8 leg, and a persistent grid.
+// wgmma leg for bf16 and f8 blocks (padded to the tensor-core tile),
+// 3xTF32 splitting for f32, and a persistent grid.
 //
+// Operand layout.  Each block is row-major and contiguous; the block grids
+// of A and B may have any strides (in elements), so a stride-0 view that
+// aliases one block across a grid axis is read in place.  C is contiguous.
 // Offsets are computed in 64 bits: ia * nk * bs_r * bs_k passes 2^31 once
 // nb * bs grows past about 46k.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +93,12 @@ __device__ __forceinline__ void stage_copy(float* dst, const float* src) {
 __device__ __forceinline__ void stage_copy(float* dst, const __nv_bfloat16* src) {
   *dst = __bfloat162float(*src);
 }
+__device__ __forceinline__ void stage_copy(float* dst, const __nv_fp8_e4m3* src) {
+  *dst = static_cast<float>(*src);
+}
+__device__ __forceinline__ void stage_copy(float* dst, const __nv_fp8_e5m2* src) {
+  *dst = static_cast<float>(*src);
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -96,6 +108,12 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_out(__nv_fp8_e4m3* p, float v) {
+  p->__x = __nv_cvt_float_to_fp8(v, __NV_NOSAT, __NV_E4M3);
+}
+__device__ __forceinline__ void store_out(__nv_fp8_e5m2* p, float v) {
+  p->__x = __nv_cvt_float_to_fp8(v, __NV_NOSAT, __NV_E5M2);
+}
 
 // compact the non-zero masks of gm[kb .. kb + cnt) into (ek, em), k ascending;
 // returns their number
@@ -137,7 +155,8 @@ struct Walk {
 template <typename T>
 __global__ void __launch_bounds__(NT, 4) group_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-    const int* __restrict__ masks, const int* __restrict__ groups, int ni, int nk,
+    const int* __restrict__ masks, const int* __restrict__ groups, int64_t sa_i,
+    int64_t sa_k, int64_t sb_k, int64_t sb_j, int ni, int nk,
     int nj, int bs_r, int bs_k, int bs_c, int g_r, int g_c, int sr, int sc,
     int n_sub_c) {
   __shared__ __align__(16) float st[NBUF][STAGE];
@@ -179,7 +198,7 @@ __global__ void __launch_bounds__(NT, 4) group_kernel(
     float* bsm = as + TK * LDA;
     for (int i = 0; i < g_r; ++i) {
       if (((m >> (i * g_c)) & row_bits) == 0) continue;  // no product in this block row
-      const T* src = a + (((int64_t)gi * g_r + i) * nk + k) * bs_r * bs_k +
+      const T* src = a + ((int64_t)gi * g_r + i) * sa_i + (int64_t)k * sa_k +
                      (int64_t)row0 * bs_k + k0;
       float* dst = as + i * sr;
       for (int r = wa.r0, kk = wa.c0; r < nr;) {
@@ -194,7 +213,7 @@ __global__ void __launch_bounds__(NT, 4) group_kernel(
     }
     for (int j = 0; j < g_c; ++j) {
       if (((m >> j) & col_bits) == 0) continue;  // no product in this block column
-      const T* src = b + ((int64_t)k * nj + (int64_t)gj * g_c + j) * bs_k * bs_c +
+      const T* src = b + (int64_t)k * sb_k + ((int64_t)gj * g_c + j) * sb_j +
                      (int64_t)k0 * bs_c + col0;
       float* dst = bsm + j * sc;
       for (int kk = wb.r0, cc = wb.c0; kk < kc;) {
@@ -276,19 +295,38 @@ __global__ void __launch_bounds__(NT, 4) group_kernel(
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  masks: (n_groups, nk) int32, bit
-// (i % g_r) * g_c + j % g_c of group (i / g_r) * n_gc + j / g_c at k set for
-// each surviving product; groups: the n_active groups with one.  g_r / g_c:
-// blocks per group, stride_r / stride_c: panel rows / cols per block (a
-// multiple of 6), n_sub_r / n_sub_c: 96-wide sub-tiles per block (blocks
-// above 96), all as chosen by kernels/block_spgemm.py::kernel_tile.  Returns
-// cudaGetLastError() after the launch; a refused shape returns
+// dtype: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 = float8_e5m2.
+// sa_i, sa_k / sb_k, sb_j: the strides of A's / B's block grids in elements
+// (each block row-major and contiguous; C contiguous).  masks: (n_groups, nk)
+// int32, bit (i % g_r) * g_c + j % g_c of group (i / g_r) * n_gc + j / g_c at
+// k set for each surviving product; groups: the n_active groups with one.
+// g_r / g_c: blocks per group, stride_r / stride_c: panel rows / cols per
+// block (a multiple of 6), n_sub_r / n_sub_c: 96-wide sub-tiles per block
+// (blocks above 96), all as chosen by kernels/block_spgemm.py::kernel_tile.
+// Returns cudaGetLastError() after the launch; a refused shape returns
 // cudaErrorInvalidValue without launching.
+namespace {
+struct Args {
+  int64_t sa_i, sa_k, sb_k, sb_j;
+  int ni, nk, nj, bs_r, bs_k, bs_c, g_r, g_c, stride_r, stride_c, n_sub_c;
+};
+
+template <typename T>
+void launch_as(const void* a, const void* b, void* c, const int* m, const int* gr,
+               dim3 grid, cudaStream_t s, const Args& x) {
+  group_kernel<T><<<grid, NT, 0, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c), m, gr,
+      x.sa_i, x.sa_k, x.sb_k, x.sb_j, x.ni, x.nk, x.nj, x.bs_r, x.bs_k, x.bs_c, x.g_r,
+      x.g_c, x.stride_r, x.stride_c, x.n_sub_c);
+}
+}  // namespace
+
 extern "C" int block_spgemm_launch(const void* a, const void* b, void* c,
                                    const void* masks, const void* groups,
-                                   long long n_active, int ni, int nk, int nj,
-                                   int bs_r, int bs_k, int bs_c, int g_r, int g_c,
-                                   int stride_r, int stride_c, int n_sub_r,
+                                   long long n_active, long long sa_i, long long sa_k,
+                                   long long sb_k, long long sb_j, int ni, int nk,
+                                   int nj, int bs_r, int bs_k, int bs_c, int g_r,
+                                   int g_c, int stride_r, int stride_c, int n_sub_r,
                                    int n_sub_c, int dtype, void* stream) {
   auto edge_ok = [](int bs, int g, int stride, int n_sub, int micro) {
     if (g < 1 || stride < micro || stride % micro != 0 || g * stride > PANEL) return false;
@@ -296,23 +334,22 @@ extern "C" int block_spgemm_launch(const void* a, const void* b, void* c,
     return stride >= bs && n_sub == 1;
   };
   if (n_active <= 0 || n_active > 0x7fffffffLL || ni <= 0 || nk <= 0 || nj <= 0 ||
-      bs_k <= 0 || !edge_ok(bs_r, g_r, stride_r, n_sub_r, RM) ||
+      bs_k <= 0 || sa_i < 0 || sa_k < 0 || sb_k < 0 || sb_j < 0 ||
+      !edge_ok(bs_r, g_r, stride_r, n_sub_r, RM) ||
       !edge_ok(bs_c, g_c, stride_c, n_sub_c, RC) || g_r * g_c > MAX_BITS ||
-      n_sub_r * n_sub_c > 65535 || (dtype != 0 && dtype != 1))
+      n_sub_r * n_sub_c > 65535 || dtype < 0 || dtype > 3)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)n_active, (unsigned)(n_sub_r * n_sub_c));
   const int* m = static_cast<const int*>(masks);
   const int* gr = static_cast<const int*>(groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    group_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), m, gr, ni, nk, nj, bs_r, bs_k, bs_c, g_r, g_c,
-        stride_r, stride_c, n_sub_c);
-  else
-    group_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(c), m, gr, ni, nk, nj, bs_r, bs_k, bs_c, g_r,
-        g_c, stride_r, stride_c, n_sub_c);
+  const Args x{sa_i, sa_k, sb_k, sb_j, ni, nk, nj, bs_r, bs_k, bs_c,
+               g_r, g_c, stride_r, stride_c, n_sub_c};
+  switch (dtype) {
+    case 0: launch_as<float>(a, b, c, m, gr, grid, s, x); break;
+    case 1: launch_as<__nv_bfloat16>(a, b, c, m, gr, grid, s, x); break;
+    case 2: launch_as<__nv_fp8_e4m3>(a, b, c, m, gr, grid, s, x); break;
+    default: launch_as<__nv_fp8_e5m2>(a, b, c, m, gr, grid, s, x); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -7,12 +7,22 @@ device), runs synthetic prompts through the ``ServingEngine`` (one static
 ``generate`` round, or ``--queue N`` requests drained through continuous
 slot batching) and reports: wall seconds, prefill seconds per round,
 per-step decode times, tokens, tokens/s, requests, refills, launches of
-the flash-attention kernel, and peak device memory on CUDA.  Runs on CUDA
-unless ``--device cpu`` is given, and raises without a CUDA device.  Exits
-1 when a request got a token outside the vocabulary or too few tokens.
+the flash-attention and block-SpGEMM kernels, and peak device memory on
+CUDA.  Runs on CUDA unless ``--device cpu`` is given, and raises without a
+CUDA device.  Exits 1 when a request got a token outside the vocabulary or
+too few tokens.
 
-The reference's ``--moe-impl`` and ``--tuning-db`` (MoE serving dispatch)
-are not offered yet (ROADMAP.md Queue A item 14).
+MoE archs: ``--moe-impl`` overrides ``cfg.moe.impl`` (``spgemm`` routes
+the expert matmuls through ``engine.multiply``, on a card the
+block-SpGEMM kernel, under a covering decode envelope resolved through
+``core.envelope.DispatchCache``; the decision is printed as
+``capacity=``, ``backend=``, ``source=``).  ``--tuning-db PATH`` binds the
+tuning database, so the dispatch decision persists across launches
+(``source=db`` on a warm file).  The report adds the routed and dropped
+(token, choice) pairs and the ``dispatch_*`` counters.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --arch deepseek-moe-16b --moe-impl spgemm
 """
 from __future__ import annotations
 
@@ -38,13 +48,43 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch path)")
+    ap.add_argument("--moe-impl", default=None,
+                    help="override cfg.moe.impl (dense | tp | ep | spgemm) "
+                    "for MoE archs")
+    ap.add_argument("--tuning-db", default=None,
+                    help="tuning database path (created if missing); "
+                    "omitted = analytic dispatch decisions only")
     return ap
 
 
-def build(argv=None):
+def _dispatch_spec(cfg, batch: int, device):
+    """Covering decode-grid dispatch spec, resolved through the bucket
+    cache (the decision from the bound tuning database when one is set);
+    returns (spec, decision)."""
+    import numpy as np
+
+    from repro_torch.core.envelope import DispatchCache
+    from repro_torch.models.moe import DispatchSpec, moe_dims
+
+    e, _ = moe_dims(cfg)
+    tb = cfg.moe.token_block
+    nb = (batch + tb - 1) // tb
+    # covers every routing of the decode grid, so no request is clipped
+    full = np.ones((nb, e), bool)
+    cache = DispatchCache(np.eye(e, dtype=bool), dtype=cfg.dtype,
+                          device=device)
+    env, dec = cache.resolve(full)
+    return DispatchSpec(envelope=env, backend=dec["backend"],
+                        stack_capacity=dec["capacity"]), dec
+
+
+def build(argv=None, *, params=None):
     """(args, cfg, engine, prompts) for the given flags: the model drawn on
-    the device from ``--seed``, and the prompts from a numpy generator with
-    the same seed."""
+    the device from ``--seed`` (or ``params``, already drawn for the same
+    arch, served as they are), and the prompts from a numpy generator
+    with the same seed."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.config import resolve_device
@@ -54,10 +94,22 @@ def build(argv=None):
 
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
+    if args.tuning_db:
+        from repro_torch import tuner
+        from repro_torch.core import plan as plan_mod
+
+        plan_mod.clear_cache()
+        tuner.set_default_db(args.tuning_db)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = T.init_params(cfg, args.seed, device=dev)
+    if args.moe_impl:
+        if cfg.moe is None:
+            raise SystemExit(f"--moe-impl: arch {args.arch} has no MoE")
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, impl=args.moe_impl))
+    if params is None:
+        params = T.init_params(cfg, args.seed, device=dev)
     gen = GenerationConfig(max_new_tokens=args.max_new,
                            temperature=args.temperature, seed=args.seed)
     engine = ServingEngine(cfg, params, batch=args.batch,
@@ -69,14 +121,28 @@ def build(argv=None):
     return args, cfg, engine, prompts
 
 
-def run(argv=None) -> dict:
-    """Serve the synthetic requests and return the report (also printed)."""
+def run(argv=None, *, built=None) -> dict:
+    """Serve the synthetic requests and return the report (also printed).
+    ``built`` — ``build(argv)``'s tuple, to serve a model already built.
+    An MoE spgemm engine gets its dispatch spec here, and keeps it."""
     import torch
 
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import block_spgemm as spgemm
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import moe as MoE
 
-    args, cfg, engine, prompts = build(argv)
+    args, cfg, engine, prompts = build(argv) if built is None else built
     dev = engine.device
+    counters = ("dispatch_hits", "dispatch_misses", "drift_retunes")
+    stats0 = plan_mod.cache_stats()
+    decision = None
+    if cfg.moe is not None and cfg.moe.impl == "spgemm":
+        spec, decision = _dispatch_spec(cfg, args.batch, dev)
+        engine.set_dispatch(spec)
+        print(f"[serve] spgemm dispatch: capacity={spec.stack_capacity} "
+              f"backend={spec.backend} source={decision['source']}",
+              flush=True)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads (hd {cfg.hd}), {cfg.dtype}, "
@@ -86,7 +152,8 @@ def run(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    launches0 = flash.launches
+    launches0, spgemm0 = flash.launches, spgemm.launches
+    MoE.reset_drop_counts()
     t0 = time.perf_counter()
     if args.queue > 0:
         outs = engine.serve(prompts)
@@ -114,6 +181,13 @@ def run(argv=None) -> dict:
         decode_ms_median=(1e3 * statistics.median(decode_s)
                           if decode_s else None),
         refills=n_refills, flash_launches=flash.launches - launches0,
+        spgemm_launches=spgemm.launches - spgemm0,
+        prefill_calls=len(prefill_s), decode_steps=len(decode_s),
+        dispatch=decision,
+        moe=MoE.drop_counts() if cfg.moe is not None else None,
+        # this launch's, its own dispatch resolution included
+        dispatch_counters={k: plan_mod.cache_stats()[k] - stats0[k]
+                           for k in counters},
         peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
                       if dev.type == "cuda" else None),
         outputs=outs,
@@ -123,8 +197,20 @@ def run(argv=None) -> dict:
           f"{wall:.3f} s ({n_tokens / wall:.1f} tok/s), refills "
           f"{n_refills}, prefill s per round [{pf}], decode ms/step median "
           f"{report['decode_ms_median']}, flash launches "
-          f"{report['flash_launches']}, peak memory "
+          f"{report['flash_launches']}, block_spgemm launches "
+          f"{report['spgemm_launches']}, peak memory "
           f"{report['peak_mem_gib']} GiB", flush=True)
+    if cfg.moe is not None:
+        print(f"[serve] moe impl {cfg.moe.impl}: dropped "
+              f"{report['moe']['dropped']} of {report['moe']['routed']} "
+              f"routed (token, choice) pairs; dispatch counters "
+              f"{report['dispatch_counters']}", flush=True)
+    if args.tuning_db:
+        from repro_torch import tuner
+
+        db = tuner.get_default_db()
+        print(f"[serve] tuning db: {len(db)} record(s) at {db.path}",
+              flush=True)
     for i, o in enumerate(outs[: min(4, len(outs))]):
         print(f"[serve] req{i}: {o[:12]}{'...' if len(o) > 12 else ''}")
     if not ok:

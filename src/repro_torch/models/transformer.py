@@ -1,8 +1,10 @@
-"""The LM stack for dense attention decoders: init, prefill, decode.
+"""The LM stack for attention decoders: init, prefill, decode.
 
 The torch twin of ``repro/models/transformer.py`` for its attention mixers
 with dense MLPs (olmo, qwen, gemma2: ``post_norm``, ``qkv_bias``, sliding
-``window``, ``attn_softcap``, ``final_softcap``).  The reference stacks each
+``window``, ``attn_softcap``, ``final_softcap``) and MoE blocks
+(deepseek-moe, llama4: ``models/moe.py``, every ``layer_period``-th layer;
+``forward`` returns their load-balance loss).  The reference stacks each
 pattern position's blocks over the repetitions and scans them; PyTorch
 runs eagerly, so here ``params["blocks"]`` is a plain list with one dict
 per layer, in layer order (layer ``l`` has kind ``layer_kinds()[l %
@@ -13,9 +15,9 @@ The cache is updated in place (``prefill`` and ``decode_step`` return the
 same dict they were given), where the reference returns a new pytree: it
 saves a copy of every layer's K/V per step.
 
-Not ported yet, each raising ``NotImplementedError``: MoE layers, mamba
-and rwkv6 mixers, the whisper encoder and the vision prefix (ROADMAP.md
-Queue A item 13), and the training loss (item 15).
+Not ported yet, each raising ``NotImplementedError``: mamba and rwkv6
+mixers, the whisper encoder and the vision prefix (ROADMAP.md Queue A
+items 13.2-13.5), and the training loss (item 15).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch.config import ArchConfig, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 
 Params = dict[str, Any]
 
@@ -36,8 +39,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for the parts of ``cfg`` the port has
     no code for yet, naming the ROADMAP item that ports them."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE")
     if cfg.mixer == "mamba_hybrid":
         missing.append("mamba")
     if cfg.mixer == "rwkv6":
@@ -51,7 +52,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
-            "Queue A item 13)")
+            "Queue A items 13.2-13.5)")
     if cfg.dtype not in _DTYPES:
         raise TypeError(f"{cfg.name}: dtype {cfg.dtype!r}, expected one of "
                         f"{sorted(_DTYPES)}")
@@ -72,14 +73,18 @@ def layer_kinds(cfg: ArchConfig) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+def _init_block(cfg: ArchConfig, kind: dict, gen: torch.Generator,
+                dtype) -> Params:
     dev = gen.device
     p: Params = {"ln1": L.init_norm(cfg, cfg.d_model, device=dev),
                  "attn": A.init_attention(cfg, gen, dtype)}
     if cfg.post_norm:
         p["post_ln1"] = L.init_norm(cfg, cfg.d_model, device=dev)
     p["ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
-    p["mlp"] = L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype)
+    if kind["moe"]:
+        p["moe"] = MoE.init_moe(cfg, gen, dtype)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype)
     if cfg.post_norm:
         p["post_ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
     return p
@@ -102,7 +107,8 @@ def init_params(cfg: ArchConfig, generator, *, device=None) -> Params:
     dtype = model_dtype(cfg)
     return {
         "embed": L.init_embed(cfg, gen, dtype),
-        "blocks": [_init_block(cfg, gen, dtype) for _ in range(cfg.n_layers)],
+        "blocks": [_init_block(cfg, kind, gen, dtype)
+                   for kind in layer_kinds(cfg)],
         "final_norm": L.init_norm(cfg, cfg.d_model, device=dev),
     }
 
@@ -156,6 +162,18 @@ def _update_kv(cache_k, cache_v, k, v, position) -> None:
     cache_v[bidx, :, pos, :] = v[:, :, 0, :]
 
 
+def _ffn_res(cfg, kind, p, x):
+    """The block's second residual: MoE (with its aux loss) or the dense
+    MLP (aux None)."""
+    if not kind["moe"]:
+        return _norm_res(cfg, p, "ln2", "post_ln2", x,
+                         lambda xn: L.apply_mlp(cfg, p["mlp"], xn)), None
+    y, aux = MoE.apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], x))
+    if cfg.post_norm:
+        y = L.apply_norm(cfg, p["post_ln2"], y)
+    return x + y, aux
+
+
 def _prefill_block(cfg, kind, p, x, cache, positions):
     xn = L.apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_proj(cfg, p["attn"], xn, positions)
@@ -167,8 +185,7 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["post_ln1"], y)
     x = x + y
-    return _norm_res(cfg, p, "ln2", "post_ln2", x,
-                     lambda xn: L.apply_mlp(cfg, p["mlp"], xn))
+    return _ffn_res(cfg, kind, p, x)
 
 
 def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
@@ -183,8 +200,7 @@ def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["post_ln1"], y)
     x = x + y
-    return _norm_res(cfg, p, "ln2", "post_ln2", x,
-                     lambda xn: L.apply_mlp(cfg, p["mlp"], xn))
+    return _ffn_res(cfg, kind, p, x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -193,28 +209,32 @@ def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
 
 
 def _run_blocks(cfg, params, tokens, cache):
+    """(final hidden, summed MoE aux loss in f32) of a prefill pass."""
     x = L.embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     caches = cache["blocks"] if cache is not None else [None] * cfg.n_layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["blocks"], caches):
-        x = _prefill_block(cfg, kind, p, x, c, positions)
-    return L.apply_norm(cfg, params["final_norm"], x)
+        x, a = _prefill_block(cfg, kind, p, x, c, positions)
+        if a is not None:
+            aux = aux + a
+    return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def forward(cfg: ArchConfig, params: Params,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward over (B, S) tokens: (final hidden (B, S, d), MoE aux
-    loss — zero, since the port has no MoE layers yet)."""
+    """Prefill forward over (B, S) tokens: (final hidden (B, S, d), the
+    MoE load-balance loss summed over the MoE layers, f32; zero without
+    them)."""
     check_supported(cfg)
-    x = _run_blocks(cfg, params, tokens, None)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _run_blocks(cfg, params, tokens, None)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             cache: Params) -> tuple[torch.Tensor, Params]:
     """Run the prompt, write its K/V into the cache at [0, S), return the
     last position's logits (B, 1, V) and the (updated) cache."""
-    x = _run_blocks(cfg, params, tokens, cache)
+    x, _ = _run_blocks(cfg, params, tokens, cache)
     logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
     return logits, cache
 

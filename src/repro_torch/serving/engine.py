@@ -22,8 +22,16 @@ so a refill prefills only the refilled slots' prompts and copies their
 rows into the live cache: the same rows, with no work on the others.
 
 Every prefill goes through ``models.attention.chunked_attention``, so on a
-CUDA device through the flash kernel.  Serving dispatch for MoE
-(``set_dispatch``) is not ported yet.
+CUDA device through the flash kernel.
+
+Serving dispatch (DESIGN.md §11): ``set_dispatch`` installs a
+``models.moe.DispatchSpec`` — a warmed pattern envelope plus the decision
+resolved for its bucket — and every prefill and decode step runs under
+``dispatch_scope`` with it, so the MoE ``spgemm`` impl takes the spec's
+backend and capacity (on a card, the block-SpGEMM kernel).  PyTorch has
+no jitted programs to cache per spec; ``_spec_key`` keeps the reference's
+key (envelope signature, backend, capacity), and ``last_serve_stats``
+records the key that served a round.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.models import moe as MoE
 from repro_torch.models import transformer as T
 
 
@@ -76,14 +85,37 @@ class ServingEngine:
         self.gen = gen
         self.device = params["embed"]["tok"].device
         self._gen = torch.Generator(device=self.device).manual_seed(gen.seed)
+        self._dispatch: MoE.DispatchSpec | None = None
         self.last_serve_stats: dict = {}
 
-    def set_dispatch(self, spec) -> None:
-        """The MoE ``spgemm`` dispatch spec of the reference; the port has
-        no MoE layers yet."""
-        raise NotImplementedError(
-            "serving dispatch for the MoE spgemm impl is not ported yet "
-            "(ROADMAP.md Queue A item 14)")
+    # -- dispatch spec (serving path, DESIGN.md §11) -----------------------
+    def set_dispatch(self, spec: MoE.DispatchSpec | None) -> None:
+        """Install the ambient dispatch decision for the MoE spgemm impl
+        (None: the impl's cold path)."""
+        self._dispatch = spec
+
+    @property
+    def dispatch_spec(self) -> MoE.DispatchSpec | None:
+        """The installed dispatch decision (None: the impl's cold path)."""
+        return self._dispatch
+
+    def _spec_key(self) -> tuple:
+        """The reference's program key of the installed spec: (envelope
+        signature, backend, capacity), or (None,) without one."""
+        s = self._dispatch
+        if s is None:
+            return (None,)
+        sig = s.envelope.signature if s.envelope is not None else None
+        return (sig, s.backend, s.stack_capacity)
+
+    def _prefill(self, toks: torch.Tensor, cache):
+        with MoE.dispatch_scope(self._dispatch):
+            return T.prefill(self.cfg, self.params, toks, cache)
+
+    def _decode(self, toks: torch.Tensor, cache, position):
+        with MoE.dispatch_scope(self._dispatch):
+            return T.decode_step(self.cfg, self.params, toks, cache,
+                                 position)
 
     # -- sampling ----------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -108,8 +140,7 @@ class ServingEngine:
 
         cache = T.init_cache(self.cfg, self.batch, self.max_len,
                              device=self.device)
-        logits, cache = T.prefill(self.cfg, self.params, self._tokens(toks),
-                                  cache)
+        logits, cache = self._prefill(self._tokens(toks), cache)
         next_tok = self._sample(logits)
 
         outs: list[list[int]] = [[] for _ in range(self.batch)]
@@ -123,8 +154,7 @@ class ServingEngine:
                         done[i] = True
             if done[: len(prompts)].all():
                 break
-            logits, cache = T.decode_step(self.cfg, self.params,
-                                          next_tok[:, None], cache, position)
+            logits, cache = self._decode(next_tok[:, None], cache, position)
             next_tok = self._sample(logits)
             position += 1
         return outs[: len(prompts)]
@@ -155,8 +185,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         fresh = T.init_cache(self.cfg, len(slots), self.max_len,
                              device=self.device)
-        logits, fresh = T.prefill(self.cfg, self.params,
-                                  self._tokens(np.stack(rows)), fresh)
+        logits, fresh = self._prefill(self._tokens(np.stack(rows)), fresh)
         first = self._sample(logits)
         idx = torch.tensor(slots, device=self.device)
         for live, new in zip(cache["blocks"], fresh["blocks"]):
@@ -219,8 +248,7 @@ class ServingEngine:
                 step = max(step + 1, queue[0].arrival if queue else step + 1)
                 continue
             t1 = time.perf_counter()
-            logits, cache = T.decode_step(self.cfg, self.params,
-                                          next_tok[:, None], cache, pos_dev)
+            logits, cache = self._decode(next_tok[:, None], cache, pos_dev)
             sampled = self._sample(logits)
             host_prev = next_tok.tolist()  # waits for the device
             _sync(self.device)
@@ -250,5 +278,6 @@ class ServingEngine:
             "prefills": prefills,
             "n_refills": n_refills,
             "n_requests": len(prompts),
+            "spec_key": self._spec_key(),
         }
         return [results[i] for i in range(len(prompts))]

@@ -22,8 +22,8 @@ Masks are drawn from ``np.random.default_rng(seed)``: ``make_mask`` and
 given the key's two data words they draw the reference's masks bit for
 bit.  ``CorpusEntry`` derives its seeds from ``seed`` alone (``(seed, 0)``
 for A's mask, ``(seed, 1)`` for B's) and its block values from a
-``torch.Generator``; the tensor build of ``three_center`` waits for
-``core/tensor.py`` (ROADMAP.md Queue A item 12).
+``torch.Generator``; ``three_center`` entries build a 3-index
+``core.tensor.BlockSparseTensor`` and its matricized view.
 """
 from __future__ import annotations
 
@@ -38,10 +38,6 @@ from repro_torch.core import bsm as B
 # CorpusEntry level (its A mask is a matricized 3-index pattern)
 KINDS = ("dft_chain", "exp_decay", "zipf", "uniform")
 ENTRY_KINDS = KINDS + ("three_center",)
-
-_ITEM_12 = ("the three_center tensor operands need core/tensor.py, "
-            "ROADMAP.md Queue A item 12")
-
 
 @dataclass(frozen=True)
 class CorpusEntry:
@@ -96,10 +92,19 @@ class CorpusEntry:
                                           B.BlockSparseMatrix]:
         """Reproducible (A, B) operand pair for this entry on ``device``
         (CUDA unless the caller names another); values are drawn on the
-        CPU, so every device gets the same numbers."""
-        if self.kind == "three_center":
-            raise NotImplementedError(_ITEM_12)
+        CPU, so every device gets the same numbers.
+
+        Three-center entries return the MATRICIZED tensor operand — an
+        (nb^2, nb) tall-skinny ``BlockSparseMatrix`` whose mask is
+        ``masks()[0]`` — so every family goes through one matrix
+        interface."""
         from repro_torch.config import resolve_device
+
+        if self.kind == "three_center":
+            from repro_torch.core import tensor as T
+
+            t, b = self.build_tensor(device)
+            return T.matricize(t, (0, 1), (2,)), b
 
         dev = resolve_device(device)
         ma, mb = self.masks()
@@ -111,12 +116,26 @@ class CorpusEntry:
                         device=dev)
 
     def build_tensor(self, device=None):
-        """The un-flattened (T, B) operand pair of a three-center entry."""
+        """The un-flattened (T, B) operand pair of a three-center entry:
+        the 3-index ``BlockSparseTensor`` (ij|k), N(0, 1) / bs^1.5 blocks,
+        and the square (k, l) matrix it contracts with through
+        ``contract("ijk,kl->ijl")``."""
         if self.kind != "three_center":
             raise ValueError(
                 f"build_tensor() is only defined for three_center "
                 f"entries, not kind={self.kind!r}")
-        raise NotImplementedError(_ITEM_12)
+        from repro_torch.config import resolve_device
+        from repro_torch.core import tensor as T
+
+        dev = resolve_device(device)
+        nb, bs = self.nb, self.bs
+        m3 = _three_center_mask3(nb, (self.seed, 0), occupancy=self.occupancy)
+        gen = torch.Generator().manual_seed(2 * self.seed)
+        blocks = torch.randn((nb,) * 3 + (bs,) * 3, generator=gen) / bs**1.5
+        t = T.make_tensor(blocks.to(dev), torch.from_numpy(m3).to(dev))
+        _, mb = self.masks()
+        return t, _fill(mb, 2 * self.seed + 1, bs, symmetric=False,
+                        device=dev)
 
 
 def _rng(seed) -> np.random.Generator:

@@ -78,6 +78,68 @@ def test_block_spgemm_matches_reference(shape, dtype, occupancy):
     assert K.launches == 0  # CPU tensors never reach the kernel
 
 
+# f8 storage: (torch dtype, jax dtype, mantissa bits, least normal exponent)
+F8 = {
+    "float8_e4m3fn": (torch.float8_e4m3fn, jnp.float8_e4m3fn, 3, -6),
+    "float8_e5m2": (torch.float8_e5m2, jnp.float8_e5m2, 2, -14),
+}
+F8_ORACLE_TOL = 2e-1  # the reference's f8 tolerance against the f32 oracle
+
+
+def f8_ulp(x: np.ndarray, mant: int, emin: int) -> np.ndarray:
+    """One f8 ulp at |x| (the subnormal spacing below the least normal)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** emin)))
+    return 2.0 ** (e - mant)
+
+
+@pytest.mark.parametrize("occupancy", [0.2, 0.7])
+@pytest.mark.parametrize("dtype", sorted(F8))
+@pytest.mark.parametrize("shape", [(8, 8, 8), (4, 16, 8), (23, 23, 23)])
+def test_block_spgemm_f8_storage_matches_reference(shape, dtype, occupancy):
+    """f8 blocks: the plain version upcasts, sums in f32 and casts back.
+    Against the reference's oracle on the same f8 operands it is within
+    one f8 ulp (the two f32 sums differ in order only); against the f32
+    oracle of the unrounded operands within the reference's 2e-1."""
+    tdt, jdt, mant, emin = F8[dtype]
+    a, b, ok = _operands(23, 3, 4, 3, shape, occupancy)
+    ta, tb = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
+    got = ops.block_spgemm(ta, tb, torch.from_numpy(ok))
+    assert got.dtype == tdt
+    got32 = got.float().numpy()
+    ja, jb, jok = jnp.asarray(a), jnp.asarray(b), jnp.asarray(ok)
+    # the operands round to the same f8 values on both sides
+    np.testing.assert_array_equal(ta.float().numpy(),
+                                  _f32(ja.astype(jdt)))
+    want = _f32(ref_ref.block_spgemm_ref(ja, jb, jok, storage_dtype=jdt))
+    ulp = f8_ulp(np.maximum(np.abs(got32), np.abs(want)), mant, emin)
+    assert (np.abs(got32 - want) <= ulp).all()
+    exact = _f32(ref_ref.block_spgemm_ref(ja, jb, jok))
+    np.testing.assert_allclose(got32, exact, rtol=F8_ORACLE_TOL,
+                               atol=F8_ORACLE_TOL)
+    assert K.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_reads_a_stride0_operand_in_place(dtype):
+    """A block-diagonal bank whose every column aliases one block (a
+    stride-0 view, as the MoE layer builds it) gives the plain version the
+    same C as its contiguous copy, and the kernel's layout check takes
+    it."""
+    rng = np.random.default_rng(5)
+    e, bs_r, bs_k, bs_c = 4, 4, 16, 8
+    w = torch.from_numpy(rng.standard_normal((e, bs_k, bs_c)).astype(
+        np.float32)).to(TORCH_DT[dtype])
+    bank = w.unsqueeze(0).expand(e, e, bs_k, bs_c)
+    assert bank.stride()[:2] == (0, bs_k * bs_c) and K.rowmajor_blocks(bank)
+    a = torch.from_numpy(rng.standard_normal((3, e, bs_r, bs_k)).astype(
+        np.float32)).to(TORCH_DT[dtype])
+    ok = torch.from_numpy(rng.random((3, e)) < 0.6)[:, :, None] & torch.eye(
+        e, dtype=torch.bool)[None]
+    got = ops.block_spgemm(a, bank, ok)
+    assert torch.equal(got, ops.block_spgemm(a, bank.contiguous(), ok))
+    assert not K.rowmajor_blocks(bank.transpose(2, 3))
+
+
 def test_module_imports_without_nvcc_and_never_launches_on_cpu():
     # a fresh interpreter: importing builds and loads nothing, and a CPU
     # call takes the plain version (a CPU-only machine may have no nvcc)
@@ -99,10 +161,6 @@ def test_module_imports_without_nvcc_and_never_launches_on_cpu():
 def test_wrapper_checks():
     a, b, ok = _operands(2, 2, 3, 2, (4, 4, 4), 0.8)
     ta, tb, tok = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(ok)
-    if hasattr(torch, "float8_e4m3fn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.block_spgemm(ta.to(torch.float8_e4m3fn),
-                             tb.to(torch.float8_e4m3fn), tok)
     with pytest.raises(TypeError):
         ops.block_spgemm(ta.double(), tb.double(), tok)
     with pytest.raises(TypeError):

@@ -396,3 +396,96 @@ def test_serving_launches_flash_per_layer_per_prefill(cuda):
     assert rounds == 3 and FA.launches - before == cfg.n_layers * rounds
     assert [len(o) for o in outs] == [4] * 5
     assert outs[4] == eng.generate([prompts[4]])[0]
+
+
+# f8 storage: (mantissa bits, least normal exponent); kernel and plain
+# version round f32 sums that differ in order only: one f8 ulp apart
+F8 = {torch.float8_e4m3fn: (3, -6), torch.float8_e5m2: (2, -14)}
+
+
+def _within_one_f8_ulp(got, want, dtype):
+    mant, emin = F8[dtype]
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** emin)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - mant)
+    assert bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", list(F8), ids=str)
+@pytest.mark.parametrize("shape", [(4, 4, 4), (23, 23, 23), (4, 16, 8),
+                                   (128, 24, 100)])
+def test_f8_instances_match_plain_and_oracle(cuda, shape, dtype):
+    bs_r, bs_k, bs_c = shape
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((5, 6, bs_r, bs_k)) / np.sqrt(bs_k))
+    b = torch.from_numpy(rng.standard_normal((6, 4, bs_k, bs_c)) / np.sqrt(bs_k))
+    a, b = a.float().to(cuda).to(dtype), b.float().to(cuda).to(dtype)
+    ok = torch.from_numpy(rng.random((5, 6, 4)) < 0.5).to(cuda)
+    st = stacks.compact_pair_mask(
+        ok, capacity=stacks.bucket_capacity(stacks.product_count(ok)))
+    before = K.launches
+    got = K.block_spgemm_stacks(a, b, st, ni=5, nj=4)
+    assert K.launches == before + 1 and got.dtype == dtype
+    for want in (K.block_spgemm_stacks_plain(a, b, st, ni=5, nj=4),
+                 ref.block_spgemm_ref(a, b, ok)):
+        _within_one_f8_ulp(got, want, dtype)
+    c = K.block_spgemm(a, b, ok)  # the masked wrapper, f8 zeroing included
+    _within_one_f8_ulp(c, ref.block_spgemm_ref(a, b, ok), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_operands_read_in_place(cuda, dtype):
+    """A stride-0 block-diagonal bank and a sliced A grid launch without a
+    copy and match the plain version and their contiguous copies."""
+    rng = np.random.default_rng(8)
+    e, tb, d, de = 6, 4, 40, 30
+    w = torch.from_numpy(rng.standard_normal((e, d, de)) / np.sqrt(d)).to(
+        cuda, dtype)
+    bank = w.unsqueeze(0).expand(e, e, d, de)
+    a_full = torch.from_numpy(rng.standard_normal((9, e + 2, tb, d))).to(
+        cuda, dtype)
+    a = a_full[::2, 1:e + 1]  # strided grid, row-major blocks
+    assert not a.is_contiguous() and K.rowmajor_blocks(a)
+    ok = (torch.from_numpy(rng.random((5, e)) < 0.5).to(cuda)[:, :, None]
+          & torch.eye(e, dtype=torch.bool, device=cuda)[None])
+    st = stacks.compact_pair_mask(
+        ok, capacity=stacks.bucket_capacity(stacks.product_count(ok)))
+    got = K.block_spgemm_stacks(a, bank, st, ni=5, nj=e)
+    tol = TOL[dtype]
+    for want in (K.block_spgemm_stacks_plain(a, bank, st, ni=5, nj=e),
+                 K.block_spgemm_stacks(a.contiguous(), bank.contiguous(), st,
+                                       ni=5, nj=e)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_moe_shape_kernel_and_layer_on_cuda(cuda):
+    """The kernel at deepseek-moe-16b's expert shape (4 x 2048 token
+    blocks times the aliased 2048 x 1408 bank, 8 experts) against its plain
+    version, and the spgemm MoE layer against the dense one."""
+    import dataclasses
+
+    from repro_torch.models import moe as M
+
+    base = get_arch("deepseek-moe-16b")
+    moe = dataclasses.replace(base.moe, n_experts=8, top_k=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfgs = {impl: dataclasses.replace(base, moe=dataclasses.replace(
+        moe, impl=impl)) for impl in ("dense", "spgemm")}
+    p = M.init_moe(cfgs["dense"], gen, torch.bfloat16)
+    x = torch.randn((2, 32, base.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = K.launches
+    ys, _, st = M.apply_moe(cfgs["spgemm"], p, x, collect_stats=True)
+    assert K.launches - before == 3 and int(st["dropped"]) == 0
+    yd, _ = M.apply_moe(cfgs["dense"], p, x)
+    torch.testing.assert_close(ys.float(), yd.float(), rtol=3e-2, atol=3e-2)
+    bank = M.diag_expert_bsm(p["w_in"])
+    a = torch.randn((3, 8, 4, base.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    ok = torch.eye(8, dtype=torch.bool, device=cuda)[None].expand(3, 8, 8)
+    st = stacks.compact_pair_mask(ok, capacity=32)
+    got = K.block_spgemm_stacks(a, bank.blocks, st, ni=3, nj=8)
+    want = K.block_spgemm_stacks_plain(a, bank.blocks, st, ni=3, nj=8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

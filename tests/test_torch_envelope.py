@@ -138,12 +138,28 @@ def test_get_envelope_counts_hits_and_misses():
 
 
 def test_dispatch_cache_is_the_tuners():
-    """The serving dispatch cache waits for the MoE dispatch slices (the
-    tuner it builds on is ported) and names them."""
-    for make in (lambda: PE.DispatchCache(np.eye(2, dtype=bool)),
-                 lambda: PE._analytic_dispatch_decision(None, 1, 1, 1, "f")):
-        with pytest.raises(NotImplementedError, match="items 13.1 and 14"):
-            make()
+    """The serving dispatch cache keys its buckets with the tuner's
+    ``mask_bucket`` and records its decisions in the tuner's database
+    under the deciding device's tag."""
+    from repro_torch import tuner
+    from repro_torch.tuner.db import TuningDB, device_tag
+    from repro_torch.tuner.features import mask_bucket
+
+    eye = np.eye(4, dtype=bool)
+    mask = np.zeros((2, 4), bool)
+    mask[:, :2] = True
+    cache = PE.DispatchCache(eye, device="cpu")
+    assert cache.bucket_of(mask) == mask_bucket(mask)
+    PP.clear_cache()
+    db = tuner.set_default_db(TuningDB())
+    try:
+        _, dec = cache.resolve(mask)
+        rec = db.lookup(cache._db_key(cache.bucket_of(mask)),
+                        device_tag("cpu"))
+        assert rec is not None and rec["capacity"] == dec["capacity"]
+        assert dec["backend"] in ("dense", "stacks")
+    finally:
+        PP.clear_cache()
 
 
 def _hamiltonian(nb: int = 16):

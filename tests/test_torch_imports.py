@@ -69,6 +69,19 @@ def loaded_by():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.tensor", "repro_torch.parallel.ctx",
+    "repro_torch.models.moe"])
+def test_slice7_modules_stand_alone(module, loaded_by):
+    """The blocked-tensor, sharding-context and MoE modules are in the
+    port's module list, import neither jax nor ``repro`` and load
+    neither."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert not FORBIDDEN.findall(path.read_text())
+    assert loaded_by[module] == []
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_import_loads_no_jax(module, loaded_by):
     """Importing the module puts neither jax nor the JAX package into

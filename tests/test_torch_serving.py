@@ -123,9 +123,19 @@ def test_temperature_sampling_is_seeded(models):
 
 
 def test_set_dispatch_not_ported(models):
-    _, eng = _engines(models, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.set_dispatch(None)
+    """A dense model takes a dispatch spec and ignores it (no MoE layer
+    reads it); the spec key is the reference's."""
+    from repro_torch.models.moe import DispatchSpec
+
+    jeng, eng = _engines(models, 2, max_new_tokens=4)
+    prompts = _prompts(2, 8, models[2].vocab, seed=9)
+    plain = eng.generate(prompts)
+    for e in (jeng, eng):
+        e.set_dispatch(None)
+    assert eng._spec_key() == jeng._spec_key() == (None,)
+    eng.set_dispatch(DispatchSpec(backend="stacks", stack_capacity=8))
+    assert eng._spec_key() == (None, "stacks", 8)
+    assert eng.generate(prompts) == plain
 
 
 def test_launcher_rehearsal_on_cpu(capsys):

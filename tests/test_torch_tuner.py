@@ -166,7 +166,7 @@ def test_corpus_masks_bit_equal(kind, seed):
 
 def test_corpus_entries():
     """Entries build reproducible operands whose masks are ``masks()``;
-    three_center's tensor build waits for core/tensor.py."""
+    three_center builds its matricized (nb^2, nb) tensor operand."""
     entries = PC.corpus(smoke=True)
     assert [e.name for e in entries] == [e.name for e in
                                          RC.corpus(smoke=True)]
@@ -174,9 +174,8 @@ def test_corpus_entries():
         ma, mb = e.masks()
         if e.kind == "three_center":
             assert ma.shape == (e.nb * e.nb, e.nb) and mb.shape == (e.nb,) * 2
-            with pytest.raises(NotImplementedError, match="item 12"):
-                e.build(device="cpu")
-            continue
+            t, _ = e.build_tensor(device="cpu")
+            assert t.nbs == (e.nb,) * 3 and t.bss == (e.bs,) * 3
         a, b = e.build(device="cpu")
         np.testing.assert_array_equal(a.mask.numpy(), ma)
         np.testing.assert_array_equal(b.mask.numpy(), mb)
