@@ -32,9 +32,11 @@ Phases, each raising on failure:
    launch counter must rise by one per call; then bf16 layouts: the
    projections' head-transposed views (no copy), a seq stride TMA cannot
    take (one counted copy per tensor) and a query offset;
-6. the whole reduced olmo-1b (f32) on the card against the same model on
-   the CPU, from the same parameters: prefill and four decode steps with
-   per-slot positions, logits within 1e-4;
+6. the whole reduced olmo-1b, jamba-v0.1-52b (mamba, attention, MoE; 16
+   layers) and rwkv6-7b (f32) on the card against the same models on the
+   CPU, from the same parameters: prefill (the flash kernel once per
+   attention layer) and four decode steps with per-slot positions,
+   logits within 1e-4;
 7. full-width serving of olmo-1b (16 layers, d_model 2048, bf16) through
    ``repro_torch.launch.serve.run``: 16 requests through 8 slots, 2,048-
    token prompts, 64 new tokens each, both kernels' counts set to 0 just
@@ -95,7 +97,28 @@ Phases, each raising on failure:
     (prefill calls + decode steps), nothing dropped, every request as
     generated alone; then one prefill round and four decode steps under
     ``torch.profiler``: device time by kernel group, idle share) and the
-    config's ``tp`` (its drops printed).
+    config's ``tp`` (its drops printed);
+18. jamba-v0.1-52b at full width and 16 of its 32 layers (bf16, 48.4 GiB
+    of weights from seed 0) through ``repro_torch.launch.serve.run``:
+    (a) the config's tp on 12 requests of 2,048-token prompts + 32 new
+    through 8 slots (tokens in the vocabulary, flash launches = 2
+    attention layers x prefill calls, first tokens the argmax of a
+    separate prefill; dropped / routed printed), then one tp prefill
+    round and four decode steps under ``torch.profiler`` by group (the
+    mamba mixers' and the MoE layers' non-GEMM kernels, GEMMs, flash,
+    the rest) with the idle share; (b) spgemm on the same weights, 8
+    requests of 256 tokens + 16 new (nothing dropped, every request as
+    generated alone, block-SpGEMM launches = 3 x 8 MoE layers x (prefill
+    calls + decode steps)); (c) the kernel at this MoE shape ((4 x 4096)
+    times (4096 x 14336) blocks, bf16) against its plain version, timed
+    beside its bound and one grouped ``torch.bmm``; (e) the flash kernel
+    at jamba's attention shape (h 32, hkv 8, s 2048, d 128) against its
+    plain version, timed beside SDPA and the bound;
+19. rwkv6-7b at full width and depth (bf16, seed 0), the same traffic as
+    18 (a): tokens in the vocabulary, first tokens the argmax of a
+    separate prefill, request 0 and the first refilled request as
+    generated alone, neither kernel launched; the kernels a prefill
+    launches (counted under ``torch.profiler`` at 256 and 512 tokens).
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -506,41 +529,54 @@ def phase_flash_vs_plain(torch, np, FA, ref) -> float:
     return worst
 
 
+# phase 6: the reduced models (f32) on the card and on the CPU; the
+# prompt is a multiple of the recurrent mixers' reduced chunk (8)
+MODEL_ARCHS = ("olmo-1b", "jamba-v0.1-52b", "rwkv6-7b")
+
+
 def phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch) -> float:
-    """Phase 6: reduced olmo-1b (f32), the same parameters on the card and
-    on the CPU: prefill and four decode steps with per-slot positions."""
-    cfg = get_arch("olmo-1b").reduced()
-    p_cpu = T.init_params(cfg, SEED, device="cpu")
-    dev = "cuda"
-    p_dev = _tree_to(p_cpu, dev)
-    rng = np.random.default_rng(SEED)
-    batch, plen, max_len = 4, 200, 256
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, plen)))
-    c_cpu = T.init_cache(cfg, batch, max_len, device="cpu")
-    c_dev = T.init_cache(cfg, batch, max_len, device=dev)
-    before = FA.launches
-    l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(dev), c_dev)
-    launched = FA.launches - before
-    l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
-    worst = float((l_dev.cpu() - l_cpu).abs().max())
-    pos = torch.tensor([plen, plen - 7, plen - 50, plen - 1])
-    for _ in range(4):
-        t = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1)))
-        l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(dev), c_dev,
-                                     pos.to(dev))
-        l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
-        worst = max(worst, float((l_dev.cpu() - l_cpu).abs().max()))
-        pos = pos + 1
-    print(f"[6] reduced olmo-1b f32 ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}), cuda vs cpu: prefill + 4 decode steps, max "
-          f"|logit err| {worst:.3e} (tolerance {MODEL_TOL}), flash launches "
-          f"in the prefill {launched}", flush=True)
-    if launched != cfg.n_layers:
-        raise AssertionError(f"prefill launched the flash kernel {launched}"
-                             f" times for {cfg.n_layers} layers")
-    if not worst <= MODEL_TOL:
-        raise AssertionError(f"model on cuda vs cpu: {worst}")
-    return worst
+    """Phase 6: reduced olmo-1b, jamba-v0.1-52b and rwkv6-7b (f32), the
+    same parameters on the card and on the CPU: prefill (the flash kernel
+    once per attention layer: olmo's 4, jamba's 2 of 16, none of rwkv6's)
+    and four decode steps with per-slot positions."""
+    worst_all = 0.0
+    for arch in MODEL_ARCHS:
+        cfg = get_arch(arch).reduced()
+        p_cpu = T.init_params(cfg, SEED, device="cpu")
+        dev = "cuda"
+        p_dev = _tree_to(p_cpu, dev)
+        rng = np.random.default_rng(SEED)
+        batch, plen, max_len = 4, 200, 256
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, plen)))
+        c_cpu = T.init_cache(cfg, batch, max_len, device="cpu")
+        c_dev = T.init_cache(cfg, batch, max_len, device=dev)
+        before = FA.launches
+        l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(dev), c_dev)
+        launched = FA.launches - before
+        l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
+        worst = float((l_dev.cpu() - l_cpu).abs().max())
+        pos = torch.tensor([plen, plen - 7, plen - 50, plen - 1])
+        for _ in range(4):
+            t = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1)))
+            l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(dev), c_dev,
+                                         pos.to(dev))
+            l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
+            worst = max(worst, float((l_dev.cpu() - l_cpu).abs().max()))
+            pos = pos + 1
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        print(f"[6] reduced {arch} f32 ({cfg.n_layers} layers, {n_attn} "
+              f"attention, d_model {cfg.d_model}), cuda vs cpu: prefill + 4 "
+              f"decode steps, max |logit err| {worst:.3e} (tolerance "
+              f"{MODEL_TOL}), flash launches in the prefill {launched}",
+              flush=True)
+        if launched != n_attn:
+            raise AssertionError(f"{arch}: prefill launched the flash kernel"
+                                 f" {launched} times for {n_attn} attention "
+                                 "layers")
+        if not worst <= MODEL_TOL:
+            raise AssertionError(f"{arch} on cuda vs cpu: {worst}")
+        worst_all = max(worst_all, worst)
+    return worst_all
 
 
 def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
@@ -1702,6 +1738,464 @@ def phase_moe_serve(torch, K, FA, T, MoE, serve) -> tuple[int, int]:
     return launches, flash_launches
 
 
+# phase 18: jamba-v0.1-52b at full width and 16 of its 32 layers (two
+# repetitions of its 8-layer pattern: 95.8 GiB of bf16 weights at full
+# depth is more than the card holds), random weights from seed 0.  (a) the
+# config's tp: 12 requests of 2,048-token prompts + 32 new through 8 slots
+# (one refill round); (b) spgemm on the same weights: 8 requests of
+# 256-token prompts + 16 new
+JAMBA_LAYERS = 16
+JAMBA_TP_ARGV = ["--arch", "jamba-v0.1-52b", "--batch", "8", "--prompt-len",
+                 "2048", "--max-new", "32", "--max-len", "2096", "--queue",
+                 "12", "--seed", str(SEED)]
+JAMBA_SPGEMM_ARGV = ["--arch", "jamba-v0.1-52b", "--batch", "8",
+                     "--prompt-len", "256", "--max-new", "16", "--max-len",
+                     "288", "--queue", "8", "--seed", str(SEED),
+                     "--moe-impl", "spgemm"]
+# phase 19: rwkv6-7b at full width and depth, the same traffic as 18 (a)
+RWKV_ARGV = ["--arch", "rwkv6-7b", "--batch", "8", "--prompt-len", "2048",
+             "--max-new", "32", "--max-len", "2096", "--queue", "12",
+             "--seed", str(SEED)]
+
+
+def _gib(torch) -> str:
+    return f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB"
+
+
+def _build_cut(serve, argv, n_layers: int, params):
+    """``serve.build(argv)``'s tuple for the arch cut to its first
+    ``n_layers`` layers, serving ``params`` (drawn for the cut config)."""
+    import dataclasses
+
+    from repro_torch.serving.engine import ServingEngine
+
+    args, cfg, engine, prompts = serve.build(argv, params=params)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    engine = ServingEngine(cfg, params, batch=args.batch,
+                           max_len=args.max_len, gen=engine.gen)
+    return args, cfg, engine, prompts
+
+
+def _first_tokens_gate(torch, np, T, tag: str, engine, prompts,
+                       outputs) -> None:
+    """A separate prefill of the first round's prompts: finite logits, and
+    the served first tokens are their argmax."""
+    n = engine.batch
+    toks = torch.from_numpy(np.stack(prompts[:n])).to(engine.device,
+                                                      torch.long)
+    cache = T.init_cache(engine.cfg, n, engine.max_len, device=engine.device)
+    logits, cache = engine._prefill(toks, cache)
+    del cache
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: prefill logits are not finite")
+    first = logits[:, -1].argmax(-1).tolist()
+    got = [o[0] for o in outputs[:n]]
+    print(f"{tag} prefill logits finite, max |logit| "
+          f"{float(logits.float().abs().max()):.3f}; first tokens "
+          f"{'equal' if first == got else 'DIFFER'} to their argmax",
+          flush=True)
+    if first != got:
+        raise AssertionError(f"{tag}: first tokens {got} != argmax {first}")
+
+
+class _Spans:
+    """Wraps module functions in ``torch.profiler.record_function`` spans
+    for the length of a ``with`` block (the model code carries none)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.saved = torch, targets, []
+
+    def __enter__(self):
+        record = self.torch.profiler.record_function
+        for mod, name, span in self.targets:
+            fn = getattr(mod, name)
+
+            def wrapped(*a, _fn=fn, _span=span, **kw):
+                with record(_span):
+                    return _fn(*a, **kw)
+
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _span_profile(torch, fn, spans: dict) -> tuple[float, dict, int]:
+    """(wall ms, device ms by group, kernels) of ``fn`` under
+    torch.profiler.  Kernels are grouped by name (flash, matmul), the
+    rest by the span that launched them (``spans``: span name -> group),
+    and what no span launched is "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in spans]  # the spans' own device ranges
+    groups = dict.fromkeys(["flash", "matmul", *spans.values(), "other"],
+                           0.0)
+    for e in device:
+        g = _kernel_group(e.name)
+        if g != "other":
+            groups[g] += e.device_time_total / 1e3
+
+    def walk(ev, owner):
+        owner = spans.get(ev.name, owner)
+        if owner is not None:
+            groups[owner] += sum(k.duration for k in ev.kernels
+                                 if _kernel_group(k.name) == "other") / 1e3
+        for ch in ev.cpu_children:
+            walk(ch, owner)
+
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.cpu_parent is None:
+            walk(ev, None)
+    busy = sum(e.device_time_total for e in device) / 1e3
+    groups["other"] += busy - sum(groups.values())
+    return wall_ms, groups, len(device)
+
+
+def _jamba_breakdown(torch, np, T, M, MoE, engine, prompts,
+                     n_decode: int = 4) -> None:
+    """Phase 18 (d): one tp prefill round of the served prompts and
+    ``n_decode`` decode steps under ``torch.profiler``, device time by
+    group: the mamba mixers' non-GEMM kernels (the scan's elementwise
+    passes, the conv, the coefficients), the MoE layers' non-GEMM kernels
+    (routing, dispatch, combine), GEMMs, flash and the rest."""
+    cfg, n = engine.cfg, engine.batch
+    toks = torch.from_numpy(np.stack(prompts[:n])).to(engine.device,
+                                                      torch.long)
+    cache = T.init_cache(cfg, n, engine.max_len, device=engine.device)
+    box = {}
+
+    def prefill():
+        box["logits"], _ = T.prefill(cfg, engine.params, toks, cache)
+
+    def decode():
+        tok = box["logits"][:, -1].argmax(-1)
+        pos = torch.full((n,), toks.shape[1], device=engine.device)
+        for _ in range(n_decode):
+            logits, _ = T.decode_step(cfg, engine.params, tok[:, None],
+                                      cache, pos)
+            tok = logits[:, -1].argmax(-1)
+            tok.tolist()  # the host reads each step's tokens
+            pos = pos + 1
+
+    targets = [(M, "apply_mamba", "mamba"), (M, "decode_mamba", "mamba"),
+               (MoE, "apply_moe", "moe")]
+    spans = {"mamba": "mamba_scan", "moe": "moe"}
+    for name, fn, steps in (("prefill", prefill, 1),
+                            ("decode", decode, n_decode)):
+        with _Spans(torch, targets):
+            wall, groups, n_kernels = _span_profile(torch, fn, spans)
+        busy = sum(groups.values())
+        if busy <= 0:
+            raise AssertionError(f"the profiler saw no device time in {name}")
+        per = ", ".join(f"{k} {v / steps:.4f}" for k, v in groups.items())
+        unit = "round" if steps == 1 else "step"
+        print(f"[18] tp {name} ({steps} x): wall {wall / steps:.4f} ms, "
+              f"device busy {busy / steps:.4f} ms, idle share "
+              f"{1.0 - busy / wall:.4f}, {n_kernels / steps:.0f} kernels per "
+              f"{unit}; device ms per {unit}: {per}", flush=True)
+    del cache, box
+
+
+def _jamba_moe_kernel(torch, K, S, MoE, cfg, p) -> dict:
+    """Phase 18 (c): the kernel at jamba's MoE shape, one of the served
+    model's MoE layers (``p``) on 8 x 256 tokens: A (512 x 16) blocks of
+    4 x 4,096 times the aliased w_in bank's (16 x 16) blocks of 4,096 x
+    14,336, bf16; against its plain version, timed beside its bound and
+    one ``torch.bmm`` over the token blocks grouped by expert."""
+    e, de = MoE.moe_dims(cfg)
+    tb = cfg.moe.token_block
+    b, s = MOE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    xt = x.to(torch.bfloat16).reshape(b * s, cfg.d_model)
+    _, top_e, _ = MoE.router_probs(cfg.moe, xt.float() @ p["router"])
+    mask = MoE.dispatch_block_mask(top_e, e, tb)
+    a = MoE._dispatch_bsm(xt, mask, tb)
+    bank = MoE.diag_expert_bsm(p["w_in"])
+    ok = S.pair_cube(a.mask, bank.mask, a.norms, bank.norms, 0.0)
+    n = S.product_count(ok)
+    stacks = S.compact_pair_mask(ok, capacity=S.bucket_capacity(n))
+    tile = K.kernel_tile(tb, de)
+    gm = K.group_masks(stacks, ni=a.nb_r, nk=e, nj=e, g_r=tile.g_r,
+                       g_c=tile.g_c)
+
+    def kernel():
+        return K.block_spgemm_groups(a.blocks, bank.blocks, gm, ni=a.nb_r,
+                                     nj=e)
+
+    def plain():
+        return K.block_spgemm_stacks_plain(a.blocks, bank.blocks, stacks,
+                                           ni=a.nb_r, nj=e)
+
+    good, err = _close(kernel(), plain(), TOL["bfloat16"])
+    if not good:
+        raise AssertionError(f"kernel vs plain at jamba's MoE shape: {err}")
+    ms = _time_ms(kernel, reps=3)
+    plain_ms = _time_ms(plain, reps=1)
+    counts = mask.sum(0)
+    width = int(counts.max())
+    order = torch.argsort((~mask).t().to(torch.int8), dim=1, stable=True)
+    rows = order[:, :width]
+    keep = torch.arange(width, device="cuda")[None, :] < counts[:, None]
+    grouped = (a.blocks[rows, torch.arange(e, device="cuda")[:, None]]
+               * keep[:, :, None, None].to(a.dtype))
+    grouped = grouped.reshape(e, width * tb, cfg.d_model)
+    library_ms = _time_ms(lambda: torch.bmm(grouped, p["w_in"]), reps=5)
+    bound_ms, bound_by = _bound_rect(ok, tb, cfg.d_model, de, 2,
+                                     PEAK_BF16_FLOPS)
+    flop = 2.0 * tb * cfg.d_model * de
+    print(f"[18] kernel at jamba's MoE shape ({a.nb_r} x {e}) blocks of "
+          f"{tb} x {cfg.d_model} times the aliased ({e} x {e}) bank of "
+          f"{cfg.d_model} x {de}: {n} products ({flop / 1e9:.3f} GFLOP "
+          f"each), group {tile.g_r} x {tile.g_c}; kernel vs plain max |err| "
+          f"{err:.3e}; times (ms, median of CUDA events): kernel {ms:.4f}  "
+          f"plain {plain_ms:.4f}  library(torch.bmm over A grouped by "
+          f"expert, {width} blocks each) {library_ms:.4f}  bound "
+          f"{bound_ms:.4f} ({bound_by}); kernel "
+          f"{n * flop / ms / 1e9:.3f} TFLOP/s", flush=True)
+    del x, xt, a, bank, ok, stacks, gm, grouped
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                products=n)
+
+
+def _jamba_flash(torch, np, FA, cfg) -> dict:
+    """Phase 18 (e): the flash kernel at jamba's attention shape (b 8,
+    h 32, hkv 8, s 2,048, d 128, bf16, causal; one prefill round's
+    layer) against its plain version (phase 9's bf16 limit), timed
+    beside the plain version, ``scaled_dot_product_attention`` with GQA
+    and the bound."""
+    b, s = 8, 2048
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(SEED + 3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d),
+                                                    dtype=np.float32))
+               .to("cuda", torch.bfloat16) for n in (h, hkv, hkv))
+    got = FA.flash_attention(q, k, v, causal=True)
+    plain = FA.flash_attention_plain(q, k, v, causal=True)
+    keys = torch.arange(1, s + 1, device="cuda", dtype=torch.float32)
+    diff = (got.float() - plain.float()).abs()
+    ratio = float((diff / flash_serve_limit(plain, keys,
+                                            **FLASH_SERVE_TOL_BF16)).max())
+    err = float(diff.max())
+    del got, plain, diff
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash at jamba's shape: max |err| {err}")
+    ms = _time_ms(lambda: FA.flash_attention(q, k, v, causal=True), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                         causal=True),
+                        reps=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=True), reps=10, warmup=2)
+    pairs = b * h * s * (s + 1) // 2
+    t_ops = 4.0 * d * pairs / PEAK_BF16_FLOPS
+    t_bytes = (2 * h + 2 * hkv) * b * s * d * 2 / PEAK_BYTES_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[18] flash at jamba's shape b={b} h={h} hkv={hkv} s={s} d={d} "
+          f"bf16 causal: kernel vs plain max |err| {err:.3e}, worst |err| /"
+          f" limit {ratio:.4f}; times (ms, median of CUDA events): kernel "
+          f"{ms:.4f}  plain {plain_ms:.4f}  library(sdpa, enable_gqa) "
+          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by})", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_jamba(torch, np, K, S, FA, T, MoE, serve, get_arch
+                ) -> tuple[int, int, dict]:
+    """Phase 18: jamba-v0.1-52b at full width (d 4,096, d_ff 14,336, 16
+    experts top-2, d_state 16, expand 2) and 16 layers, bf16, weights
+    from seed 0, served through ``repro_torch.launch.serve.run``: (a) tp
+    (every token in the vocabulary, flash launches = 2 attention layers x
+    prefill calls, no block-SpGEMM launch, first tokens the argmax of a
+    separate prefill); (b) spgemm on the same weights (nothing dropped,
+    every request as generated alone, block-SpGEMM launches = 3 x 8 MoE
+    layers x (prefill calls + decode steps)); (c) the kernel at this MoE
+    shape; (d) where a tp prefill round and a decode step spend their
+    time; (e) the flash kernel at jamba's attention shape.  Returns the
+    block-SpGEMM launches of (b), the flash launches of (a) and (b), and
+    the figures of (c) (with (e)'s under "flash")."""
+    import dataclasses
+
+    from repro_torch.models import mamba as M
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    kinds = T.layer_kinds(cfg)
+    n_attn = sum(k["mixer"] == "attention" for k in kinds)
+    n_moe = sum(k["moe"] for k in kinds)
+    print(f"[18] jamba-v0.1-52b cut to {cfg.n_layers} layers ({n_attn} "
+          f"attention, {n_moe} MoE), {cfg.param_count() / 1e9:.3f} B "
+          f"parameters; memory allocated before the weights: {_gib(torch)}",
+          flush=True)
+    params = T.init_params(cfg, SEED, device="cuda")
+    print(f"[18] weights resident: {_gib(torch)}", flush=True)
+
+    # (a) the config's tp
+    built = _build_cut(serve, JAMBA_TP_ARGV, JAMBA_LAYERS, params)
+    engine = built[2]
+    K.launches = 0
+    FA.launches = 0
+    st = serve.run(JAMBA_TP_ARGV, built=built)
+    flash_a, spgemm_a = FA.launches, K.launches
+    print(f"[18] tp: {st['requests']} requests, {st['tokens']} tokens, "
+          f"{st['tokens_per_s']:.3f} tok/s, prefill s per round "
+          f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
+          f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
+          f" dropped {st['moe']['dropped']} of {st['moe']['routed']} routed; "
+          f"flash launches {flash_a} ({n_attn} x {st['prefill_calls']} "
+          f"prefill calls), block_spgemm launches {spgemm_a}", flush=True)
+    if not st["ok"]:
+        raise AssertionError("jamba tp: a request got too few tokens or a "
+                             "token outside the vocabulary")
+    if flash_a != n_attn * st["prefill_calls"] or spgemm_a:
+        raise AssertionError(f"jamba tp: flash launches {flash_a}, "
+                             f"block_spgemm launches {spgemm_a}")
+    MoE.reset_drop_counts()
+    _first_tokens_gate(torch, np, T, "[18] tp:", engine, built[3],
+                       st["outputs"])
+    real = MoE.drop_counts()  # the round's 8 prompts, no padding rows
+    print(f"[18] tp: a prefill round of the first 8 prompts drops "
+          f"{int(real['dropped'])} of {int(real['routed'])} routed choices "
+          f"(the served total above also counts the second round's 4 "
+          f"padding rows, which route alike)", flush=True)
+    _jamba_breakdown(torch, np, T, M, MoE, engine, built[3])
+    del built, engine, st
+
+    # (b) spgemm on the same weights
+    built = _build_cut(serve, JAMBA_SPGEMM_ARGV, JAMBA_LAYERS, params)
+    engine = built[2]
+    K.launches = 0
+    FA.launches = 0
+    st = serve.run(JAMBA_SPGEMM_ARGV, built=built)
+    launches, flash_b = K.launches, FA.launches
+    want = 3 * n_moe * (st["prefill_calls"] + st["decode_steps"])
+    dec = st["dispatch"]
+    solo = [engine.generate([q])[0] for q in built[3]]
+    same = [a == b for a, b in zip(st["outputs"], solo)]
+    print(f"[18] spgemm: {st['tokens_per_s']:.3f} tok/s, prefill s "
+          f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
+          f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
+          f" decode decision backend={dec['backend']} capacity="
+          f"{dec['capacity']} source={dec['source']}; dropped "
+          f"{st['moe']['dropped']} of {st['moe']['routed']}; kernel launches"
+          f" {launches} (3 x {n_moe} x ({st['prefill_calls']} prefill + "
+          f"{st['decode_steps']} decode) = {want}), flash launches "
+          f"{flash_b}; served == generated alone: {sum(same)} of "
+          f"{len(same)}", flush=True)
+    if not st["ok"] or st["moe"]["dropped"]:
+        raise AssertionError("jamba spgemm: a request got too few tokens or"
+                             " a token outside the vocabulary, or a choice "
+                             "was dropped")
+    if dec["backend"] != "cuda":
+        raise AssertionError(f"jamba spgemm decode decision {dec}")
+    if launches != want:
+        raise AssertionError(f"jamba spgemm kernel launches {launches} != "
+                             f"{want}")
+    if not all(same):
+        raise AssertionError(f"jamba spgemm: served requests differ from "
+                             f"the requests generated alone: {same}")
+    del built, engine, st
+
+    # (c) the kernel at this MoE shape, on the first MoE layer's weights
+    first_moe = next(i for i, k in enumerate(kinds) if k["moe"])
+    kern = _jamba_moe_kernel(torch, K, S, MoE, cfg,
+                             params["blocks"][first_moe]["moe"])
+    del params
+    kern["flash"] = _jamba_flash(torch, np, FA, cfg)
+    torch.cuda.empty_cache()
+    print(f"[18] memory allocated after freeing the weights: {_gib(torch)}",
+          flush=True)
+    return launches, flash_a + flash_b, kern
+
+
+def phase_rwkv(torch, np, K, FA, T, serve) -> None:
+    """Phase 19: rwkv6-7b at full width and depth (32 layers, d 4,096, 64
+    heads of 64), bf16, weights from seed 0, served through
+    ``repro_torch.launch.serve.run``: every token in the vocabulary, the
+    first tokens the argmax of a separate prefill, request 0 and the
+    first refilled request each as generated alone, and neither kernel
+    launched (the model has no attention and no MoE).  Then the kernels a
+    prefill launches: the token loop is launch-bound."""
+    torch.cuda.empty_cache()
+    print(f"[19] memory allocated before the weights: {_gib(torch)}",
+          flush=True)
+    built = serve.build(RWKV_ARGV)
+    engine, cfg, prompts = built[2], built[1], built[3]
+    print(f"[19] weights resident: {_gib(torch)}", flush=True)
+    K.launches = 0
+    FA.launches = 0
+    st = serve.run(RWKV_ARGV, built=built)
+    flash, spgemm = FA.launches, K.launches
+    print(f"[19] rwkv6-7b: {st['requests']} requests, {st['tokens']} tokens,"
+          f" {st['tokens_per_s']:.3f} tok/s, prefill s per round "
+          f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
+          f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
+          f" flash launches {flash}, block_spgemm launches {spgemm}",
+          flush=True)
+    if not st["ok"]:
+        raise AssertionError("rwkv6: a request got too few tokens or a "
+                             "token outside the vocabulary")
+    if flash or spgemm:
+        raise AssertionError(f"rwkv6 launched flash {flash} and "
+                             f"block_spgemm {spgemm} times")
+    _first_tokens_gate(torch, np, T, "[19]", engine, prompts, st["outputs"])
+    refilled = engine.batch  # the first request of the second round
+    for i in (0, refilled):
+        solo = engine.generate([prompts[i]])[0]
+        same = solo == st["outputs"][i]
+        print(f"[19] request {i} served {'equals' if same else 'DIFFERS from'}"
+              f" request {i} generated alone", flush=True)
+        if not same:
+            raise AssertionError(f"rwkv6 request {i}: served "
+                                 f"{st['outputs'][i]} != alone {solo}")
+    # kernels per prefill: every loop runs per token, so the count is
+    # affine in the prompt length; measured at 256 and 512 tokens
+    counts = {}
+    for plen in (256, 512):
+        toks = torch.from_numpy(np.stack([q[:plen] for q in
+                                          prompts[:engine.batch]])).to(
+            engine.device, torch.long)
+        cache = T.init_cache(cfg, engine.batch, engine.max_len,
+                             device=engine.device)
+        wall, groups, n_launches, _ = _profile_window(
+            torch, lambda: T.prefill(cfg, engine.params, toks, cache))
+        counts[plen] = n_launches
+        print(f"[19] prefill of {engine.batch} x {plen} tokens under "
+              f"torch.profiler: wall {wall:.4f} ms, device busy "
+              f"{sum(groups.values()):.4f} ms, idle share "
+              f"{1.0 - sum(groups.values()) / wall:.4f}, {n_launches} "
+              f"kernels", flush=True)
+        del cache
+    per_token = (counts[512] - counts[256]) / 256
+    per_layer = per_token / cfg.n_layers
+    print(f"[19] kernels per prompt token {per_token:.2f} ({per_layer:.2f}"
+          f" per layer); a 2,048-token round launches "
+          f"{counts[256] + 7 * (counts[512] - counts[256])} (affine in the "
+          f"length, from the two counts)", flush=True)
+    del built, engine, st
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1778,6 +2272,9 @@ def main() -> int:
                           envelope)
     serve_launches, serve_flash = _timed(17, phase_moe_serve, torch, K, FA,
                                          T, MoE, serve)
+    jamba_launches, jamba_flash, jamba_kernel = _timed(
+        18, phase_jamba, torch, np, K, S, FA, T, MoE, serve, get_arch)
+    _timed(19, phase_rwkv, torch, np, K, FA, T, serve)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -1785,7 +2282,7 @@ def main() -> int:
         replaces="src/repro/kernels/block_spgemm.py:217",
         launches=(launches + sharded_launches + dbcsr_launches
                   + tuner_launches + tensor["launches"] + moe_launches
-                  + serve_launches),
+                  + serve_launches + jamba_launches),
         max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -1794,20 +2291,25 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
-        launches=served["flash_launches"] + serve_flash,
+        launches=served["flash_launches"] + serve_flash + jamba_flash,
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[18] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[20] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
           f"+ {tensor['launches']} (phase 15's contraction) + "
           f"{moe_launches} (phase 16's MoE layer) + {serve_launches} "
-          f"(phase 17's spgemm serving); flash launches "
+          f"(phase 17's spgemm serving) + {jamba_launches} (phase 18's "
+          f"jamba spgemm serving); flash launches "
           f"{served['flash_launches']} (phase 7) + {serve_flash} (phase "
-          f"17's two serving runs)", flush=True)
+          f"17's two serving runs) + {jamba_flash} (phase 18's two jamba "
+          f"serving runs); phase 19's rwkv6 serving launches neither; "
+          f"jamba's MoE shape: kernel {jamba_kernel['ms']:.4f} ms, bound "
+          f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "
+          f"{jamba_kernel['library_ms']:.4f} ms", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 
 ``get_arch(name)`` returns the full published config, with the aliases of
 the JAX package's registry.  Only the architectures the port can run are
-registered: the dense attention decoders and the MoE decoders
+registered: the dense attention decoders, the MoE decoders
 (deepseek-moe-16b; llama4-maverick-400b-a17b, whose 397.7 B parameters
-need more than one card at full width).  A name the JAX package knows but
-the port cannot run yet raises ``NotImplementedError`` naming the ROADMAP
-item that ports its missing part; an unknown name raises ``KeyError``, as
-in the reference.
+need more than one card at full width) and the recurrent ones
+(jamba-v0.1-52b, mamba and attention layers with MoE, whose 51.45 B
+parameters need more than one card at full depth; rwkv6-7b, attention
+free).  A name the JAX package knows but the port cannot run yet raises
+``NotImplementedError`` naming the ROADMAP item that ports its missing
+part; an unknown name raises ``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,14 +24,14 @@ ARCH_IDS = (
     "qwen1_5_4b",
     "deepseek_moe_16b",
     "llama4_maverick_400b_a17b",
+    "jamba_v0_1_52b",
+    "rwkv6_7b",
 )
 
 # known to the JAX package, not runnable here yet: what each one lacks
 UNPORTED = {
     "pixtral_12b": "ROADMAP.md Queue A item 13.5 (vision prefix)",
     "whisper_large_v3": "ROADMAP.md Queue A item 13.4 (whisper encoder)",
-    "jamba_v0_1_52b": "ROADMAP.md Queue A item 13.2 (mamba)",
-    "rwkv6_7b": "ROADMAP.md Queue A item 13.3 (rwkv6)",
 }
 
 _ALIASES = {

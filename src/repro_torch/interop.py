@@ -3,10 +3,17 @@
 Both sides meet at numpy: ``bsm_from_arrays`` builds the port's matrix from
 ``np.asarray`` of each field of the reference's ``BlockSparseMatrix``, and
 ``bsm_to_numpy`` goes the other way; ``params_from_jax`` and
-``cache_from_jax`` turn the reference LM's parameter and KV-cache pytrees
-(leaves as numpy) into the port's per-layer layout — an MoE block's
-``moe`` dict included (``router`` f32; ``w_in``, ``w_gate``, ``w_out`` and
-the fused ``shared_*`` experts in the model dtype).  No jax import here.
+``cache_from_jax`` turn the reference LM's parameter and cache pytrees
+(leaves as numpy) into the port's per-layer layout, generic over leaf
+names: an MoE block's ``moe`` dict (``router`` f32; ``w_in``, ``w_gate``,
+``w_out`` and the fused ``shared_*`` experts in the model dtype), a mamba
+block's ``mamba`` dict and an rwkv6 block's ``rwkv`` dict, and the
+per-layer cache by mixer: ``k`` / ``v``, ``conv`` / ``ssm`` or
+``shift_t`` / ``shift_c`` / ``wkv``.  Every leaf keeps its dtype: the
+f32 ones stay f32 (``a_log``, ``dt_bias``, ``d_skip``, ``mu_*``,
+``decay_base``, ``bonus_u``, ``ln_x_w``, norms, the ``router``, and the
+``ssm`` and ``wkv`` states), the others are in the model dtype.  No jax
+import here.
 
 JAX's bf16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; they cross as float32 and are cast to
@@ -78,6 +85,7 @@ def params_from_jax(cfg: ArchConfig, params, *, device=None) -> dict:
 
 
 def cache_from_jax(cfg: ArchConfig, cache, *, device=None) -> dict:
-    """The port's per-layer KV cache from the reference's stacked one."""
+    """The port's per-layer cache (K/V rows and recurrent states) from the
+    reference's stacked one."""
     return {"blocks": _unstack_blocks(cfg, cache["blocks"],
                                       resolve_device(device))}

@@ -12,6 +12,15 @@ CUDA.  Runs on CUDA unless ``--device cpu`` is given, and raises without a
 CUDA device.  Exits 1 when a request got a token outside the vocabulary or
 too few tokens.
 
+Recurrent archs run through the same path: jamba-v0.1-52b (mamba and
+attention layers 7:1, MoE every other layer) and rwkv6-7b (attention
+free); ``--arch jamba-v0.1-52b --reduced`` and ``--arch rwkv6-7b
+--reduced`` rehearse on the CPU.  Their prompts must be a multiple of the
+mixer's chunk (256 at full width, 8 reduced) once longer than it.  jamba
+at full depth (51.45 B parameters, 95.8 GiB in bf16) needs more than one
+card, as llama4 does (ROADMAP.md item 15's sharding); one card serves it
+at full width and 16 of its 32 layers.
+
 MoE archs: ``--moe-impl`` overrides ``cfg.moe.impl`` (``spgemm`` routes
 the expert matmuls through ``engine.multiply``, on a card the
 block-SpGEMM kernel, under a covering decode envelope resolved through

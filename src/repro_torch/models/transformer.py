@@ -1,23 +1,31 @@
-"""The LM stack for attention decoders: init, prefill, decode.
+"""The LM stack: init, prefill, decode.
 
-The torch twin of ``repro/models/transformer.py`` for its attention mixers
-with dense MLPs (olmo, qwen, gemma2: ``post_norm``, ``qkv_bias``, sliding
-``window``, ``attn_softcap``, ``final_softcap``) and MoE blocks
-(deepseek-moe, llama4: ``models/moe.py``, every ``layer_period``-th layer;
-``forward`` returns their load-balance loss).  The reference stacks each
-pattern position's blocks over the repetitions and scans them; PyTorch
-runs eagerly, so here ``params["blocks"]`` is a plain list with one dict
-per layer, in layer order (layer ``l`` has kind ``layer_kinds()[l %
-period]``), and the cache likewise.  ``interop.params_from_jax`` unstacks
-the reference's pytree into this layout.
+The torch twin of ``repro/models/transformer.py`` for its decoder-only
+archs: attention mixers with dense MLPs (olmo, qwen, gemma2:
+``post_norm``, ``qkv_bias``, sliding ``window``, ``attn_softcap``,
+``final_softcap``), MoE blocks (deepseek-moe, llama4, jamba:
+``models/moe.py``, every ``layer_period``-th layer; ``forward`` returns
+their load-balance loss) and the recurrent mixers: mamba
+(``models/mamba.py``; jamba's 1:7 attention:mamba pattern) and rwkv6
+(``models/rwkv6.py``; time mix and channel mix, no MLP).  The reference
+stacks each pattern position's blocks over the repetitions and scans
+them; PyTorch runs eagerly, so here ``params["blocks"]`` is a plain list
+with one dict per layer, in layer order (layer ``l`` has kind
+``layer_kinds()[l % period]``), and the cache likewise:
+``{"k", "v"}`` for attention, ``{"conv", "ssm"}`` for mamba and
+``{"shift_t", "shift_c", "wkv"}`` for rwkv6, batch on dim 0.
+``interop.params_from_jax`` unstacks the reference's pytree into this
+layout.
 
 The cache is updated in place (``prefill`` and ``decode_step`` return the
-same dict they were given), where the reference returns a new pytree: it
-saves a copy of every layer's K/V per step.
+same dict they were given, K/V rows and recurrent states written into
+its tensors), where the reference returns a new pytree: it saves a copy
+of every layer's K/V per step.  ``forward`` starts the recurrent states
+at zero, as the reference's train path does.
 
-Not ported yet, each raising ``NotImplementedError``: mamba and rwkv6
-mixers, the whisper encoder and the vision prefix (ROADMAP.md Queue A
-items 13.2-13.5), and the training loss (item 15).
+Not ported yet, each raising ``NotImplementedError``: the whisper encoder
+and the vision prefix (ROADMAP.md Queue A items 13.4-13.5), and the
+training loss (item 15).
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ import torch
 from repro_torch.config import ArchConfig, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
+from repro_torch.models import rwkv6 as R
 
 Params = dict[str, Any]
 
@@ -39,10 +49,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for the parts of ``cfg`` the port has
     no code for yet, naming the ROADMAP item that ports them."""
     missing = []
-    if cfg.mixer == "mamba_hybrid":
-        missing.append("mamba")
-    if cfg.mixer == "rwkv6":
-        missing.append("rwkv6")
     if cfg.encoder is not None:
         missing.append("whisper encoder")
     if cfg.frontend == "vision":
@@ -52,7 +58,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
-            "Queue A items 13.2-13.5)")
+            "Queue A items 13.4-13.5)")
     if cfg.dtype not in _DTYPES:
         raise TypeError(f"{cfg.name}: dtype {cfg.dtype!r}, expected one of "
                         f"{sorted(_DTYPES)}")
@@ -76,10 +82,20 @@ def layer_kinds(cfg: ArchConfig) -> list[dict]:
 def _init_block(cfg: ArchConfig, kind: dict, gen: torch.Generator,
                 dtype) -> Params:
     dev = gen.device
-    p: Params = {"ln1": L.init_norm(cfg, cfg.d_model, device=dev),
-                 "attn": A.init_attention(cfg, gen, dtype)}
+    p: Params = {"ln1": L.init_norm(cfg, cfg.d_model, device=dev)}
+    if kind["mixer"] == "attention":
+        p["attn"] = A.init_attention(cfg, gen, dtype)
+    elif kind["mixer"] == "mamba":
+        p["mamba"] = M.init_mamba(cfg, gen, dtype)
+    elif kind["mixer"] == "rwkv6":
+        p["rwkv"] = R.init_rwkv(cfg, gen, dtype)
+        p["rwkv_ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    else:
+        raise ValueError(kind)
     if cfg.post_norm:
         p["post_ln1"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    if kind["mixer"] == "rwkv6":  # the channel mix replaces the MLP
+        return p
     p["ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
     if kind["moe"]:
         p["moe"] = MoE.init_moe(cfg, gen, dtype)
@@ -120,15 +136,24 @@ def init_params(cfg: ArchConfig, generator, *, device=None) -> Params:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device) -> Params:
-    """Zeroed K/V cache, one {"k", "v"} of (batch, hkv, max_len, hd) per
-    layer, in the model dtype."""
+    """Zeroed decode state, one dict per layer by its mixer: K/V
+    {"k", "v"} of (batch, hkv, max_len, hd) in the model dtype for
+    attention, ``mamba.init_mamba_state`` for mamba and
+    ``rwkv6.init_rwkv_state`` for rwkv6."""
     check_supported(cfg)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     dtype = model_dtype(cfg)
-    return {"blocks": [
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.n_layers)]}
+    blocks = []
+    for kind in layer_kinds(cfg):
+        if kind["mixer"] == "mamba":
+            c = M.init_mamba_state(cfg, batch, dtype, device=device)
+        elif kind["mixer"] == "rwkv6":
+            c = R.init_rwkv_state(cfg, batch, dtype, device=device)
+        else:
+            c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        blocks.append(c)
+    return {"blocks": blocks}
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +199,49 @@ def _ffn_res(cfg, kind, p, x):
     return x + y, aux
 
 
+def _store(cache, state) -> None:
+    """Write a recurrent mixer's new state into its cache dict in place
+    (no cache: nothing to keep)."""
+    if cache is not None:
+        for name, t in state.items():
+            cache[name].copy_(t)
+
+
+def _mamba_res(cfg, p, x, state, step):
+    """The mamba mixer's residual (``step`` is ``apply_mamba`` or
+    ``decode_mamba``); returns (x, new state)."""
+    y, state = step(cfg, p["mamba"], L.apply_norm(cfg, p["ln1"], x), state)
+    if cfg.post_norm:
+        y = L.apply_norm(cfg, p["post_ln1"], y)
+    return x + y, state
+
+
+def _rwkv_res(cfg, p, x, state, time_mix, channel_mix):
+    """rwkv6's two residuals, time mix then channel mix (the prefill or
+    the decode pair of functions); returns (x, new state)."""
+    y, state = time_mix(cfg, p["rwkv"], L.apply_norm(cfg, p["ln1"], x),
+                        state)
+    x = x + y
+    y, state = channel_mix(cfg, p["rwkv"],
+                           L.apply_norm(cfg, p["rwkv_ln2"], x), state)
+    return x + y, state
+
+
 def _prefill_block(cfg, kind, p, x, cache, positions):
+    """One layer over the prompt; writes its K/V or its recurrent state
+    into ``cache`` (None: ``forward``, states from zero).  Returns (x, MoE
+    aux loss or None)."""
+    if kind["mixer"] == "mamba":
+        x, st = _mamba_res(cfg, p, x, cache, M.apply_mamba)
+        _store(cache, st)
+        return _ffn_res(cfg, kind, p, x)
+    if kind["mixer"] == "rwkv6":
+        st = cache if cache is not None else R.init_rwkv_state(
+            cfg, x.shape[0], x.dtype, device=x.device)
+        x, st = _rwkv_res(cfg, p, x, st, R.apply_rwkv_time_mix,
+                          R.apply_rwkv_channel_mix)
+        _store(cache, st)
+        return x, None
     xn = L.apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_proj(cfg, p["attn"], xn, positions)
     if cache is not None:
@@ -190,6 +257,15 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
 
 def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
     """Single-token decode body; updates ``cache`` in place."""
+    if kind["mixer"] == "mamba":
+        x, st = _mamba_res(cfg, p, x, cache, M.decode_mamba)
+        _store(cache, st)
+        return _ffn_res(cfg, kind, p, x)[0]
+    if kind["mixer"] == "rwkv6":
+        x, st = _rwkv_res(cfg, p, x, cache, R.decode_rwkv_time_mix,
+                          R.decode_rwkv_channel_mix)
+        _store(cache, st)
+        return x
     xn = L.apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_proj(cfg, p["attn"], xn, rope_pos)
     _update_kv(cache["k"], cache["v"], k, v, position)
@@ -232,8 +308,10 @@ def forward(cfg: ArchConfig, params: Params,
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             cache: Params) -> tuple[torch.Tensor, Params]:
-    """Run the prompt, write its K/V into the cache at [0, S), return the
-    last position's logits (B, 1, V) and the (updated) cache."""
+    """Run the prompt, write its K/V into the cache at [0, S) and advance
+    the recurrent states through it (from the cache's, zero in a fresh
+    cache), return the last position's logits (B, 1, V) and the (updated)
+    cache."""
     x, _ = _run_blocks(cfg, params, tokens, cache)
     logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
     return logits, cache

@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill + decode against the model's KV cache.
+"""Batched serving engine: prefill + decode against the model's cache (K/V
+rows of the attention layers, carried states of the recurrent ones).
 
 The torch twin of ``repro/serving/engine.py``.  Slot-based continuous
 batching: the engine owns ``batch`` slots; requests occupy a slot through
@@ -16,10 +17,18 @@ Two entry points:
   (B,) position vector).  Per-step wall times, occupancy and refill
   counts land in ``last_serve_stats``.
 
-Where the reference runs one full-batch prefill per refill (a TPU program
-must keep its shapes) and splices the fresh rows in, PyTorch runs eagerly,
-so a refill prefills only the refilled slots' prompts and copies their
-rows into the live cache: the same rows, with no work on the others.
+A refill runs one full-batch prefill into a fresh cache, the slots it
+does not fill padded with zeros, and copies the refilled slots' rows into
+the live cache, as the reference does.  (Prefilling only the refilled
+rows would save work, but a request's numbers would then depend on how
+many requests refill with it: cuBLAS picks its GEMM kernel by the row
+count, and in bf16 two kernels round differently.  On the H100,
+rwkv6-7b's first refilled request, prefilled beside 3 others, parted
+from itself generated alone after 12 greedy tokens.)  A row is every
+leaf's slice on the batch dim: K/V rows, and a mamba layer's conv tail
+and SSM state or an rwkv6 layer's shift tails and wkv state, so a
+refilled slot starts from its own prompt's state (a fresh prefill's, from
+zero), never from the previous request's.
 
 Every prefill goes through ``models.attention.chunked_attention``, so on a
 CUDA device through the flash kernel.
@@ -164,34 +173,33 @@ class ServingEngine:
                 step: int, prefills: list):
         """Prefill queued requests into free slots and copy their rows in.
 
-        Only the refilled slots' prompts are prefilled (the reference runs
-        the full batch); their fresh K/V rows replace the live cache's.
+        One full-batch prefill (the other slots padded) into a fresh
+        cache; the refilled slots' rows of every leaf (K/V or recurrent
+        state) replace the live cache's.
         """
         free = [i for i, r in enumerate(active) if r is None]
         slots: list[int] = []
-        rows: list[np.ndarray] = []
+        toks = np.zeros((self.batch, plen), np.int32)
         for slot in free:
             if not queue or queue[0].arrival > step:
                 break
             req = queue.popleft()
-            row = np.zeros(plen, np.int32)
-            row[plen - len(req.prompt):] = req.prompt
-            rows.append(row)
+            toks[slot, plen - len(req.prompt):] = req.prompt
             active[slot] = req
             slots.append(slot)
         if not slots:
             return 0
         _sync(self.device)
         t0 = time.perf_counter()
-        fresh = T.init_cache(self.cfg, len(slots), self.max_len,
+        fresh = T.init_cache(self.cfg, self.batch, self.max_len,
                              device=self.device)
-        logits, fresh = self._prefill(self._tokens(np.stack(rows)), fresh)
+        logits, fresh = self._prefill(self._tokens(toks), fresh)
         first = self._sample(logits)
         idx = torch.tensor(slots, device=self.device)
         for live, new in zip(cache["blocks"], fresh["blocks"]):
             for name in live:
-                live[name][idx] = new[name]
-        next_tok[idx] = first
+                live[name][idx] = new[name][idx]
+        next_tok[idx] = first[idx]
         pos_dev[idx] = plen
         _sync(self.device)
         prefills.append({"step": step, "slots": len(slots),

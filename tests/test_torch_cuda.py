@@ -2,7 +2,8 @@
 and oracle (block_spgemm at every group layout the tuner may pick), the
 launch counters, and the slices on CUDA tensors (the distributed engines,
 the sharded sweep and one measured tuner decision with every rank on the
-card included).  Marked ``gpu``; each
+card included; the reduced recurrent models against the CPU, and the
+memory of a full-width mamba prefill).  Marked ``gpu``; each
 test skips without a CUDA device.  On the card (no jax needed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -382,6 +383,67 @@ def test_reduced_model_cuda_matches_cpu(cuda):
         l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
         torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
         pos = pos + 1
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b"])
+def test_reduced_recurrent_model_cuda_matches_cpu(cuda, arch):
+    """The reduced recurrent archs (f32), the same parameters on the card
+    and the CPU: prefill (one flash launch per attention layer: 2 of
+    jamba's 16, none of rwkv6's) and decode steps with per-slot
+    positions, logits within 1e-4; every state leaf after the prefill
+    too."""
+    cfg = get_arch(arch).reduced()
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    p_dev = _to(p_cpu, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 64)))
+    c_cpu = T.init_cache(cfg, 3, 80, device="cpu")
+    c_dev = T.init_cache(cfg, 3, 80, device=cuda)
+    before = FA.launches
+    l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(cuda), c_dev)
+    n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+    assert FA.launches - before == n_attn
+    l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for got, want in zip(c_dev["blocks"], c_cpu["blocks"]):
+        for name in want:
+            torch.testing.assert_close(got[name].cpu(), want[name],
+                                       rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([64, 60, 63])
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)))
+        l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(cuda), c_dev,
+                                     pos.to(cuda))
+        l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
+        torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+        pos = pos + 1
+
+
+def test_mamba_prefill_memory_stays_per_chunk(cuda):
+    """One mamba layer at jamba's full width (d 4,096, d_inner 8,192,
+    d_state 16, chunk 256), bf16, on 2 x 2,048 tokens: the peak above the
+    inputs stays under one (B, S, d_inner, d_state) f32 tensor (2 GiB),
+    where building the coefficients for the whole sequence would take
+    three of them.  The regression guard for the chunked
+    coefficients."""
+    from repro_torch.models import mamba as M
+
+    cfg = get_arch("jamba-v0.1-52b")
+    di, n, _, _ = M.mamba_dims(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = M.init_mamba(cfg, gen, torch.bfloat16)
+    b, s = 2, 2048
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, st = M.apply_mamba(cfg, p, x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    full = b * s * di * n * 4
+    assert peak < full, (peak, full)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st["ssm"]).all())
 
 
 def test_serving_launches_flash_per_layer_per_prefill(cuda):

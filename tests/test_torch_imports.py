@@ -87,3 +87,15 @@ def test_import_loads_no_jax(module, loaded_by):
     """Importing the module puts neither jax nor the JAX package into
     ``sys.modules``."""
     assert loaded_by[module] == [], f"{module} loaded {loaded_by[module]}"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.mamba", "repro_torch.models.rwkv6",
+    "repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.rwkv6_7b"])
+def test_slice8_modules_stand_alone(module, loaded_by):
+    """The recurrent mixers and their archs' configs are in the port's
+    module list, import neither jax nor ``repro`` and load neither."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert not FORBIDDEN.findall(path.read_text())
+    assert loaded_by[module] == []
