@@ -28,15 +28,18 @@ Phases, each raising on failure:
 5. the flash-attention kernels (bf16 on the tensor cores, f32 SIMT)
    against their plain version and the ``ref.attention_ref`` oracle on the
    card: causal on and off, windows 16 / 32 / 64 / 100 / 128, softcaps
-   30 / 50, GQA 8:2, ragged 200 / 333, sq != skv, d 32 / 64 / 128; the
+   30 / 50, GQA 8:2, ragged 200 / 333, sq != skv, d 32 / 64 / 128,
+   whisper's encoder (h 20, 1,500 frames, non-causal: a 92-key tail) and
+   cross-attention (32 queries against 1,500 keys); the
    launch counter must rise by one per call; then bf16 layouts: the
    projections' head-transposed views (no copy), a seq stride TMA cannot
    take (one counted copy per tensor) and a query offset;
 6. the whole reduced olmo-1b, jamba-v0.1-52b (mamba, attention, MoE; 16
-   layers) and rwkv6-7b (f32) on the card against the same models on the
-   CPU, from the same parameters: prefill (the flash kernel once per
-   attention layer) and four decode steps with per-slot positions,
-   logits within 1e-4;
+   layers), rwkv6-7b, whisper-large-v3 (with frames) and pixtral-12b
+   (with patches), f32, on the card against the same models on the CPU,
+   from the same parameters: prefill (the flash kernel once per attention
+   layer; whisper's also once per encoder layer and per cross-attention)
+   and four decode steps with per-slot positions, logits within 1e-4;
 7. full-width serving of olmo-1b (16 layers, d_model 2048, bf16) through
    ``repro_torch.launch.serve.run``: 16 requests through 8 slots, 2,048-
    token prompts, 64 new tokens each, both kernels' counts set to 0 just
@@ -118,7 +121,30 @@ Phases, each raising on failure:
     18 (a): tokens in the vocabulary, first tokens the argmax of a
     separate prefill, request 0 and the first refilled request as
     generated alone, neither kernel launched; the kernels a prefill
-    launches (counted under ``torch.profiler`` at 256 and 512 tokens).
+    launches (counted under ``torch.profiler`` at 256 and 512 tokens);
+20. whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+    layers, bf16, 1.6 B parameters from seed 0) through the model's entry
+    points with frames: 8 requests of 1,500 frame embeddings and a
+    32-token prompt, 128 new greedy tokens (``T.prefill(frame_embeds=)``,
+    then ``decode_step`` at per-slot positions): tokens in the
+    vocabulary, first tokens the argmax of a separate prefill, 96 flash
+    launches a prefill (encoder, self and cross) with no TMA copy, a
+    non-zero cross cache, request 0 generated alone equal to request 0
+    served; the encoder alone timed; a decode step under
+    ``torch.profiler`` by group (GEMMs, cross-attention, the rest) with
+    the idle share and the f32 copy of the cross K cache timed; the flash
+    kernel at the encoder's shape (b 8, h 20, s 1,500, d 64, non-causal)
+    against its plain version, timed beside SDPA and the bound;
+21. pixtral-12b at full width and depth (40 layers, bf16, 12.25 B
+    parameters from seed 0): (a) 16 requests of 1,024-token prompts + 64
+    new through 8 slots via ``repro_torch.launch.serve.run`` with phase
+    7's gates (40 flash launches a prefill round); (b) early fusion, 256
+    patch embeddings in front of 8 of those prompts, 64 new greedy tokens
+    (finite logits, first tokens the argmax of a separate prefill, 40
+    launches, logits that differ from the text-only ones); (c) the flash
+    kernel at (a)'s shape (h 32, hkv 8, s 1,024, d 128, causal) against
+    its plain version, timed beside SDPA and the bound; (d) a prefill
+    round and four decode steps under ``torch.profiler`` by kernel group.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -466,6 +492,10 @@ FLASH_CASES = (
     (1, 8, 2, 200, 328, 64, True, 64, None),
     (1, 4, 2, 333, 200, 128, False, None, 30.0),
     (2, 8, 2, 256, 256, 32, True, 16, 50.0),
+    # whisper: the encoder's self-attention over 1,500 frames (a 92-key
+    # tail past the last 128-key tile) and the decoder's cross-attention
+    (2, 20, 20, 1500, 1500, 64, False, None, None),
+    (2, 20, 20, 32, 1500, 64, False, None, None),
 )
 
 
@@ -531,14 +561,43 @@ def phase_flash_vs_plain(torch, np, FA, ref) -> float:
 
 # phase 6: the reduced models (f32) on the card and on the CPU; the
 # prompt is a multiple of the recurrent mixers' reduced chunk (8)
-MODEL_ARCHS = ("olmo-1b", "jamba-v0.1-52b", "rwkv6-7b")
+MODEL_ARCHS = ("olmo-1b", "jamba-v0.1-52b", "rwkv6-7b", "whisper-large-v3",
+               "pixtral-12b")
+
+
+def _stub_embeds(torch, np, cfg, batch: int, seed: int, dtype=None) -> dict:
+    """The prefill keyword of an arch's stub frontend, drawn from ``seed``
+    on the card: whisper's ``frame_embeds`` (batch, n_frames, d), pixtral's
+    ``patch_embeds`` (batch, n_patches, d); none for the others."""
+    if cfg.encoder is not None:
+        name, n = "frame_embeds", cfg.encoder.n_frames
+    elif cfg.frontend == "vision":
+        name, n = "patch_embeds", cfg.n_patches
+    else:
+        return {}
+    x = np.random.default_rng(seed).standard_normal((batch, n, cfg.d_model),
+                                                    dtype=np.float32)
+    return {name: torch.from_numpy(x).to(
+        "cuda", dtype or getattr(torch, cfg.dtype))}
+
+
+def _flash_per_prefill(T, cfg, with_frames: bool = True) -> int:
+    """Flash launches of one prefill: one per attention layer, and with
+    an encoder and frames one per encoder layer and one more (the
+    cross-attention) per decoder layer."""
+    n = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+    if cfg.encoder is not None and with_frames:
+        n += cfg.encoder.n_layers + cfg.n_layers
+    return n
 
 
 def phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch) -> float:
-    """Phase 6: reduced olmo-1b, jamba-v0.1-52b and rwkv6-7b (f32), the
-    same parameters on the card and on the CPU: prefill (the flash kernel
-    once per attention layer: olmo's 4, jamba's 2 of 16, none of rwkv6's)
-    and four decode steps with per-slot positions."""
+    """Phase 6: reduced olmo-1b, jamba-v0.1-52b, rwkv6-7b, whisper-large-v3
+    (with frames) and pixtral-12b (with patches), f32, the same parameters
+    and embeddings on the card and on the CPU: prefill (the flash kernel
+    once per attention layer: olmo's 4, jamba's 2 of 16, none of rwkv6's,
+    whisper's 2 encoder + 2 self + 2 cross, pixtral's 2) and four decode
+    steps with per-slot positions."""
     worst_all = 0.0
     for arch in MODEL_ARCHS:
         cfg = get_arch(arch).reduced()
@@ -548,12 +607,14 @@ def phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch) -> float:
         rng = np.random.default_rng(SEED)
         batch, plen, max_len = 4, 200, 256
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, plen)))
+        emb = _stub_embeds(torch, np, cfg, batch, SEED + 1)
         c_cpu = T.init_cache(cfg, batch, max_len, device="cpu")
         c_dev = T.init_cache(cfg, batch, max_len, device=dev)
         before = FA.launches
-        l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(dev), c_dev)
+        l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(dev), c_dev, **emb)
         launched = FA.launches - before
-        l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu)
+        l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu,
+                                 **{k: v.cpu() for k, v in emb.items()})
         worst = float((l_dev.cpu() - l_cpu).abs().max())
         pos = torch.tensor([plen, plen - 7, plen - 50, plen - 1])
         for _ in range(4):
@@ -564,34 +625,35 @@ def phase_model_cuda_vs_cpu(torch, np, T, FA, get_arch) -> float:
             worst = max(worst, float((l_dev.cpu() - l_cpu).abs().max()))
             pos = pos + 1
         n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        want = _flash_per_prefill(T, cfg)
         print(f"[6] reduced {arch} f32 ({cfg.n_layers} layers, {n_attn} "
-              f"attention, d_model {cfg.d_model}), cuda vs cpu: prefill + 4 "
-              f"decode steps, max |logit err| {worst:.3e} (tolerance "
-              f"{MODEL_TOL}), flash launches in the prefill {launched}",
-              flush=True)
-        if launched != n_attn:
+              f"attention, d_model {cfg.d_model}{', ' if emb else ''}"
+              f"{', '.join(emb)}), cuda vs cpu: prefill + 4 decode steps, "
+              f"max |logit err| {worst:.3e} (tolerance {MODEL_TOL}), flash "
+              f"launches in the prefill {launched}", flush=True)
+        if launched != want:
             raise AssertionError(f"{arch}: prefill launched the flash kernel"
-                                 f" {launched} times for {n_attn} attention "
-                                 "layers")
+                                 f" {launched} times, not {want}")
         if not worst <= MODEL_TOL:
             raise AssertionError(f"{arch} on cuda vs cpu: {worst}")
         worst_all = max(worst_all, worst)
     return worst_all
 
 
-def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
-    """Phase 7: the serving path at full width, through the entry point;
-    returns the report, and a second engine with the same model and the
-    first round's prompts for phase 8."""
+def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV, tag="[7]"):
+    """Phase 7 (and 21 (a)): the serving path at full width, through the
+    entry point; returns the report, the engine that served it and the
+    first round's prompts on the card (for phase 8)."""
+    built = serve.build(argv)
     K.launches = 0
     FA.launches = 0
     FA.copies = 0
-    st = serve.run(argv)
+    st = serve.run(argv, built=built)
     launches = FA.launches
     spgemm_launches = K.launches
     copies = FA.copies
     n_rounds = len(st["prefill_s"])
-    print(f"[7] serve: {st['requests']} requests, {st['tokens']} tokens, "
+    print(f"{tag} serve: {st['requests']} requests, {st['tokens']} tokens, "
           f"wall {st['wall_s']:.3f} s, {st['tokens_per_s']:.1f} tok/s, "
           f"prefill s per round {[round(x, 4) for x in st['prefill_s']]}, "
           f"decode ms/step median {st['decode_ms_median']:.4f}, refills "
@@ -610,9 +672,8 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
     if not st["ok"]:
         raise AssertionError("a request got too few tokens or a token "
                              "outside the vocabulary")
-    # the same model again (same seed, same device): the prefill logits
-    # of the first round, and request 0 generated alone
-    _, cfg, engine, prompts = serve.build(argv)
+    # a separate prefill of the first round, and request 0 generated alone
+    _, cfg, engine, prompts = built
     n = engine.batch
     toks = torch.from_numpy(np.stack(prompts[:n])).to(engine.device,
                                                       torch.long)
@@ -625,7 +686,7 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV):
     got_first = [o[0] for o in st["outputs"][:n]]
     solo = engine.generate([prompts[0]])[0]
     same = solo == st["outputs"][0]
-    print(f"[7] prefill logits finite, max |logit| "
+    print(f"{tag} prefill logits finite, max |logit| "
           f"{float(logits.float().abs().max()):.3f}; first tokens "
           f"{'equal' if first == got_first else 'DIFFER'} to their argmax; "
           f"request 0 served {'equals' if same else 'DIFFERS from'} "
@@ -686,10 +747,11 @@ def _profile_window(torch, fn, group=_kernel_group,
     return wall_ms, groups, n_launches, sorted(kernels, reverse=True)[:6]
 
 
-def phase_breakdown(torch, T, engine, toks, n_decode: int = 16) -> None:
-    """Phase 8: device time by kernel group and idle share, for one
-    prefill round and ``n_decode`` decode steps (greedy, synchronised
-    each step as ``serve`` is)."""
+def phase_breakdown(torch, T, engine, toks, n_decode: int = 16,
+                    tag: str = "[8]") -> None:
+    """Phase 8 (and 21 (d)): device time by kernel group and idle share,
+    for one prefill round and ``n_decode`` decode steps (greedy,
+    synchronised each step as ``serve`` is)."""
     cfg, n = engine.cfg, toks.shape[0]
     cache = T.init_cache(cfg, n, engine.max_len, device=engine.device)
     box = {}
@@ -716,22 +778,24 @@ def phase_breakdown(torch, T, engine, toks, n_decode: int = 16) -> None:
         idle = 1.0 - busy / wall
         per = ", ".join(f"{k} {v / steps:.4f}" for k, v in groups.items())
         unit = "round" if steps == 1 else "step"
-        print(f"[8] {name} ({steps} x): wall {wall / steps:.4f} ms, device "
+        print(f"{tag} {name} ({steps} x): wall {wall / steps:.4f} ms, device "
               f"busy {busy / steps:.4f} ms, idle share {idle:.4f}, "
               f"{n_launches / steps:.0f} kernels per {unit}; device ms per "
               f"{unit}: {per}", flush=True)
         for ms, count, key in top:
-            print(f"[8]   {ms / steps:9.4f} ms  x{count // steps:<5d} "
+            print(f"{tag}   {ms / steps:9.4f} ms  x{count // steps:<5d} "
                   f"{key[:90]}", flush=True)
     del cache, box
 
 
-def _flash_bound(b, h, s, d, itemsize, causal=True) -> tuple[float, str]:
+def _flash_bound(b, h, hkv, sq, skv, d, itemsize,
+                causal=True) -> tuple[float, str]:
     """Least time: 4 d operations per kept (q, k) pair at the bf16 tensor
-    rate, or q, k, v read once and o written once at the memory rate."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    rate (causal row i keeps i + 1 keys, sq == skv; a non-causal row all
+    skv), or q, k, v read once and o written once at the memory rate."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
     t_ops = 4.0 * d * pairs / PEAK_BF16_FLOPS
-    t_bytes = 4.0 * b * h * s * d * itemsize / PEAK_BYTES_S
+    t_bytes = 2.0 * b * d * (h * sq + hkv * skv) * itemsize / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -789,7 +853,7 @@ def phase_flash_serving_shape(torch, np, FA) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=10,
                           warmup=2)
-    bound_ms, bound_by = _flash_bound(b, h, s, d, 2)
+    bound_ms, bound_by = _flash_bound(b, h, h, s, s, d, 2)
     tflops = 4.0 * d * b * h * (s * (s + 1) // 2) / ms / 1e9
     print(f"[9] flash at b={b} h={h} s={s} d={d} bf16 causal: kernel vs "
           f"plain max |err| {err:.3e}; times (ms, median of CUDA events): "
@@ -1973,52 +2037,6 @@ def _jamba_moe_kernel(torch, K, S, MoE, cfg, p) -> dict:
                 products=n)
 
 
-def _jamba_flash(torch, np, FA, cfg) -> dict:
-    """Phase 18 (e): the flash kernel at jamba's attention shape (b 8,
-    h 32, hkv 8, s 2,048, d 128, bf16, causal; one prefill round's
-    layer) against its plain version (phase 9's bf16 limit), timed
-    beside the plain version, ``scaled_dot_product_attention`` with GQA
-    and the bound."""
-    b, s = 8, 2048
-    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rng = np.random.default_rng(SEED + 3)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d),
-                                                    dtype=np.float32))
-               .to("cuda", torch.bfloat16) for n in (h, hkv, hkv))
-    got = FA.flash_attention(q, k, v, causal=True)
-    plain = FA.flash_attention_plain(q, k, v, causal=True)
-    keys = torch.arange(1, s + 1, device="cuda", dtype=torch.float32)
-    diff = (got.float() - plain.float()).abs()
-    ratio = float((diff / flash_serve_limit(plain, keys,
-                                            **FLASH_SERVE_TOL_BF16)).max())
-    err = float(diff.max())
-    del got, plain, diff
-    if not ratio <= 1.0:
-        raise AssertionError(f"flash at jamba's shape: max |err| {err}")
-    ms = _time_ms(lambda: FA.flash_attention(q, k, v, causal=True), reps=10,
-                  warmup=2)
-    plain_ms = _time_ms(lambda: FA.flash_attention_plain(q, k, v,
-                                                         causal=True),
-                        reps=2, warmup=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                       enable_gqa=True), reps=10, warmup=2)
-    pairs = b * h * s * (s + 1) // 2
-    t_ops = 4.0 * d * pairs / PEAK_BF16_FLOPS
-    t_bytes = (2 * h + 2 * hkv) * b * s * d * 2 / PEAK_BYTES_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[18] flash at jamba's shape b={b} h={h} hkv={hkv} s={s} d={d} "
-          f"bf16 causal: kernel vs plain max |err| {err:.3e}, worst |err| /"
-          f" limit {ratio:.4f}; times (ms, median of CUDA events): kernel "
-          f"{ms:.4f}  plain {plain_ms:.4f}  library(sdpa, enable_gqa) "
-          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by})", flush=True)
-    del q, k, v
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
-
-
 def phase_jamba(torch, np, K, S, FA, T, MoE, serve, get_arch
                 ) -> tuple[int, int, dict]:
     """Phase 18: jamba-v0.1-52b at full width (d 4,096, d_ff 14,336, 16
@@ -2121,7 +2139,9 @@ def phase_jamba(torch, np, K, S, FA, T, MoE, serve, get_arch
     kern = _jamba_moe_kernel(torch, K, S, MoE, cfg,
                              params["blocks"][first_moe]["moe"])
     del params
-    kern["flash"] = _jamba_flash(torch, np, FA, cfg)
+    kern["flash"] = _flash_at(torch, np, FA, (8, cfg.n_heads, cfg.n_kv_heads,
+                                              2048, 2048, cfg.hd), True,
+                              "[18]", SEED + 3)
     torch.cuda.empty_cache()
     print(f"[18] memory allocated after freeing the weights: {_gib(torch)}",
           flush=True)
@@ -2194,6 +2214,356 @@ def phase_rwkv(torch, np, K, FA, T, serve) -> None:
           f"length, from the two counts)", flush=True)
     del built, engine, st
     torch.cuda.empty_cache()
+
+
+# phase 20: whisper-large-v3 at full width and depth, served as the
+# reference's prefill step serves it (frames through the entry points):
+# 8 requests, each 1,500 frame embeddings (30 s of audio, bf16, from the
+# seed) and a 32-token decoder prompt, 128 new greedy tokens each
+WHISPER = dict(batch=8, prompt=32, new=128)
+# phase 21: pixtral-12b at full width and depth; (a) text traffic through
+# the entry point: 16 requests of 1,024-token prompts + 64 new through 8
+# slots (one refill round); (b) early fusion: 256 patch embeddings in
+# front of 8 of those prompts (1,280 positions), 64 new greedy tokens
+PIXTRAL_ARGV = ["--arch", "pixtral-12b", "--batch", "8", "--prompt-len",
+                "1024", "--max-new", "64", "--max-len", "1152", "--queue",
+                "16", "--seed", str(SEED)]
+PIXTRAL_NEW = 64
+
+
+def _greedy(torch, T, cfg, params, toks, n_new: int, max_len: int,
+            **embeds) -> dict:
+    """Greedy generation through the model's entry points: ``T.prefill``
+    with the stub embeddings into a fresh cache, then ``n_new - 1``
+    ``decode_step``s at per-slot (B,) positions, the host reading each
+    step's tokens.  Returns the tokens (B lists), the prefill's logits,
+    its flash launches and seconds, the decode steps' seconds and the
+    cache."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, s = toks.shape
+    cache = T.init_cache(cfg, b, max_len, device=toks.device)
+    torch.cuda.synchronize()
+    before = FA.launches
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, toks, cache, **embeds)
+    tok = logits[:, -1].argmax(-1)
+    out = [tok.tolist()]
+    prefill_s = time.perf_counter() - t0
+    launches = FA.launches - before
+    pos = torch.full((b,), s, device=toks.device)
+    steps = []
+    for _ in range(n_new - 1):
+        t1 = time.perf_counter()
+        step, cache = T.decode_step(cfg, params, tok[:, None], cache, pos)
+        tok = step[:, -1].argmax(-1)
+        out.append(tok.tolist())  # waits for the device
+        steps.append(time.perf_counter() - t1)
+        pos = pos + 1
+    return dict(tokens=[list(r) for r in zip(*out)], logits=logits,
+                launches=launches, prefill_s=prefill_s, decode_s=steps,
+                cache=cache)
+
+
+def _alone(torch, toks, embeds: dict) -> tuple:
+    """Request 0 as ``ServingEngine.generate`` would run it alone: the
+    full batch, every other row (tokens and embeddings) zero."""
+    t = torch.zeros_like(toks)
+    t[0] = toks[0]
+    e = {}
+    for k, v in embeds.items():
+        e[k] = torch.zeros_like(v)
+        e[k][0] = v[0]
+    return t, e
+
+
+def _flash_at(torch, np, FA, shape: tuple, causal: bool, tag: str,
+              seed: int) -> dict:
+    """The flash kernel at one attention shape of a served model (b, h,
+    hkv, sq, skv, d), checked and timed.  The bf16 tensor-core kernel
+    against its plain version, each output within ``flash_serve_limit``
+    for the keys its row keeps (i + 1 for causal row i, sq == skv; all skv
+    otherwise), then the SIMT f32 kernel on the same inputs cast to f32 at
+    1e-4 (phase 9's checks); the bf16 kernel timed beside its plain
+    version, ``scaled_dot_product_attention`` (``enable_gqa`` when hkv <
+    h) and the bound."""
+    b, h, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d),
+                                                    dtype=np.float32))
+               .to("cuda", torch.bfloat16)
+               for n, s in ((h, sq), (hkv, skv), (hkv, skv)))
+    keys = (torch.arange(1, sq + 1, device="cuda", dtype=torch.float32)
+            if causal else torch.full((sq,), float(skv), device="cuda"))
+    errs, ratios = {}, {}
+    for dtype, tol in (("bfloat16", FLASH_SERVE_TOL_BF16),
+                       ("float32", dict(atol=FLASH_TOL["float32"],
+                                        rtol=FLASH_TOL["float32"]))):
+        x = [t.to(getattr(torch, dtype)) for t in (q, k, v)]
+        got = FA.flash_attention(*x, causal=causal)
+        plain = FA.flash_attention_plain(*x, causal=causal)
+        diff = (got.float() - plain.float()).abs()
+        n = keys if dtype == "bfloat16" else torch.ones_like(keys)
+        ratios[dtype] = float((diff / flash_serve_limit(plain, n,
+                                                        **tol)).max())
+        errs[dtype] = float(diff.max())
+        del x, got, plain, diff
+    kind = "causal" if causal else "non-causal"
+    where = f"b={b} h={h} hkv={hkv} sq={sq} skv={skv} d={d} {kind}"
+    print(f"{tag} flash at {where}: kernel vs plain max |err| bf16 "
+          f"{errs['bfloat16']:.3e} (worst |err| / limit "
+          f"{ratios['bfloat16']:.4f}), f32 {errs['float32']:.3e} (worst "
+          f"{ratios['float32']:.4f})", flush=True)
+    if not max(ratios.values()) <= 1.0:
+        raise AssertionError(f"flash kernel vs plain at {where}: max |err| "
+                             f"{errs}")
+    ms = _time_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
+                  reps=10, warmup=2)
+    plain_ms = _time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                         causal=causal),
+                        reps=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = dict(enable_gqa=True) if hkv < h else {}
+    library_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=causal, **gqa),
+                          reps=10, warmup=2)
+    bound_ms, bound_by = _flash_bound(b, h, hkv, sq, skv, d, 2, causal)
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
+    print(f"{tag} flash at {where} bf16: times (ms, median of CUDA events):"
+          f" kernel {ms:.4f}  plain {plain_ms:.4f}  library(sdpa"
+          f"{', enable_gqa' if gqa else ''}) {library_ms:.4f}  bound "
+          f"{bound_ms:.4f} ({bound_by}); kernel "
+          f"{4.0 * d * pairs / ms / 1e9:.3f} TFLOP/s on the kept pairs",
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs["bfloat16"])
+
+
+def _whisper_breakdown(torch, T, cfg, params, run: dict) -> None:
+    """Phase 20 (c): one decode step of the served batch under
+    ``torch.profiler``: device time by group (GEMMs, the cross-attention
+    sub-layers' other kernels, the rest) with the idle share; and the f32
+    copy of one layer's cross K cache that ``decode_attention`` makes,
+    timed alone (CUDA events) and times the decoder's layers."""
+    cache, b = run["cache"], len(run["tokens"])
+    tok = torch.tensor([r[-1] for r in run["tokens"]], device="cuda")
+    pos = torch.full((b,), WHISPER["prompt"] + WHISPER["new"] - 1,
+                     device="cuda")
+
+    def step():
+        logits, _ = T.decode_step(cfg, params, tok[:, None], cache, pos)
+        logits[:, -1].argmax(-1).tolist()
+
+    step()  # warm
+    with _Spans(torch, [(T, "_cross_decode", "xattn")]):
+        wall, groups, n_kernels = _span_profile(
+            torch, step, {"xattn": "cross_attention"})
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in whisper's "
+                             "decode step")
+    per = ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+    xk = cache["blocks"][0]["xk"]
+    cast_ms = _time_ms(lambda: xk.float(), reps=10, warmup=2)
+    print(f"[20] decode step under torch.profiler: wall {wall:.4f} ms, "
+          f"device busy {busy:.4f} ms, idle share {1.0 - busy / wall:.4f}, "
+          f"{n_kernels} kernels; device ms: {per}; the f32 copy of one "
+          f"layer's cross K cache ({xk.numel() * 4 / 1e6:.1f} MB) "
+          f"{cast_ms:.4f} ms, x {cfg.n_layers} layers = "
+          f"{cast_ms * cfg.n_layers:.4f} ms a step", flush=True)
+
+
+def phase_whisper(torch, np, FA, T, get_arch) -> tuple[int, dict]:
+    """Phase 20: whisper-large-v3 at full width and depth (32 encoder + 32
+    decoder layers, d 1,280, 20 heads of 64, d_ff 5,120, vocab 51,866),
+    bf16, weights from seed 0, through the model's entry points with
+    frames: (a) 8 requests, each 1,500 frame embeddings and a 32-token
+    prompt, 128 new greedy tokens (``T.prefill(frame_embeds=)``, then
+    ``decode_step`` at per-slot positions); gates: every token in the
+    vocabulary, the first tokens the argmax of a separate prefill, 96
+    flash launches a prefill (32 encoder + 32 self + 32 cross) with no
+    input copied for TMA, a non-zero cross cache after the prefill, and
+    request 0 generated alone (the other rows zero) equal to request 0
+    served; (b) the encoder alone, timed; (c) a decode step by group;
+    (d) the flash kernel at the three shapes the prefill gives it: the
+    encoder's self-attention (b, 20, 1,500, 64, non-causal), the
+    cross-attention (32 queries against 1,500 frames, non-causal) and the
+    decoder's causal self-attention (32 x 32).  Returns the flash launches
+    of the served prefill and (d)'s figures by shape."""
+    torch.cuda.empty_cache()
+    cfg = get_arch("whisper-large-v3")
+    b, plen, n_new = WHISPER["batch"], WHISPER["prompt"], WHISPER["new"]
+    max_len = plen + n_new
+    print(f"[20] whisper-large-v3: {cfg.encoder.n_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (hd {cfg.hd}), {cfg.param_count() / 1e9:.3f}"
+          f" B parameters; memory allocated before the weights: "
+          f"{_gib(torch)}", flush=True)
+    params = T.init_params(cfg, SEED, device="cuda")
+    print(f"[20] weights resident: {_gib(torch)}", flush=True)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, plen))).to(
+        "cuda", torch.long)
+    emb = _stub_embeds(torch, np, cfg, b, SEED + 5)
+    want = _flash_per_prefill(T, cfg)
+
+    # (a) the served batch
+    torch.cuda.reset_peak_memory_stats()
+    FA.copies = 0
+    t0 = time.perf_counter()
+    run = _greedy(torch, T, cfg, params, toks, n_new, max_len, **emb)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r) for r in run["tokens"])
+    copies = FA.copies
+    zero = [bool((c["xk"] == 0).all() or (c["xv"] == 0).all())
+            for c in run["cache"]["blocks"]]
+    dec_ms = 1e3 * statistics.median(run["decode_s"])
+    print(f"[20] {b} requests x ({cfg.encoder.n_frames} frames + {plen} "
+          f"tokens) + {n_new} new: {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.3f} tokens/s), prefill (encoder included) "
+          f"{run['prefill_s']:.4f} s, decode median {dec_ms:.4f} ms; flash "
+          f"launches in the prefill {run['launches']} (want {want}), flash "
+          f"input copies {copies}; layers whose cross cache stayed zero "
+          f"{sum(zero)}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB", flush=True)
+    if not all(0 <= t < cfg.vocab and len(r) == n_new
+               for r in run["tokens"] for t in r):
+        raise AssertionError("whisper: too few tokens or a token outside "
+                             "the vocabulary")
+    if run["launches"] != want or copies:
+        raise AssertionError(f"whisper: {run['launches']} flash launches "
+                             f"(want {want}), {copies} copies")
+    if any(zero):
+        raise AssertionError("whisper: the prefill left a cross cache zero")
+    first = run["logits"][:, -1].argmax(-1).tolist()
+    again, _ = T.prefill(cfg, params, toks,
+                         T.init_cache(cfg, b, max_len, device="cuda"), **emb)
+    if not bool(torch.isfinite(again).all()):
+        raise AssertionError("whisper: prefill logits are not finite")
+    argmax = again[:, -1].argmax(-1).tolist()
+    got = [r[0] for r in run["tokens"]]
+    toks0, emb0 = _alone(torch, toks, emb)
+    solo = _greedy(torch, T, cfg, params, toks0, n_new, max_len, **emb0)
+    same = solo["tokens"][0] == run["tokens"][0]
+    print(f"[20] prefill logits finite, max |logit| "
+          f"{float(again.float().abs().max()):.3f}; first tokens "
+          f"{'equal' if got == argmax == first else 'DIFFER'} to the argmax "
+          f"of a separate prefill; request 0 served "
+          f"{'equals' if same else 'DIFFERS from'} request 0 generated "
+          f"alone", flush=True)
+    if not got == argmax == first:
+        raise AssertionError(f"whisper: first tokens {got} != argmax "
+                             f"{argmax}")
+    if not same:
+        raise AssertionError(f"whisper: served {run['tokens'][0]} != alone "
+                             f"{solo['tokens'][0]}")
+    del again, solo
+
+    # (b) the encoder alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.encode(cfg, params, emb["frame_embeds"])
+    torch.cuda.synchronize()
+    print(f"[20] the encoder alone over {b} x {cfg.encoder.n_frames} frames:"
+          f" {time.perf_counter() - t0:.4f} s", flush=True)
+
+    # (c) where a decode step goes; (d) the kernel at the encoder's shape
+    _whisper_breakdown(torch, T, cfg, params, run)
+    launches = run["launches"]
+    del run, params, emb
+    torch.cuda.empty_cache()
+    h, f = cfg.n_heads, cfg.encoder.n_frames
+    return launches, {name: _flash_at(torch, np, FA, (b, h, h, sq, skv,
+                                                      cfg.hd), causal,
+                                      f"[20] ({name})", seed)
+                      for name, sq, skv, causal, seed in (
+                          ("encoder", f, f, False, SEED + 4),
+                          ("cross", plen, f, False, SEED + 7),
+                          ("self", plen, plen, True, SEED + 8))}
+
+
+def phase_pixtral(torch, np, K, FA, T, serve) -> tuple[int, dict]:
+    """Phase 21: pixtral-12b at full width and depth (40 layers, d 5,120,
+    32 heads of 128 with 8 kv heads, d_ff 14,336, vocab 131,072, rope
+    theta 1e9), bf16, weights from seed 0: (a) text traffic through
+    ``repro_torch.launch.serve.run`` with phase 7's gates (40 flash
+    launches a prefill round); (b) early fusion through
+    ``T.prefill(patch_embeds=)``: 256 patch embeddings (bf16, from the
+    seed) in front of 8 of (a)'s prompts, 64 new greedy tokens; gates:
+    finite logits, the first tokens the argmax of a separate prefill, 40
+    flash launches, and logits that differ from the same tokens' text-only
+    logits; (c) the flash kernel at (a)'s prefill shape (1,024
+    positions) and (b)'s (1,280); (d) a prefill round and four decode
+    steps of (a)'s engine under ``torch.profiler`` by kernel group (run
+    after (a)).  Returns the flash launches of (a) and (b), and (c)'s
+    figures by shape."""
+    torch.cuda.empty_cache()
+    print(f"[21] memory allocated before the weights: {_gib(torch)}",
+          flush=True)
+    st, engine, toks = phase_serve(torch, np, T, K, FA, serve, PIXTRAL_ARGV,
+                                   tag="[21] (a)")
+    cfg, params = engine.cfg, engine.params
+    print(f"[21] (a) {cfg.param_count() / 1e9:.3f} B parameters, peak "
+          f"{st['peak_mem_gib']:.3f} GiB, prefill s per round "
+          f"{[round(x, 4) for x in st['prefill_s']]}", flush=True)
+    phase_breakdown(torch, T, engine, toks, n_decode=4, tag="[21] (d)")
+
+    # (b) early fusion: placeholder ids under the prefix, then the prompt
+    b = engine.batch
+    ids = torch.cat([torch.zeros((b, cfg.n_patches), dtype=torch.long,
+                                 device="cuda"), toks], dim=1)
+    emb = _stub_embeds(torch, np, cfg, b, SEED + 6)
+    emb["patch_embeds"] *= 0.02  # the token embeddings' scale
+    max_len = ids.shape[1] + PIXTRAL_NEW
+    t0 = time.perf_counter()
+    run = _greedy(torch, T, cfg, params, ids, PIXTRAL_NEW, max_len, **emb)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r) for r in run["tokens"])
+    dec_ms = 1e3 * statistics.median(run["decode_s"])
+    again, cache = T.prefill(cfg, params, ids,
+                             T.init_cache(cfg, b, max_len, device="cuda"),
+                             **emb)
+    text, cache = T.prefill(cfg, params, ids, cache)
+    del cache
+    argmax = again[:, -1].argmax(-1).tolist()
+    got = [r[0] for r in run["tokens"]]
+    differ = float((text.float() - again.float()).abs().max())
+    print(f"[21] (b) early fusion, {b} x ({cfg.n_patches} patches + "
+          f"{toks.shape[1]} tokens) + {PIXTRAL_NEW} new: {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.3f} tokens/s), prefill "
+          f"{run['prefill_s']:.4f} s, decode median {dec_ms:.4f} ms, flash "
+          f"launches in the prefill {run['launches']}; logits finite: "
+          f"{bool(torch.isfinite(again).all())}; first tokens "
+          f"{'equal' if got == argmax else 'DIFFER'} to the argmax of a "
+          f"separate prefill; max |logit with patches - text only| "
+          f"{differ:.3f}", flush=True)
+    if not bool(torch.isfinite(again).all()):
+        raise AssertionError("pixtral fusion: logits are not finite")
+    if got != argmax:
+        raise AssertionError(f"pixtral fusion: first tokens {got} != argmax"
+                             f" {argmax}")
+    if run["launches"] != cfg.n_layers:
+        raise AssertionError(f"pixtral fusion: {run['launches']} flash "
+                             f"launches for {cfg.n_layers} layers")
+    if not differ > 0.0:
+        raise AssertionError("pixtral fusion: the patch prefix left the "
+                             "logits as the text-only ones")
+    if not all(0 <= t < cfg.vocab for r in run["tokens"] for t in r):
+        raise AssertionError("pixtral fusion: a token outside the vocabulary")
+    flash = st["flash_launches"] + run["launches"]
+    del run, again, text, engine, params, st, emb
+    torch.cuda.empty_cache()
+    # (c) the kernel at (a)'s prefill shape and (b)'s fused one
+    return flash, {name: _flash_at(torch, np, FA, (b, cfg.n_heads,
+                                                   cfg.n_kv_heads, s, s,
+                                                   cfg.hd), True,
+                                   f"[21] ({name})", seed)
+                   for name, s, seed in (
+                       ("text", toks.shape[1], SEED + 3),
+                       ("fused", cfg.n_patches + toks.shape[1],
+                        SEED + 9))}
 
 
 def main() -> int:
@@ -2275,6 +2645,10 @@ def main() -> int:
     jamba_launches, jamba_flash, jamba_kernel = _timed(
         18, phase_jamba, torch, np, K, S, FA, T, MoE, serve, get_arch)
     _timed(19, phase_rwkv, torch, np, K, FA, T, serve)
+    whisper_flash, whisper_kernel = _timed(20, phase_whisper, torch, np, FA,
+                                           T, get_arch)
+    pixtral_flash, pixtral_kernel = _timed(21, phase_pixtral, torch, np, K,
+                                           FA, T, serve)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -2291,12 +2665,13 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
-        launches=served["flash_launches"] + serve_flash + jamba_flash,
+        launches=(served["flash_launches"] + serve_flash + jamba_flash
+                  + whisper_flash + pixtral_flash),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
     )]
-    print(f"[20] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[22] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -2306,10 +2681,18 @@ def main() -> int:
           f"jamba spgemm serving); flash launches "
           f"{served['flash_launches']} (phase 7) + {serve_flash} (phase "
           f"17's two serving runs) + {jamba_flash} (phase 18's two jamba "
-          f"serving runs); phase 19's rwkv6 serving launches neither; "
-          f"jamba's MoE shape: kernel {jamba_kernel['ms']:.4f} ms, bound "
+          f"serving runs) + {whisper_flash} (phase 20's whisper prefill) + "
+          f"{pixtral_flash} (phase 21's pixtral serving and fusion); phase "
+          f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
+          f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "
-          f"{jamba_kernel['library_ms']:.4f} ms", flush=True)
+          f"{jamba_kernel['library_ms']:.4f} ms; flash (ms: kernel, bound,"
+          f" sdpa) " + "; ".join(
+              f"{model} {name} {r['ms']:.4f}, {r['bound_ms']:.4f}, "
+              f"{r['library_ms']:.4f}"
+              for model, rows in (("whisper", whisper_kernel),
+                                  ("pixtral", pixtral_kernel))
+              for name, r in rows.items()), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,14 @@
 """repro_torch.configs — the architecture registry of the port.
 
 ``get_arch(name)`` returns the full published config, with the aliases of
-the JAX package's registry.  Only the architectures the port can run are
-registered: the dense attention decoders, the MoE decoders
-(deepseek-moe-16b; llama4-maverick-400b-a17b, whose 397.7 B parameters
-need more than one card at full width) and the recurrent ones
-(jamba-v0.1-52b, mamba and attention layers with MoE, whose 51.45 B
-parameters need more than one card at full depth; rwkv6-7b, attention
-free).  A name the JAX package knows but the port cannot run yet raises
-``NotImplementedError`` naming the ROADMAP item that ports its missing
-part; an unknown name raises ``KeyError``, as in the reference.
+the JAX package's registry, which registers the same ten architectures:
+the dense attention decoders, the MoE decoders (deepseek-moe-16b;
+llama4-maverick-400b-a17b, whose 397.7 B parameters need more than one
+card at full width), the recurrent ones (jamba-v0.1-52b, mamba and
+attention layers with MoE, whose 51.45 B parameters need more than one
+card at full depth; rwkv6-7b, attention free), the encoder-decoder
+whisper-large-v3 and the early-fusion pixtral-12b.  An unknown name
+raises ``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,21 +17,17 @@ import importlib
 from repro_torch.config import ArchConfig
 
 ARCH_IDS = (
+    "pixtral_12b",
+    "llama4_maverick_400b_a17b",
+    "deepseek_moe_16b",
+    "whisper_large_v3",
+    "jamba_v0_1_52b",
     "gemma2_27b",
     "qwen2_72b",
     "olmo_1b",
     "qwen1_5_4b",
-    "deepseek_moe_16b",
-    "llama4_maverick_400b_a17b",
-    "jamba_v0_1_52b",
     "rwkv6_7b",
 )
-
-# known to the JAX package, not runnable here yet: what each one lacks
-UNPORTED = {
-    "pixtral_12b": "ROADMAP.md Queue A item 13.5 (vision prefix)",
-    "whisper_large_v3": "ROADMAP.md Queue A item 13.4 (whisper encoder)",
-}
 
 _ALIASES = {
     "pixtral-12b": "pixtral_12b",
@@ -50,9 +45,6 @@ _ALIASES = {
 
 def get_arch(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if key in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: {UNPORTED[key]}")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; one of {sorted(_ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{key}")

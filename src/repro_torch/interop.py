@@ -7,8 +7,10 @@ Both sides meet at numpy: ``bsm_from_arrays`` builds the port's matrix from
 (leaves as numpy) into the port's per-layer layout, generic over leaf
 names: an MoE block's ``moe`` dict (``router`` f32; ``w_in``, ``w_gate``,
 ``w_out`` and the fused ``shared_*`` experts in the model dtype), a mamba
-block's ``mamba`` dict and an rwkv6 block's ``rwkv`` dict, and the
-per-layer cache by mixer: ``k`` / ``v``, ``conv`` / ``ssm`` or
+block's ``mamba`` dict, an rwkv6 block's ``rwkv`` dict and a whisper
+decoder block's ``xattn`` / ``ln_x``, with whisper's ``encoder`` blocks
+unstacked beside the decoder's, and the per-layer cache by mixer: ``k`` /
+``v`` (and ``xk`` / ``xv``), ``conv`` / ``ssm`` or
 ``shift_t`` / ``shift_c`` / ``wkv``.  Every leaf keeps its dtype: the
 f32 ones stay f32 (``a_log``, ``dt_bias``, ``d_skip``, ``mu_*``,
 ``decay_base``, ``bonus_u``, ``ln_x_w``, norms, the ``router``, and the
@@ -63,29 +65,38 @@ def _tree_to_tensors(tree, device, index=None):
     return _to_tensor(a if index is None else a[index], device)
 
 
-def _unstack_blocks(cfg: ArchConfig, stacked, device) -> list:
+def _unstack_blocks(n_layers: int, stacked, device) -> list:
     """The reference stacks pattern position i's blocks over the
     repetitions r and runs layer r * period + i; the port keeps one dict
     per layer, in that order."""
     period = len(stacked)
-    reps = cfg.n_layers // period
+    reps = n_layers // period
     return [_tree_to_tensors(stacked[i], device, r)
             for r in range(reps) for i in range(period)]
 
 
 def params_from_jax(cfg: ArchConfig, params, *, device=None) -> dict:
     """The port's parameters from the reference's ``init_params`` pytree
-    (bit-exact; bf16 crosses as float32)."""
+    (bit-exact; bf16 crosses as float32), whisper's encoder blocks
+    unstacked in order."""
     dev = resolve_device(device)
-    return {
+    out = {
         "embed": _tree_to_tensors(params["embed"], dev),
-        "blocks": _unstack_blocks(cfg, params["blocks"], dev),
+        "blocks": _unstack_blocks(cfg.n_layers, params["blocks"], dev),
         "final_norm": _tree_to_tensors(params["final_norm"], dev),
     }
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": _unstack_blocks(cfg.encoder.n_layers, enc["blocks"],
+                                      dev),
+            "final_norm": _tree_to_tensors(enc["final_norm"], dev),
+        }
+    return out
 
 
 def cache_from_jax(cfg: ArchConfig, cache, *, device=None) -> dict:
-    """The port's per-layer cache (K/V rows and recurrent states) from the
-    reference's stacked one."""
-    return {"blocks": _unstack_blocks(cfg, cache["blocks"],
+    """The port's per-layer cache (K/V rows, whisper's cross K/V and
+    recurrent states) from the reference's stacked one."""
+    return {"blocks": _unstack_blocks(cfg.n_layers, cache["blocks"],
                                       resolve_device(device))}

@@ -21,6 +21,12 @@ at full depth (51.45 B parameters, 95.8 GiB in bf16) needs more than one
 card, as llama4 does (ROADMAP.md item 15's sharding); one card serves it
 at full width and 16 of its 32 layers.
 
+whisper-large-v3 and pixtral-12b serve text-only prompts, as the
+reference's launcher serves them: whisper's decoder without frames (its
+cross-attention attends to a zero cache and adds nothing), pixtral
+without a patch prefix.  Frames and patches reach the model through
+``models.transformer.prefill(..., frame_embeds=)`` / ``patch_embeds=``.
+
 MoE archs: ``--moe-impl`` overrides ``cfg.moe.impl`` (``spgemm`` routes
 the expert matmuls through ``engine.multiply``, on a card the
 block-SpGEMM kernel, under a covering decode envelope resolved through

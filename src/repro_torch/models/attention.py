@@ -10,7 +10,9 @@ The torch twin of ``repro/models/attention.py``.  Paths:
     cache, plain matmuls as in the reference (no kernel there either).
 
 Features: GQA (kv groups), qkv bias (qwen), sliding window + logit softcap
-(gemma2), rope on/off.
+(gemma2), rope on/off, and whisper's cross-attention (``cross_q`` from
+the decoder stream, ``cross_kv`` from the encoder output; the blocks'
+``init_attention(cross=True)`` carries no qkv bias).
 """
 from __future__ import annotations
 
@@ -40,23 +42,42 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype,
     return p
 
 
+def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> the head-transposed view (B, n, S, hd)."""
+    b, s, _ = x.shape
+    return x.view(b, s, n, hd).transpose(1, 2)
+
+
 def qkv_proj(cfg: ArchConfig, p: dict, x: torch.Tensor, positions=None):
     """x (B, S, d) -> q (B, h, S, hd), k/v (B, hkv, S, hd) (head-transposed
     views; rope makes them contiguous)."""
-    b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.view(b, s, h, hd).transpose(1, 2)
-    k = k.view(b, s, hkv, hd).transpose(1, 2)
-    v = v.view(b, s, hkv, hd).transpose(1, 2)
+    q, k, v = _heads(q, h, hd), _heads(k, hkv, hd), _heads(v, hkv, hd)
     if cfg.rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def cross_q(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A cross-attention block's queries from the decoder stream x (B, S,
+    d): (B, h, S, hd), no rope and no bias (cross blocks have none).  The
+    reference takes q of ``qkv_proj(x)`` and drops its k and v; the same
+    product, without them."""
+    return _heads(x @ p["wq"], cfg.n_heads, cfg.hd)
+
+
+def cross_kv(cfg: ArchConfig, p: dict, enc: torch.Tensor):
+    """A cross-attention block's keys and values from the encoder output
+    (B, F, d): head-transposed (B, hkv, F, hd) views (the reference takes
+    them from ``qkv_proj(enc)`` and drops its q)."""
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    return _heads(enc @ p["wk"], hkv, hd), _heads(enc @ p["wv"], hkv, hd)
 
 
 def out_proj(cfg: ArchConfig, p: dict, attn: torch.Tensor) -> torch.Tensor:

@@ -86,14 +86,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(n: int, d: int, *, device=None) -> torch.Tensor:
-    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
-    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings (n, d) in f32 at the positions (n,)
+    (any integer or float dtype): sin on the even channels, cos on the
+    odd ones."""
+    dev = positions.device
+    pos = positions.to(torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=dev)
                     * (-math.log(10000.0) / d))
-    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=dev)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+def sinusoidal_positions(n: int, d: int, *, device=None) -> torch.Tensor:
+    """``sinusoidal_at`` positions 0 .. n - 1."""
+    return sinusoidal_at(torch.arange(n, device=device), d)
 
 
 # ---------------------------------------------------------------------------

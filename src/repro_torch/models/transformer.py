@@ -1,21 +1,27 @@
-"""The LM stack: init, prefill, decode.
+"""The LM stack: init, encode, prefill, decode.
 
-The torch twin of ``repro/models/transformer.py`` for its decoder-only
-archs: attention mixers with dense MLPs (olmo, qwen, gemma2:
-``post_norm``, ``qkv_bias``, sliding ``window``, ``attn_softcap``,
-``final_softcap``), MoE blocks (deepseek-moe, llama4, jamba:
-``models/moe.py``, every ``layer_period``-th layer; ``forward`` returns
-their load-balance loss) and the recurrent mixers: mamba
-(``models/mamba.py``; jamba's 1:7 attention:mamba pattern) and rwkv6
-(``models/rwkv6.py``; time mix and channel mix, no MLP).  The reference
-stacks each pattern position's blocks over the repetitions and scans
-them; PyTorch runs eagerly, so here ``params["blocks"]`` is a plain list
-with one dict per layer, in layer order (layer ``l`` has kind
-``layer_kinds()[l % period]``), and the cache likewise:
-``{"k", "v"}`` for attention, ``{"conv", "ssm"}`` for mamba and
-``{"shift_t", "shift_c", "wkv"}`` for rwkv6, batch on dim 0.
-``interop.params_from_jax`` unstacks the reference's pytree into this
-layout.
+The torch twin of ``repro/models/transformer.py``: attention mixers with
+dense MLPs (olmo, qwen, gemma2: ``post_norm``, ``qkv_bias``, sliding
+``window``, ``attn_softcap``, ``final_softcap``), MoE blocks
+(deepseek-moe, llama4, jamba: ``models/moe.py``, every
+``layer_period``-th layer; ``forward`` returns their load-balance loss),
+the recurrent mixers: mamba (``models/mamba.py``; jamba's 1:7
+attention:mamba pattern) and rwkv6 (``models/rwkv6.py``; time mix and
+channel mix, no MLP), whisper's encoder-decoder (``encode`` runs the
+encoder's non-causal blocks over stub frame embeddings with absolute
+sinusoidal positions; each decoder block adds a cross-attention residual
+``xattn`` / ``ln_x`` against the encoder output; the decoder's positions
+are sinusoidal too, ``rope=False``) and pixtral's early fusion (stub
+patch embeddings replace the first ``n_patches`` token embeddings).  The
+reference stacks each pattern position's blocks over the repetitions and
+scans them; PyTorch runs eagerly, so here ``params["blocks"]`` is a
+plain list with one dict per layer, in layer order (layer ``l`` has kind
+``layer_kinds()[l % period]``), ``params["encoder"]["blocks"]`` likewise,
+and the cache: ``{"k", "v"}`` for attention (with whisper's encoder K/V
+``{"xk", "xv"}`` of (B, hkv, n_frames, hd) beside them), ``{"conv",
+"ssm"}`` for mamba and ``{"shift_t", "shift_c", "wkv"}`` for rwkv6,
+batch on dim 0.  ``interop.params_from_jax`` unstacks the reference's
+pytree into this layout.
 
 The cache is updated in place (``prefill`` and ``decode_step`` return the
 same dict they were given, K/V rows and recurrent states written into
@@ -23,9 +29,14 @@ its tensors), where the reference returns a new pytree: it saves a copy
 of every layer's K/V per step.  ``forward`` starts the recurrent states
 at zero, as the reference's train path does.
 
-Not ported yet, each raising ``NotImplementedError``: the whisper encoder
-and the vision prefix (ROADMAP.md Queue A items 13.4-13.5), and the
-training loss (item 15).
+A whisper cache that no prefill with frames filled keeps ``xk`` / ``xv``
+at zero, and decode still attends to it, as the reference does when its
+``ServingEngine`` (which passes no frames) serves whisper: uniform
+weights over zero values, so that sub-layer adds exactly zero.  A prompt
+shorter than the patch prefix raises ``ValueError`` (the reference's
+concatenation would lengthen the sequence to the prefix instead).
+
+Not ported yet: the training loss (ROADMAP.md Queue A item 15).
 """
 from __future__ import annotations
 
@@ -45,20 +56,13 @@ Params = dict[str, Any]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# the encoder's blocks: attention (non-causal, no window) and a dense MLP
+ENCODER_KIND = {"mixer": "attention", "window": None, "moe": False}
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of ``cfg`` the port has
-    no code for yet, naming the ROADMAP item that ports them."""
-    missing = []
-    if cfg.encoder is not None:
-        missing.append("whisper encoder")
-    if cfg.frontend == "vision":
-        missing.append("vision prefix")
-    if not cfg.rope:
-        missing.append("absolute sinusoidal positions (whisper)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
-            "Queue A items 13.4-13.5)")
+    """Raise ``TypeError`` for a model dtype the port has no kernels for
+    (every architecture of the reference runs)."""
     if cfg.dtype not in _DTYPES:
         raise TypeError(f"{cfg.name}: dtype {cfg.dtype!r}, expected one of "
                         f"{sorted(_DTYPES)}")
@@ -80,7 +84,7 @@ def layer_kinds(cfg: ArchConfig) -> list[dict]:
 
 
 def _init_block(cfg: ArchConfig, kind: dict, gen: torch.Generator,
-                dtype) -> Params:
+                dtype, cross: bool = False) -> Params:
     dev = gen.device
     p: Params = {"ln1": L.init_norm(cfg, cfg.d_model, device=dev)}
     if kind["mixer"] == "attention":
@@ -94,6 +98,9 @@ def _init_block(cfg: ArchConfig, kind: dict, gen: torch.Generator,
         raise ValueError(kind)
     if cfg.post_norm:
         p["post_ln1"] = L.init_norm(cfg, cfg.d_model, device=dev)
+    if cross:  # whisper's decoder blocks
+        p["xattn"] = A.init_attention(cfg, gen, dtype, cross=True)
+        p["ln_x"] = L.init_norm(cfg, cfg.d_model, device=dev)
     if kind["mixer"] == "rwkv6":  # the channel mix replaces the MLP
         return p
     p["ln2"] = L.init_norm(cfg, cfg.d_model, device=dev)
@@ -121,12 +128,20 @@ def init_params(cfg: ArchConfig, generator, *, device=None) -> Params:
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     dtype = model_dtype(cfg)
-    return {
+    cross = cfg.encoder is not None
+    params = {
         "embed": L.init_embed(cfg, gen, dtype),
-        "blocks": [_init_block(cfg, kind, gen, dtype)
+        "blocks": [_init_block(cfg, kind, gen, dtype, cross)
                    for kind in layer_kinds(cfg)],
         "final_norm": L.init_norm(cfg, cfg.d_model, device=dev),
     }
+    if cross:
+        params["encoder"] = {
+            "blocks": [_init_block(cfg, ENCODER_KIND, gen, dtype)
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": L.init_norm(cfg, cfg.d_model, device=dev),
+        }
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +153,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device) -> Params:
     """Zeroed decode state, one dict per layer by its mixer: K/V
     {"k", "v"} of (batch, hkv, max_len, hd) in the model dtype for
-    attention, ``mamba.init_mamba_state`` for mamba and
+    attention (and with an encoder the cross K/V {"xk", "xv"} of (batch,
+    hkv, n_frames, hd)), ``mamba.init_mamba_state`` for mamba and
     ``rwkv6.init_rwkv_state`` for rwkv6."""
     check_supported(cfg)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     dtype = model_dtype(cfg)
+    enc = cfg.encoder
     blocks = []
     for kind in layer_kinds(cfg):
         if kind["mixer"] == "mamba":
@@ -152,6 +169,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         else:
             c = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+            if enc is not None:
+                xshape = (batch, cfg.n_kv_heads, enc.n_frames, cfg.hd)
+                c["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
+                c["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
         blocks.append(c)
     return {"blocks": blocks}
 
@@ -227,10 +248,27 @@ def _rwkv_res(cfg, p, x, state, time_mix, channel_mix):
     return x + y, state
 
 
-def _prefill_block(cfg, kind, p, x, cache, positions):
+def _cross_res(cfg, p, x, k, v):
+    """whisper's cross-attention residual over the prompt: x + out(attn(
+    q(ln_x(x)), k, v)), non-causal (the flash kernel on CUDA)."""
+    q = A.cross_q(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x))
+    o = A.chunked_attention(q, k, v, causal=False)
+    return x + A.out_proj(cfg, p["xattn"], o)
+
+
+def _cross_decode(cfg, p, x, cache):
+    """whisper's cross-attention residual for one token, against the
+    cached encoder K/V (every frame valid; zeros if no frames filled it)."""
+    q = A.cross_q(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x))
+    o = A.decode_attention(q, cache["xk"], cache["xv"], cache["xk"].shape[2])
+    return x + A.out_proj(cfg, p["xattn"], o)
+
+
+def _prefill_block(cfg, kind, p, x, cache, positions, enc_out=None):
     """One layer over the prompt; writes its K/V or its recurrent state
-    into ``cache`` (None: ``forward``, states from zero).  Returns (x, MoE
-    aux loss or None)."""
+    into ``cache`` (None: ``forward``, states from zero), and with the
+    encoder output ``enc_out`` its cross K/V.  Returns (x, MoE aux loss or
+    None)."""
     if kind["mixer"] == "mamba":
         x, st = _mamba_res(cfg, p, x, cache, M.apply_mamba)
         _store(cache, st)
@@ -252,6 +290,12 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["post_ln1"], y)
     x = x + y
+    if enc_out is not None:
+        ek, ev = A.cross_kv(cfg, p["xattn"], enc_out)
+        if cache is not None:
+            cache["xk"].copy_(ek)
+            cache["xv"].copy_(ev)
+        x = _cross_res(cfg, p, x, ek, ev)
     return _ffn_res(cfg, kind, p, x)
 
 
@@ -276,6 +320,8 @@ def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["post_ln1"], y)
     x = x + y
+    if "xk" in cache:
+        x = _cross_decode(cfg, p, x, cache)
     return _ffn_res(cfg, kind, p, x)[0]
 
 
@@ -284,37 +330,103 @@ def _apply_block_decode(cfg, kind, p, x, cache, position, rope_pos, length):
 # ---------------------------------------------------------------------------
 
 
-def _run_blocks(cfg, params, tokens, cache):
-    """(final hidden, summed MoE aux loss in f32) of a prefill pass."""
+def encode(cfg: ArchConfig, params: Params,
+           frame_embeds: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings (B, F, d): sinusoidal
+    positions (f32, cast to the frames' dtype, then added), the encoder's
+    non-causal attention + MLP blocks, the final norm."""
+    enc = params["encoder"]
+    pe = L.sinusoidal_positions(frame_embeds.shape[1], cfg.d_model,
+                                device=frame_embeds.device)
+    x = frame_embeds + pe.to(frame_embeds.dtype)
+    for p in enc["blocks"]:
+        def attn(xn, p=p):
+            q, k, v = A.qkv_proj(cfg, p["attn"], xn)
+            o = A.chunked_attention(q, k, v, causal=False,
+                                    softcap=cfg.attn_softcap)
+            return A.out_proj(cfg, p["attn"], o)
+
+        x = _norm_res(cfg, p, "ln1", "post_ln1", x, attn)
+        x = _ffn_res(cfg, ENCODER_KIND, p, x)[0]
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+def _embed_inputs(cfg, params, tokens, patch_embeds=None):
+    """Token embeddings; pixtral's patch embeddings in place of the first
+    ``patch_embeds.shape[1]`` of them; sinusoidal positions (f32, cast,
+    then added) when the model has no rope."""
     x = L.embed_tokens(params["embed"], tokens)
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        n = patch_embeds.shape[1]
+        if n > tokens.shape[1]:
+            raise ValueError(f"{n} patch embeddings for a {tokens.shape[1]}"
+                             "-token prompt: the prompt must hold the "
+                             "prefix")
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+    if not cfg.rope:
+        pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device)
+        x = x + pe.to(x.dtype)
+    return x
+
+
+def _run_blocks(cfg, params, tokens, cache, patch_embeds=None,
+                frame_embeds=None):
+    """(final hidden, summed MoE aux loss in f32) of a prefill pass; with
+    an encoder and frames, the encoder first and cross-attention in every
+    decoder block."""
+    x = _embed_inputs(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    enc_out = None
+    if cfg.encoder is not None and frame_embeds is not None:
+        if cache is not None and frame_embeds.shape[1] != cfg.encoder.n_frames:
+            raise ValueError(f"{frame_embeds.shape[1]} frames for a cache "
+                             f"of {cfg.encoder.n_frames}")
+        enc_out = encode(cfg, params, frame_embeds)
     caches = cache["blocks"] if cache is not None else [None] * cfg.n_layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["blocks"], caches):
-        x, a = _prefill_block(cfg, kind, p, x, c, positions)
+        x, a = _prefill_block(cfg, kind, p, x, c, positions, enc_out)
         if a is not None:
             aux = aux + a
     return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
-def forward(cfg: ArchConfig, params: Params,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward over (B, S) tokens: (final hidden (B, S, d), the
-    MoE load-balance loss summed over the MoE layers, f32; zero without
-    them)."""
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+            patch_embeds: torch.Tensor | None = None,
+            frame_embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill forward over (B, S) tokens (pixtral's ``patch_embeds`` (B,
+    n, d) as the prefix, whisper's ``frame_embeds`` (B, F, d) through the
+    encoder): (final hidden (B, S, d), the MoE load-balance loss summed
+    over the MoE layers, f32; zero without them)."""
     check_supported(cfg)
-    return _run_blocks(cfg, params, tokens, None)
+    return _run_blocks(cfg, params, tokens, None, patch_embeds, frame_embeds)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-            cache: Params) -> tuple[torch.Tensor, Params]:
-    """Run the prompt, write its K/V into the cache at [0, S) and advance
-    the recurrent states through it (from the cache's, zero in a fresh
-    cache), return the last position's logits (B, 1, V) and the (updated)
-    cache."""
-    x, _ = _run_blocks(cfg, params, tokens, cache)
+            cache: Params, *, patch_embeds: torch.Tensor | None = None,
+            frame_embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, Params]:
+    """Run the prompt, write its K/V into the cache at [0, S) (with frames
+    also the encoder's cross K/V) and advance the recurrent states through
+    it (from the cache's, zero in a fresh cache), return the last
+    position's logits (B, 1, V) and the (updated) cache.  ``patch_embeds``
+    and ``frame_embeds`` as in ``forward``."""
+    x, _ = _run_blocks(cfg, params, tokens, cache, patch_embeds,
+                       frame_embeds)
     logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
     return logits, cache
+
+
+def _embed_step(cfg, params, tokens, pv):
+    """A decode step's embeddings (B, 1, d); with no rope plus the
+    sinusoidal embeddings at the slots' positions (``pv`` 0-d or (B,);
+    f32, cast, then added, as in ``_embed_inputs``)."""
+    x = L.embed_tokens(params["embed"], tokens)
+    if not cfg.rope:
+        pe = L.sinusoidal_at(pv.reshape(-1), cfg.d_model)  # (1 or B, d)
+        x = x + pe.to(x.dtype)[:, None, :]
+    return x
 
 
 def decode_step(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -325,8 +437,8 @@ def decode_step(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     level): an int / 0-d tensor for all slots, or a (B,) tensor of
     per-slot levels (continuous batching refills slots mid-stream).
     """
-    x = L.embed_tokens(params["embed"], tokens)
-    pv = torch.as_tensor(position, device=x.device)
+    pv = torch.as_tensor(position, device=tokens.device)
+    x = _embed_step(cfg, params, tokens, pv)
     rope_pos = pv[:, None] if pv.dim() else pv.reshape(1)
     for kind, p, c in zip(layer_kinds(cfg), params["blocks"],
                           cache["blocks"]):

@@ -2,8 +2,9 @@
 and oracle (block_spgemm at every group layout the tuner may pick), the
 launch counters, and the slices on CUDA tensors (the distributed engines,
 the sharded sweep and one measured tuner decision with every rank on the
-card included; the reduced recurrent models against the CPU, and the
-memory of a full-width mamba prefill).  Marked ``gpu``; each
+card included; the reduced recurrent models, whisper with frames and
+pixtral with patches against the CPU, and the memory of a full-width
+mamba prefill).  Marked ``gpu``; each
 test skips without a CUDA device.  On the card (no jax needed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -299,6 +300,10 @@ FLASH_CASES = [
     (1, 8, 2, 200, 328, 64, True, 64, None),
     (1, 8, 2, 333, 200, 128, False, None, 30.0),
     (2, 8, 2, 256, 256, 32, True, 16, 50.0),
+    # whisper: the encoder's self-attention over 1,500 frames (a 92-key
+    # tail past the last 128-key tile) and the decoder's cross-attention
+    (2, 20, 20, 1500, 1500, 64, False, None, None),
+    (2, 20, 20, 32, 1500, 64, False, None, None),
 ]
 
 
@@ -408,6 +413,47 @@ def test_reduced_recurrent_model_cuda_matches_cpu(cuda, arch):
     for got, want in zip(c_dev["blocks"], c_cpu["blocks"]):
         for name in want:
             torch.testing.assert_close(got[name].cpu(), want[name],
+                                       rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([64, 60, 63])
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)))
+        l_dev, c_dev = T.decode_step(cfg, p_dev, t.to(cuda), c_dev,
+                                     pos.to(cuda))
+        l_cpu, c_cpu = T.decode_step(cfg, p_cpu, t, c_cpu, pos)
+        torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_reduced_encdec_and_fusion_cuda_matches_cpu(cuda, arch):
+    """Reduced whisper with frames and pixtral with patches (f32), the same
+    parameters and embeddings on the card and the CPU: prefill (flash
+    launches: whisper's 2 encoder + 2 self + 2 cross layers, pixtral's 2;
+    no input copied for TMA) and decode steps with per-slot positions,
+    logits within 1e-4; whisper's cross cache too."""
+    cfg = get_arch(arch).reduced()
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    p_dev = _to(p_cpu, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 64)))
+    if cfg.encoder is not None:
+        n = cfg.encoder.n_frames
+        name, launches = "frame_embeds", 3 * cfg.n_layers
+    else:
+        n, name, launches = cfg.n_patches, "patch_embeds", cfg.n_layers
+    emb = torch.from_numpy(rng.standard_normal((3, n, cfg.d_model),
+                                               dtype=np.float32))
+    c_cpu = T.init_cache(cfg, 3, 80, device="cpu")
+    c_dev = T.init_cache(cfg, 3, 80, device=cuda)
+    before, copies = FA.launches, FA.copies
+    l_dev, c_dev = T.prefill(cfg, p_dev, toks.to(cuda), c_dev,
+                             **{name: emb.to(cuda)})
+    assert FA.launches - before == launches and FA.copies == copies
+    l_cpu, c_cpu = T.prefill(cfg, p_cpu, toks, c_cpu, **{name: emb})
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for got, want in zip(c_dev["blocks"], c_cpu["blocks"]):
+        for leaf in want:
+            torch.testing.assert_close(got[leaf].cpu(), want[leaf],
                                        rtol=1e-4, atol=1e-4)
     pos = torch.tensor([64, 60, 63])
     for _ in range(3):

@@ -219,3 +219,51 @@ def test_serving_limit_fails_a_wrong_kv_walk():
         q[:, :, 200:], k[:, :, :192], v[:, :, :192], causal=False)
     ratio = (wrong.float() - plain.float()).abs() / limit
     assert float(ratio.max()) > 10.0
+
+
+@pytest.mark.parametrize("sq", [32, 200])
+def test_serving_limit_fails_a_dropped_ragged_tail(sq):
+    """chip_smoke.py holds the bf16 kernel at whisper's cross-attention (32
+    queries) and encoder (1,500) shapes to ``flash_serve_limit`` with every
+    row keeping all 1,500 keys (b 1, h 2, skv 1,500, d 64, non-causal, here
+    200 queries for the encoder).  The limit passes the kernel's own
+    rounding (p rounded to bf16 before P.V) and fails a kernel that drops
+    the 92 keys past the last 128-key tile."""
+    import chip_smoke
+
+    b, h, skv, d = 1, 2, 1500, 64
+    q, k, v = _inputs(9, [(b, h, sq, d), (b, h, skv, d), (b, h, skv, d)],
+                      "bfloat16")
+    q, k, v = (_t(x, "bfloat16") for x in (q, k, v))
+    plain = FA.flash_attention_plain(q, k, v, causal=False)
+    keys = torch.full((sq,), float(skv))
+    limit = chip_smoke.flash_serve_limit(plain, keys,
+                                         **chip_smoke.FLASH_SERVE_TOL_BF16)
+
+    logits = (q.float() @ k.float().transpose(-1, -2)) * d**-0.5
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rounded = ((p.to(torch.bfloat16).float() @ v.float())
+               / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    ratio = (rounded.float() - plain.float()).abs() / limit
+    assert float(ratio.max()) <= 1.0
+
+    tiled = skv // 128 * 128  # 1,408: the keys of the full tiles
+    wrong = FA.flash_attention_plain(q, k[:, :, :tiled], v[:, :, :tiled],
+                                     causal=False)
+    ratio = (wrong.float() - plain.float()).abs() / limit
+    assert float(ratio.max()) > 10.0
+
+
+@pytest.mark.parametrize("shape,causal,want_ms", [
+    ((8, 20, 20, 1500, 1500, 64), False, 0.0932),  # whisper's encoder
+    ((8, 32, 8, 1024, 1024, 128), True, 0.0696),  # pixtral's text prefill
+])
+def test_flash_bound_counts_kept_pairs(shape, causal, want_ms):
+    """chip_smoke.py's bound: 4 d operations per kept (q, k) pair at the
+    bf16 tensor rate, which binds at these shapes (9.22e10 operations for
+    whisper's encoder, 6.88e10 for pixtral's 524,800 pairs a head)."""
+    import chip_smoke
+
+    ms, by = chip_smoke._flash_bound(*shape, 2, causal)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, abs=5e-5)

@@ -23,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_arch as jget_arch
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import interop
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -233,23 +234,30 @@ def test_init_params_shapes_match_reference():
     ("rwkv6-7b", "rwkv6"), ("whisper-large-v3", "whisper encoder"),
     ("pixtral-12b", "vision prefix")])
 def test_unported_parts_raise(arch, what):
-    """Each part the port has no code for raises, naming its ROADMAP item.
-    MoE, mamba and rwkv6 are ported: their archs register with configs
-    equal to the reference's and pass the check, and no message names
-    them any more."""
-    if what in ("MoE", "mamba", "rwkv6"):
-        cfg = get_arch(arch)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_arch(arch))
-        T.check_supported(cfg)
-        T.check_supported(cfg.reduced())
-        with pytest.raises(NotImplementedError) as info:
-            T.check_supported(jget_arch("whisper-large-v3").reduced())
-        assert what not in str(info.value)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        T.check_supported(jget_arch(arch).reduced())
+    """Each part that was once unported (MoE, mamba, rwkv6, the whisper
+    encoder, the vision prefix) is ported: its arch registers with a
+    config equal to the reference's, and the check passes it full and
+    reduced, in bf16 and f32; what the check still refuses is a dtype the
+    kernels do not take."""
+    cfg = get_arch(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_arch(arch))
+    for c in (cfg, cfg.reduced()):
+        for dtype in ("bfloat16", "float32"):
+            T.check_supported(dataclasses.replace(c, dtype=dtype))
+    with pytest.raises(TypeError, match="float16"):
+        T.check_supported(dataclasses.replace(cfg, dtype="float16"))
+
+
+@pytest.mark.parametrize("arch", JARCH_IDS)
+def test_every_reference_arch_registers(arch):
+    """The port's registry resolves each of the reference's architectures
+    (by id and by alias) to a config equal to the reference's."""
+    assert arch in ARCH_IDS
+    assert dataclasses.asdict(get_arch(arch)) == \
+        dataclasses.asdict(jget_arch(arch))
+    alias = get_arch(arch).name
+    assert dataclasses.asdict(get_arch(alias)) == \
+        dataclasses.asdict(jget_arch(alias))
 
 
 def test_unknown_arch_raises_key_error():
