@@ -144,7 +144,30 @@ Phases, each raising on failure:
     launches, logits that differ from the text-only ones); (c) the flash
     kernel at (a)'s shape (h 32, hkv 8, s 1,024, d 128, causal) against
     its plain version, timed beside SDPA and the bound; (d) a prefill
-    round and four decode steps under ``torch.profiler`` by kernel group.
+    round and four decode steps under ``torch.profiler`` by kernel group;
+22. the flash backward kernels (delta, dK / dV, dQ; three launches a
+    call) and the forward's row log-sum-exp against their plain versions
+    on the card: causal on and off, windows 32 / 64 / 100, softcaps 30 /
+    50, GQA 8:2, ragged 200 / 333, sq != skv, rows that keep no key, a
+    query offset, d 32 / 64 / 128, f32 and bf16; then at olmo-1b's
+    training shape (b 8, h 16, s 2,048, d 128, bf16, causal) checked and
+    timed beside the plain backward, SDPA's backward and the bound;
+23. one training step (``launch.steps.build_train_step``) of reduced
+    olmo-1b and gemma2-27b (f32; window, softcaps, post-norms) on the
+    card against the same step on the CPU from the same parameters and
+    batch, under remat none, full and dots: loss, grad norm and every
+    leaf of params, mu and nu within 1e-4 (``train_state_close``), flash
+    forward and backward launches per layer;
+24. olmo-1b at full width and depth (1.18 B parameters, bf16, AdamW f32
+    moments) trained through ``repro_torch.launch.train.run``: 10 steps
+    of 8 x 2,048 tokens, remat full, lr 3e-3, the flash counts set to 0
+    just before and read just after (forward 16 x 2 x 10, backward 16 x 3
+    x 10, no TMA copy), finite losses with the last below the first; the
+    loss trajectory, step ms, tokens/s, peak memory and the model-FLOP
+    share; one step under ``torch.profiler`` by group (GEMMs, flash
+    forward, flash backward, cross-entropy, AdamW, the rest) with the
+    idle share; then at the reduced size 4 steps, a checkpoint and a
+    resumed launch to 8 against one 8-step run within 1e-6.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -700,6 +723,8 @@ def phase_serve(torch, np, T, K, FA, serve, argv=SERVE_ARGV, tag="[7]"):
 
 
 def _kernel_group(name: str) -> str:
+    if "flash_bwd" in name:
+        return "flash_bwd"
     if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
         return "flash"
     # cuBLAS: nvjet_* (its Hopper GEMMs), gemv*, cutlass / xmma / sm90_*
@@ -796,6 +821,20 @@ def _flash_bound(b, h, hkv, sq, skv, d, itemsize,
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
     t_ops = 4.0 * d * pairs / PEAK_BF16_FLOPS
     t_bytes = 2.0 * b * d * (h * sq + hkv * skv) * itemsize / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _flash_bwd_bound(b, h, hkv, sq, skv, d, itemsize,
+                     causal=True) -> tuple[float, str]:
+    """Least time of the backward: five products (S, dP, dV, dK, dQ) of 2 d
+    operations per kept (q, k) pair at the bf16 tensor rate, or q, k, v, o
+    and dO read once, dq, dk and dv written once (and the f32 lse read) at
+    the memory rate."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
+    t_ops = 5 * 2.0 * d * pairs / PEAK_BF16_FLOPS
+    t_bytes = (b * d * (4 * h * sq + 4 * hkv * skv) * itemsize
+               + 4 * b * h * sq) / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1889,9 +1928,9 @@ class _Spans:
 
 def _span_profile(torch, fn, spans: dict) -> tuple[float, dict, int]:
     """(wall ms, device ms by group, kernels) of ``fn`` under
-    torch.profiler.  Kernels are grouped by name (flash, matmul), the
-    rest by the span that launched them (``spans``: span name -> group),
-    and what no span launched is "other"."""
+    torch.profiler.  Kernels are grouped by name (flash, flash_bwd,
+    matmul), the rest by the span that launched them (``spans``: span name
+    -> group), and what no span launched is "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1905,8 +1944,8 @@ def _span_profile(torch, fn, spans: dict) -> tuple[float, dict, int]:
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.name not in spans]  # the spans' own device ranges
-    groups = dict.fromkeys(["flash", "matmul", *spans.values(), "other"],
-                           0.0)
+    groups = dict.fromkeys(["flash", "flash_bwd", "matmul",
+                            *spans.values(), "other"], 0.0)
     for e in device:
         g = _kernel_group(e.name)
         if g != "other":
@@ -2566,6 +2605,415 @@ def phase_pixtral(torch, np, K, FA, T, serve) -> tuple[int, dict]:
                         SEED + 9))}
 
 
+
+# phase 22: the flash backward kernels against the plain backward, (b, h,
+# hkv, sq, skv, d, causal, window, softcap, q_offset); rows 300-333 of the
+# (300, 100) window case keep no key
+FLASH_BWD_CASES = (
+    (1, 2, 2, 256, 256, 64, True, None, None, 0),
+    (1, 2, 2, 256, 256, 64, False, None, None, 0),
+    (1, 2, 2, 256, 256, 128, True, 64, None, 0),
+    (2, 8, 2, 200, 200, 32, True, None, None, 0),
+    (1, 2, 1, 333, 333, 128, True, 100, 30.0, 0),
+    (1, 4, 2, 128, 384, 128, True, None, None, 0),
+    (1, 4, 2, 384, 128, 64, False, None, 50.0, 0),
+    (1, 2, 2, 333, 100, 64, True, 32, None, 0),
+    (1, 8, 2, 200, 328, 64, True, 64, 50.0, 128),
+)
+# olmo-1b's training shape: one layer of 8 x 2,048 tokens
+FLASH_TRAIN_SHAPE = (8, 16, 16, 2048, 2048, 128)
+# the backward kernels and the plain backward both compute in f32 and round
+# each result once, so at bf16 they differ by one output rounding (at most
+# 2^-7 |plain|) plus f32 summation order, which shows only where terms
+# cancel.  The limit of an output whose row (dQ) or key (dK, dV) is in n
+# kept (q, k) pairs is atol / sqrt(n) + rtol |plain| (``flash_serve_limit``):
+# the early keys' large, heavy-tailed gradients get rtol, the late keys'
+# small ones a limit that a dropped key range or a mis-walked q tile
+# exceeds many times (tests/test_torch_flash_attention.py).  f32: FLASH_TOL
+# of each output, 1e-4 + 1e-4 |plain|
+FLASH_BWD_TOL_BF16 = dict(atol=1e-2, rtol=1e-2)
+
+
+def flash_bwd_kept(torch, sq: int, skv: int, g: int, causal=True,
+                   window=None, q_offset: int = 0, device="cpu") -> tuple:
+    """(the kept pairs of each query row, of each key): f32 (sq,) and
+    (skv,) under the forward's masks, a key's counted over the g query
+    heads of its kv head; each at least 1."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    keep = keep.float()
+    return keep.sum(1).clamp(min=1), (g * keep.sum(0)).clamp(min=1)
+
+
+def flash_bwd_ratio(got, want, kept: tuple, dtype: str) -> tuple:
+    """(worst |kernel - plain| / limit, max |kernel - plain|) over dq, dk
+    and dv: bf16 within ``flash_serve_limit`` of each output's kept pairs
+    (FLASH_BWD_TOL_BF16), f32 within FLASH_TOL of each output."""
+    ratio = err = 0.0
+    for g, w, n in zip(got, want, (kept[0], kept[1], kept[1])):
+        diff = (g.float() - w.float()).abs()
+        if dtype == "bfloat16":
+            limit = flash_serve_limit(w, n, **FLASH_BWD_TOL_BF16)
+        else:
+            tol = FLASH_TOL["float32"]
+            limit = flash_serve_limit(w, n.new_ones(n.shape), tol, tol)
+        ratio = max(ratio, float((diff / limit).max()))
+        err = max(err, float(diff.max()))
+    return ratio, err
+
+
+def _lse_close(torch, lse, plain) -> bool:
+    """The same rows at +inf (no key kept), the rest within 1e-4 + 1e-5
+    |plain|."""
+    fin = torch.isfinite(plain)
+    return bool(torch.equal(torch.isinf(lse), torch.isinf(plain))
+                and ((lse - plain)[fin].abs()
+                     <= 1e-4 + 1e-5 * plain[fin].abs()).all())
+
+
+def phase_flash_backward(torch, np, FA) -> dict:
+    """Phase 22: the forward's lse and the three backward kernels (delta,
+    dK / dV, dQ) against the plain versions on the same out and lse, over
+    FLASH_BWD_CASES in f32 and bf16 (BWD_KERNELS launches a call), each
+    output within ``flash_bwd_ratio``'s limit; then at olmo-1b's training
+    shape, causal, in f32 and bf16 on the same inputs: the forward's out
+    and lse and the backward checked, and the bf16 backward timed beside
+    the plain backward, SDPA's backward (its forward + backward less its
+    forward) and the bound."""
+    rng = np.random.default_rng(SEED + 22)
+    worst, ratio, bad, cases = 0.0, 0.0, [], 0
+    for case in FLASH_BWD_CASES:
+        b, h, hkv, sq, skv, d, causal, window, softcap, q_offset = case
+        amp = 4.0 if softcap else 1.0
+        kept = flash_bwd_kept(torch, sq, skv, h // hkv, causal, window,
+                              q_offset, "cuda")
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, do = (
+                torch.from_numpy(rng.standard_normal(shape) * a).to(
+                    "cuda", getattr(torch, dtype))
+                for shape, a in (((b, h, sq, d), amp),
+                                 ((b, hkv, skv, d), amp),
+                                 ((b, hkv, skv, d), 1.0),
+                                 ((b, h, sq, d), 1.0)))
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset)
+            _, lse = FA.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            out, plse = FA.flash_attention_plain_lse(q, k, v, **kw)
+            lse_ok = _lse_close(torch, lse, plse)
+            before = FA.bwd_launches
+            got = FA.flash_attention_backward_cuda(q, k, v, out, plse, do,
+                                                   **kw)
+            launched = FA.bwd_launches - before
+            want = FA.flash_attention_backward_plain(q, k, v, out, plse, do,
+                                                     **kw)
+            r, err = flash_bwd_ratio(got, want, kept, dtype)
+            worst, ratio = max(worst, err), max(ratio, r)
+            if not (r <= 1.0 and lse_ok and launched == FA.BWD_KERNELS):
+                bad.append((case, dtype, err, r, lse_ok, launched))
+            cases += 1
+    print(f"[22] flash backward vs plain: {cases} cases (f32 and bf16), "
+          f"lse and +inf rows equal, max |err| {worst:.3e}, worst |err| / "
+          f"limit {ratio:.4f} (f32 {FLASH_TOL['float32']} + "
+          f"{FLASH_TOL['float32']} |plain|; bf16 {FLASH_BWD_TOL_BF16} over "
+          f"the kept pairs), {FA.BWD_KERNELS} launches a call", flush=True)
+    if bad:
+        raise AssertionError(f"flash backward disagrees: {bad}")
+
+    b, h, hkv, s, _, d = FLASH_TRAIN_SHAPE
+    kept = flash_bwd_kept(torch, s, s, h // hkv, device="cuda")
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, n, s, d), dtype=np.float32)).to("cuda", torch.bfloat16)
+        for n in (h, hkv, hkv, h))
+    for dtype in ("float32", "bfloat16"):
+        x = [t.to(getattr(torch, dtype)) for t in (q, k, v)]
+        got_out, lse = FA.flash_attention_cuda(*x, causal=True,
+                                               with_lse=True)
+        out, plse = FA.flash_attention_plain_lse(*x, causal=True)
+        tol = (FLASH_SERVE_TOL_BF16 if dtype == "bfloat16" else
+               dict(atol=FLASH_TOL["float32"], rtol=FLASH_TOL["float32"]))
+        n = kept[0] if dtype == "bfloat16" else torch.ones_like(kept[0])
+        out_ratio = float(((got_out.float() - out.float()).abs()
+                           / flash_serve_limit(out, n, **tol)).max())
+        lse_ok = _lse_close(torch, lse, plse)
+        lse_err = float((lse - plse).abs().max())
+        del got_out, lse
+        dout = do.to(x[0].dtype)
+        got = FA.flash_attention_backward_cuda(*x, out, plse, dout)
+        want = FA.flash_attention_backward_plain(*x, out, plse, dout)
+        r, err = flash_bwd_ratio(got, want, kept, dtype)
+        print(f"[22] flash at b={b} h={h} s={s} d={d} {dtype} causal, "
+              f"kernel vs plain: forward out worst |err| / limit "
+              f"{out_ratio:.4f}, lse max |err| {lse_err:.3e}; backward max "
+              f"|err| {err:.3e}, worst |err| / limit {r:.4f}", flush=True)
+        if not (out_ratio <= 1.0 and lse_ok and r <= 1.0):
+            raise AssertionError(
+                f"flash at the training shape, {dtype}: out {out_ratio}, "
+                f"lse {lse_err}, backward {err} ({r} of its limit)")
+        worst = max(worst, err)
+        del x, dout, got, want
+    ms = _time_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, out,
+                                                           plse, do),
+                  reps=5, warmup=1)
+    plain_ms = _time_ms(lambda: FA.flash_attention_backward_plain(
+        q, k, v, out, plse, do), reps=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(*live, is_causal=True), live, do)
+
+    with torch.no_grad():
+        sdpa_fwd = _time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=10,
+                            warmup=2)
+    library_ms = _time_ms(sdpa_fwd_bwd, reps=10, warmup=2) - sdpa_fwd
+    bound_ms, bound_by = _flash_bwd_bound(b, h, hkv, s, s, d, 2)
+    flops = 5 * 2.0 * d * b * h * (s * (s + 1) // 2)
+    print(f"[22] flash backward at b={b} h={h} s={s} d={d} bf16 causal: "
+          f"times (ms, median of CUDA events): kernel {ms:.4f}  plain "
+          f"{plain_ms:.4f}  library(sdpa backward = fwd+bwd - fwd) "
+          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}); kernel "
+          f"{flops / ms / 1e9:.3f} TFLOP/s on the five products of the "
+          f"kept pairs; {ms / bound_ms:.1f}x the bound", flush=True)
+    del q, k, v, do, out, plse, live
+    torch.cuda.empty_cache()
+    return dict(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound_ms=bound_ms,
+                bwd_library_ms=library_ms, bwd_max_abs_err=worst)
+
+
+# phase 23: one training step of reduced models (f32) on the card against
+# the same step on the CPU; gemma2 adds the window, both softcaps and the
+# post-norms
+TRAIN_ARCHS = ("olmo-1b", "gemma2-27b")
+TRAIN_TOL = 1e-4
+# AdamW's first step moves an entry by lr * g / (|g| + eps): where |g| is
+# f32 rounding noise (below 1e-6, a hundred times eps) two summation
+# orders may move it differently, by up to 2 lr (tests/test_torch_cuda.py)
+NOISE_RMS = 1e-6
+
+
+def train_state_close(torch, got, want, lr: float, b2: float,
+                      tol: float = TRAIN_TOL) -> tuple[bool, dict]:
+    """(params, opt_state) after one step against another run's: mu and nu
+    within tol (+ tol relative), params too except entries whose gradient
+    RMS sqrt(nu_hat) is below NOISE_RMS, held to 2 lr; the worst error of
+    each tree."""
+    from repro_torch.optim.tree import leaves
+
+    (gp, gs), (wp, ws) = got, want
+    t = int(ws["step"])
+    worst, ok = {"params": 0.0, "mu": 0.0, "nu": 0.0}, True
+    for name, gt, wt in (("mu", gs["mu"], ws["mu"]),
+                         ("nu", gs["nu"], ws["nu"])):
+        for g, w in zip(leaves(gt), leaves(wt)):
+            d = (g.float().cpu() - w.float().cpu()).abs()
+            worst[name] = max(worst[name], float(d.max()))
+            ok &= bool((d <= tol + tol * w.float().cpu().abs()).all())
+    for g, w, nu in zip(leaves(gp), leaves(wp), leaves(ws["nu"])):
+        w = w.float().cpu()
+        d = (g.float().cpu() - w).abs()
+        noisy = torch.sqrt(nu.float().cpu() / (1 - b2**t)) < NOISE_RMS
+        limit = torch.where(noisy, 2 * lr * t, tol + tol * w.abs())
+        worst["params"] = max(worst["params"],
+                              float(torch.where(noisy, 0.0, d).max()))
+        ok &= bool((d <= limit).all())
+    return ok, worst
+
+
+def phase_train_cuda_vs_cpu(torch, np, T, FA, get_arch) -> None:
+    """Phase 23: reduced olmo-1b and gemma2-27b (f32), one step of
+    ``launch.steps.build_train_step`` from the same parameters and batch
+    on the card and on the CPU, under remat none, full and dots: loss and
+    grad norm within 1e-4, every leaf of params, mu and nu within
+    ``train_state_close``; flash launches per attention layer 1 (none) or
+    2 (full, dots: the recompute runs the kernel again; dots keeps only
+    the 2-D matmuls), backward launches BWD_KERNELS a layer."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig
+
+    opt = AdamWConfig(lr=3e-3)
+    seq, batch = 192, 2
+    for arch in TRAIN_ARCHS:
+        cfg = get_arch(arch).reduced()
+        p_cpu = T.init_params(cfg, SEED, device="cpu")
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch, seed=SEED))
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        for remat in ("none", "full", "dots"):
+            options = ST.StepOptions(remat=remat, loss_chunk=64)
+            shape = ShapeConfig("train", seq, batch, "train")
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = _tree_to(p_cpu, dev)
+                state = ST.init_opt_state(params, opt, options)
+                step = ST.build_train_step(cfg, shape, opt=opt,
+                                           options=options, device=dev)
+                before = (FA.launches, FA.bwd_launches)
+                p, st, m = step(params, state,
+                                make_global_batch(data, 0, dev))
+                runs[dev] = (p, st, m, FA.launches - before[0],
+                             FA.bwd_launches - before[1])
+            pc, sc, mc, *_ = runs["cpu"]
+            pd, sd, md, fwd, bwd = runs["cuda"]
+            ok, worst = train_state_close(torch, (pd, sd), (pc, sc), opt.lr,
+                                          opt.b2)
+            m_err = max(abs(float(md[n]) - float(mc[n]))
+                        for n in ("loss", "grad_norm"))
+            want = (n_attn * (1 if remat == "none" else 2),
+                    n_attn * FA.BWD_KERNELS)
+            print(f"[23] reduced {arch} f32 ({cfg.n_layers} layers, "
+                  f"{batch} x {seq} tokens), remat {remat}: one step cuda "
+                  f"vs cpu, loss {float(md['loss']):.6f} vs "
+                  f"{float(mc['loss']):.6f}, max |loss, grad_norm err| "
+                  f"{m_err:.3e}, max |err| params {worst['params']:.3e} "
+                  f"mu {worst['mu']:.3e} nu {worst['nu']:.3e} (tolerance "
+                  f"{TRAIN_TOL}); flash launches forward {fwd} backward "
+                  f"{bwd} (want {want[0]}, {want[1]})", flush=True)
+            if not (ok and m_err <= TRAIN_TOL) or (fwd, bwd) != want:
+                raise AssertionError(f"{arch} remat {remat}: training step "
+                                     f"on cuda vs cpu, {worst}, {m_err}, "
+                                     f"launches {(fwd, bwd)}")
+            del runs, pc, sc, pd, sd
+
+
+# phase 24: olmo-1b at full width and depth trained through the entry
+# point, bf16, 10 steps of 8 x 2,048 tokens at the reference's defaults
+TRAIN_STEPS = 10
+TRAIN_ARGV = ["--arch", "olmo-1b", "--seq-len", "2048", "--global-batch",
+              "8", "--steps", str(TRAIN_STEPS), "--remat", "full",
+              "--log-every", "1", "--seed", str(SEED)]
+RESUME_ARGV = ["--arch", "olmo-1b", "--reduced", "--seq-len", "128",
+               "--global-batch", "4", "--log-every", "4", "--seed",
+               str(SEED)]
+
+
+def phase_train(torch, np, T, FA, get_arch, card: str) -> dict:
+    """Phase 24: (a) ``repro_torch.launch.train.run`` on full olmo-1b, the
+    flash counts set to 0 just before and read just after: finite losses,
+    the last below the first, flash forward launches 16 x 2 x 10 (remat
+    full runs each layer's forward twice), backward launches 16 x
+    BWD_KERNELS x 10, no TMA copy; step time (median of steps 2-10),
+    tokens/s, peak memory and the model-FLOP share.  (b) one step of the
+    same model under torch.profiler, device time by group and the idle
+    share.  (c) resume at the reduced size: 4 steps with a checkpoint,
+    then a second launch to 8, against one 8-step run within 1e-6."""
+    import tempfile
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.tree import leaves
+
+    cfg = get_arch("olmo-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = FA.bwd_launches = FA.copies = 0
+    run = train.run(TRAIN_ARGV)
+    fwd, bwd, copies = FA.launches, FA.bwd_launches, FA.copies
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    want = (cfg.n_layers * 2 * TRAIN_STEPS,
+            cfg.n_layers * FA.BWD_KERNELS * TRAIN_STEPS)
+    step_ms = 1e3 * statistics.median(run["step_s"][1:])
+    b, s = 8, 2048
+    print(f"[24] olmo-1b full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, bf16, AdamW f32 moments, lr 3e-3, remat "
+          f"full), {TRAIN_STEPS} steps of {b} x {s} tokens through "
+          f"launch.train: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.3f}" for x in run["grad_norms"])
+          + f"; flash launches forward {fwd} backward {bwd} (want "
+          f"{want[0]}, {want[1]}), TMA copies {copies}", flush=True)
+    if not (run["rc"] == 0 and len(losses) == TRAIN_STEPS
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"olmo-1b training: rc {run['rc']}, losses "
+                             f"{losses}")
+    if (fwd, bwd) != want or copies:
+        raise AssertionError(f"olmo-1b training launched flash {fwd} / "
+                             f"{bwd} times (want {want}), {copies} copies")
+    run_first_s = run["step_s"][0]
+    del run
+
+    # (b) one step under the profiler, on the same model and data
+    opt = AdamWConfig(lr=3e-3)
+    options = ST.StepOptions(remat="full", loss_chunk=512)
+    step = ST.build_train_step(cfg, ShapeConfig("train", s, b, "train"),
+                               opt=opt, options=options, device="cuda")
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                           device="cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    pairs = b * cfg.n_heads * (s * (s + 1) // 2)
+    model_flops = (6.0 * n_params * b * s
+                   + 3 * 4.0 * cfg.hd * pairs * cfg.n_layers)
+    mfu = model_flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"[24] on {card}: {n_params / 1e9:.4f} B parameters; step ms "
+          f"median (steps "
+          f"2-{TRAIN_STEPS}) {step_ms:.2f}, first step "
+          f"{1e3 * run_first_s:.2f} ms; {b * s / step_ms * 1e3:.1f} "
+          f"tokens/s; peak memory {peak / 2**30:.2f} GiB; model FLOPs a "
+          f"step {model_flops:.4e} (6 N T + 3 x attention's 4 d per kept "
+          f"pair; remat's recompute not counted), share of "
+          f"{PEAK_BF16_FLOPS:.3e} FLOP/s {mfu:.4f}", flush=True)
+    state = ST.init_opt_state(params, opt, options)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                      global_batch=b, seed=SEED))
+    box = {"p": params, "s": state}
+    del params, state
+
+    def one(i):
+        box["p"], box["s"], m = step(box["p"], box["s"],
+                                     make_global_batch(data, i, "cuda"))
+        float(m["loss"])
+
+    one(0)
+    spans = {"cross_entropy": "cross_entropy", "adamw": "adamw"}
+    with _Spans(torch, [(L, "_ce_chunk", "cross_entropy"),
+                        (ST, "adamw_update", "adamw")]):
+        wall, groups, n_kernels = _span_profile(torch, lambda: one(1),
+                                                spans)
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in a step")
+    print(f"[24] one step under torch.profiler: wall {wall:.2f} ms, device "
+          f"busy {busy:.2f} ms, idle share {1 - busy / wall:.4f}, "
+          f"{n_kernels} kernels; device ms by group: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items())
+          + " (matmul: every cuBLAS GEMM, the logits' too; flash / flash_bwd:"
+          " the kernels; cross_entropy: the chunks' non-GEMM forward and "
+          "recompute; adamw: the update; other: the rest, the chunks' "
+          "backward included)", flush=True)
+    del box, step
+    torch.cuda.empty_cache()
+
+    # (c) resume equals an uninterrupted run, at the reduced size
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train.run([*RESUME_ARGV, "--steps", "8"])
+        first = train.run([*RESUME_ARGV, "--steps", "4", "--ckpt-dir", tmp,
+                           "--ckpt-every", "2"])
+        second = train.run([*RESUME_ARGV, "--steps", "8", "--ckpt-dir",
+                            tmp])
+    resumed = first["losses"] + second["losses"]
+    err = max(abs(x - y) for x, y in zip(resumed, whole["losses"]))
+    print(f"[24] resume (reduced olmo-1b f32 on the card, 4 x 128 tokens): "
+          f"4 steps, checkpoint, resume from step {second['start_step']} to "
+          f"8; max |loss - uninterrupted| {err:.3e} (limit 1e-6)",
+          flush=True)
+    if not (second["start_step"] == 4 and len(resumed) == 8
+            and err <= 1e-6):
+        raise AssertionError(f"resume differs: {resumed} vs "
+                             f"{whole['losses']}")
+    return dict(fwd_launches=fwd, bwd_launches=bwd, step_ms=step_ms,
+                losses=losses, mfu=mfu, tokens_s=b * s / step_ms * 1e3)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2649,6 +3097,9 @@ def main() -> int:
                                            T, get_arch)
     pixtral_flash, pixtral_kernel = _timed(21, phase_pixtral, torch, np, K,
                                            FA, T, serve)
+    fb = _timed(22, phase_flash_backward, torch, np, FA)
+    _timed(23, phase_train_cuda_vs_cpu, torch, np, T, FA, get_arch)
+    trained = _timed(24, phase_train, torch, np, T, FA, get_arch, smi)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -2666,12 +3117,16 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
         launches=(served["flash_launches"] + serve_flash + jamba_flash
-                  + whisper_flash + pixtral_flash),
+                  + whisper_flash + pixtral_flash + trained["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
+        bwd_launches=trained["bwd_launches"], bwd_ms=fb["bwd_ms"],
+        bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
+        bwd_library_ms=fb["bwd_library_ms"],
+        bwd_max_abs_err=fb["bwd_max_abs_err"],
     )]
-    print(f"[22] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[25] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -2682,7 +3137,12 @@ def main() -> int:
           f"{served['flash_launches']} (phase 7) + {serve_flash} (phase "
           f"17's two serving runs) + {jamba_flash} (phase 18's two jamba "
           f"serving runs) + {whisper_flash} (phase 20's whisper prefill) + "
-          f"{pixtral_flash} (phase 21's pixtral serving and fusion); phase "
+          f"{pixtral_flash} (phase 21's pixtral serving and fusion) + "
+          f"{trained['fwd_launches']} (phase 24's olmo-1b training, whose "
+          f"backward launched the backward kernels "
+          f"{trained['bwd_launches']} times: {trained['step_ms']:.2f} ms a "
+          f"step, {trained['tokens_s']:.1f} tokens/s, model-FLOP share "
+          f"{trained['mfu']:.4f}); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

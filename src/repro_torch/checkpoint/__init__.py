@@ -1,0 +1,15 @@
+"""repro_torch.checkpoint — atomic, step-tagged, keep-k checkpointing in
+the reference's on-disk format."""
+from repro_torch.checkpoint.store import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = [
+    "CheckpointManager",
+    "latest_step",
+    "restore_checkpoint",
+    "save_checkpoint",
+]

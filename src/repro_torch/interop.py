@@ -14,8 +14,11 @@ unstacked beside the decoder's, and the per-layer cache by mixer: ``k`` /
 ``shift_t`` / ``shift_c`` / ``wkv``.  Every leaf keeps its dtype: the
 f32 ones stay f32 (``a_log``, ``dt_bias``, ``d_skip``, ``mu_*``,
 ``decay_base``, ``bonus_u``, ``ln_x_w``, norms, the ``router``, and the
-``ssm`` and ``wkv`` states), the others are in the model dtype.  No jax
-import here.
+``ssm`` and ``wkv`` states), the others are in the model dtype.
+``opt_state_from_jax`` carries the reference's AdamW state across the
+same way (moments unstacked as the parameters, in their own dtype; the
+step; the compression residual ``efb`` when present).  No jax import
+here.
 
 JAX's bf16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; they cross as float32 and are cast to
@@ -100,3 +103,17 @@ def cache_from_jax(cfg: ArchConfig, cache, *, device=None) -> dict:
     recurrent states) from the reference's stacked one."""
     return {"blocks": _unstack_blocks(cfg.n_layers, cache["blocks"],
                                       resolve_device(device))}
+
+
+def opt_state_from_jax(cfg: ArchConfig, opt_state, *, device=None) -> dict:
+    """The port's optimizer state from the reference's: ``mu`` and ``nu``
+    unstacked as ``params_from_jax`` unstacks the parameters (each leaf
+    in its own dtype), ``step`` as a 0-d int32 tensor and, when present,
+    the f32 error-feedback residual ``efb``."""
+    dev = resolve_device(device)
+    out = {name: params_from_jax(cfg, opt_state[name], device=dev)
+           for name in ("mu", "nu")}
+    out["step"] = _to_tensor(np.asarray(opt_state["step"]), dev)
+    if opt_state.get("efb") is not None:
+        out["efb"] = params_from_jax(cfg, opt_state["efb"], device=dev)
+    return out

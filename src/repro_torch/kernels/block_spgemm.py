@@ -251,13 +251,24 @@ def block_spgemm_groups(
 
     The output starts at zero, so blocks without a product stay zero.
     Launches on PyTorch's current stream without synchronising; raises if
-    the launch is refused.
+    the launch is refused.  The kernel has no backward: with grad enabled
+    and an operand that requires grad it raises rather than return a C
+    cut off from A and B (MoE ``spgemm`` training needs a backward kernel,
+    ROADMAP.md Queue A item 15b; the CPU path's plain version is
+    differentiable).
     """
     global launches
     _check_operands(a_blocks, b_blocks)
     dev = a_blocks.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if torch.is_grad_enabled() and (a_blocks.requires_grad
+                                    or b_blocks.requires_grad):
+        raise NotImplementedError(
+            "block_spgemm's CUDA kernel has no backward: an operand requires"
+            " grad (MoE spgemm training is ROADMAP.md Queue A item 15b; run "
+            "under torch.no_grad(), or train MoE layers with impl tp or "
+            "dense)")
     ni_a, nk, bs_r, bs_k = a_blocks.shape
     _, nj_b, _, bs_c = b_blocks.shape
     if (ni_a, nj_b) != (ni, nj):

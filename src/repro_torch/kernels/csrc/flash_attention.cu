@@ -11,7 +11,10 @@
 // running sum takes the unrounded p; masked logits are the finite -1e30,
 // masked entries get p = 0 explicitly (a kv tile with no kept key for a row
 // leaves that row's state unchanged), and a row that kept no key at all
-// writes zeros (the l == 0 guard).  Any sq and skv; GQA reads kv head
+// writes zeros (the l == 0 guard).  When asked (a non-null lse), each row
+// also writes its log-sum-exp m + log(l) of the scaled (and capped) logits
+// in f32, +inf for a row that kept no key, for the backward kernels in
+// flash_attention_bwd.cu.  Any sq and skv; GQA reads kv head
 // h / (h / hkv) with no repeated K/V; inputs are strided (batch, head, seq)
 // views with a unit last stride, the output a (b, s, h, d) buffer.
 //
@@ -60,6 +63,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -110,9 +114,9 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(simt::NTHREADS) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
-    int rep, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-    int causal, int window, float softcap, int q_offset) {
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+    int sq, int skv, int rep, Strides qs, Strides ks, Strides vs, Strides os,
+    float scale, int causal, int window, float softcap, int q_offset) {
   using namespace simt;
   constexpr int CD = D / TX;  // output columns per thread
   extern __shared__ float smem[];
@@ -245,6 +249,9 @@ __global__ void __launch_bounds__(simt::NTHREADS) flash_f32_kernel(
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
     for (int j = 0; j < CD; ++j) ob[r * os.s + tx + TX * j] = acc[i][j] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)bb * gridDim.y + hh) * sq + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
@@ -493,9 +500,9 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
 template <int D>
 __global__ void __launch_bounds__(tc::NTHREADS, 1) flash_bf16_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int sq,
-    int skv, int rep, Strides os, float scale, int causal, int window,
-    float softcap, int q_offset) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int sq, int skv, int rep, Strides os, float scale,
+    int causal, int window, float softcap, int q_offset) {
   using namespace tc;
   using G = Geom<D>;
   constexpr int NS = BKV / 2;  // S registers per thread
@@ -659,6 +666,10 @@ __global__ void __launch_bounds__(tc::NTHREADS, 1) flash_bf16_kernel(
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    // m is in the log2 domain: lse = m ln 2 + log(l)
+    if (lse != nullptr && t == 0)
+      lse[((long long)bb * gridDim.y + hh) * sq + row] =
+          l[r] > 0.f ? m[r] * 0.6931471805599453f + logf(l[r]) : INFINITY;
   }
 }
 
@@ -716,6 +727,7 @@ int encode_map(CUtensorMap* map, const void* ptr, int b, int h, int s, Strides s
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int b, h, hkv, sq, skv;
   Strides qs, ks, vs, os;
   float scale;
@@ -735,7 +747,7 @@ int launch_f32(const Args& a) {
   dim3 grid((a.sq + simt::BQ - 1) / simt::BQ, a.h, a.b);
   kern<<<grid, simt::NTHREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.skv,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.sq, a.skv,
       a.h / a.hkv, a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.window, a.softcap,
       a.q_offset);
   return (int)cudaGetLastError();
@@ -755,7 +767,7 @@ int launch_bf16(const Args& a) {
   if (cerr != cudaSuccess) return (int)cerr;
   dim3 grid((a.sq + tc::BQ - 1) / tc::BQ, a.h, a.b);
   kern<<<grid, tc::NTHREADS, smem, a.stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.sq, a.skv, a.h / a.hkv, a.os,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.sq, a.skv, a.h / a.hkv, a.os,
       a.scale, a.causal, a.window, a.softcap, a.q_offset);
   return (int)cudaGetLastError();
 }
@@ -773,9 +785,10 @@ int launch(int dtype, const Args& a) {
 // head, seq) strides that are multiples of 8 elements (TMA); the wrapper
 // guarantees both.  window <= 0 and softcap <= 0 mean "none".  Returns the
 // CUDA error code (0 = launched), or 1000 + the CUresult of a refused
-// tensor map.
+// tensor map.  lse: null, or an f32 (b, h, sq) contiguous buffer that gets
+// each row's log-sum-exp.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int b,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int b,
     int h, int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -784,7 +797,7 @@ extern "C" int flash_attention_launch(
   if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 || skv <= 0 ||
       b > 65535 || h > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, b, h, hkv, sq, skv,
+  const Args a{q, k, v, o, lse, b, h, hkv, sq, skv,
                Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
                Strides{v_sb, v_sh, v_ss}, Strides{o_sb, o_sh, o_ss},
                scale, causal, window, softcap, q_offset,

@@ -34,6 +34,21 @@ key gives zeros, as ``ref.attention_ref`` does.  ``flash_attention`` runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises.  ``launches`` counts kernel launches, and nothing
 else.
+
+Training.  The TPU package has no backward kernel: its training
+differentiates the jnp loop.  Here ``FlashAttention`` (an
+``autograd.Function``) carries the gradient: its forward also returns each
+row's log-sum-exp (``lse``, f32 (b, h, sq), +inf for a row that keeps no
+key), and its backward runs the backward kernels of
+``csrc/flash_attention_bwd.cu`` (delta, then dK / dV, then dQ: three
+launches, counted in ``bwd_launches``) on CUDA tensors, or
+``flash_attention_backward_plain``, the same algorithm in f32 chunked
+loops, on CPU tensors.  Both recompute P = exp(x - lse) in f32 and use it
+unrounded for dV, so the backward is the gradient of the f32 function the
+plain forward computes; at bf16 the kernel's forward rounds p for P.V, so
+its output sits within the forward tolerance above.  ``flash_attention``
+goes through the Function only when grad is enabled and an input requires
+it; otherwise it takes the forward path above unchanged (serving).
 """
 from __future__ import annotations
 
@@ -42,7 +57,10 @@ import ctypes
 import torch
 
 launches = 0  # kernel launches since the last reset (a plain counter)
+bwd_launches = 0  # backward kernel launches (BWD_KERNELS per backward)
 copies = 0  # bf16 inputs copied to meet TMA's alignment (a plain counter)
+
+BWD_KERNELS = 3  # delta, dK / dV, dQ
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
@@ -96,6 +114,27 @@ def flash_attention_plain(
     on CUDA needs TF32 off (``torch.backends.cuda.matmul.allow_tf32``
     False, PyTorch's default).
     """
+    return flash_attention_plain_lse(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+        q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset)[0]
+
+
+def flash_attention_plain_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_plain``'s loop, which also returns each row's
+    log-sum-exp m + log(l) of the scaled (and capped) logits: f32 (b, h,
+    sq), +inf for a row that keeps no key."""
     _check(q, k, v)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -106,6 +145,7 @@ def flash_attention_plain(
     dev = q.device
     qg = q.reshape(b, hkv, g, sq, d)
     out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hkv, g, sq), dtype=torch.float32, device=dev)
     for q0 in range(0, sq, q_chunk):
         qi = qg[:, :, :, q0:q0 + q_chunk].float()
         cq = qi.shape[3]
@@ -130,7 +170,74 @@ def flash_attention_plain(
             m = m_new
         safe = torch.where(l == 0.0, 1.0, l)
         out[:, :, :, q0:q0 + cq] = (acc / safe).to(q.dtype)
-    return out.reshape(b, h, sq, d)
+        lse[:, :, :, q0:q0 + cq] = torch.where(
+            l == 0.0, float("inf"), m + torch.log(safe))[..., 0]
+    return out.reshape(b, h, sq, d), lse.reshape(b, h, sq)
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, hkv, skv, d)
+    v: torch.Tensor,  # (b, hkv, skv, d)
+    out: torch.Tensor,  # (b, h, sq, d), the forward's output
+    lse: torch.Tensor,  # (b, h, sq) f32, the forward's log-sum-exp
+    dout: torch.Tensor,  # (b, h, sq, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype: the backward kernels' algorithm
+    in f32 chunked loops.  D = rowsum(dout * out); per (q chunk, kv chunk)
+    P = exp(x - lse) (0 where masked), dV += P^T dO, dS = P (dO V^T - D)
+    times scale (and 1 - tanh^2 under the cap), dQ += dS K, dK += dS^T Q;
+    the g query heads of a kv head add into its dK / dV."""
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    dev = q.device
+    qg = q.reshape(b, hkv, g, sq, d)
+    dog = dout.reshape(b, hkv, g, sq, d)
+    delta = (dog.float() * out.reshape(b, hkv, g, sq, d).float()).sum(-1)
+    lseg = lse.reshape(b, hkv, g, sq)
+    dq = torch.zeros((b, hkv, g, sq, d), device=dev)
+    dk = torch.zeros((b, hkv, skv, d), device=dev)
+    dv = torch.zeros((b, hkv, skv, d), device=dev)
+    for q0 in range(0, sq, q_chunk):
+        qi = qg[:, :, :, q0:q0 + q_chunk].float()
+        doi = dog[:, :, :, q0:q0 + q_chunk].float()
+        cq = qi.shape[3]
+        li = lseg[:, :, :, q0:q0 + cq, None]
+        di = delta[:, :, :, q0:q0 + cq, None]
+        qpos = q0 + q_offset + torch.arange(cq, device=dev)
+        for k0 in range(0, skv, kv_chunk):
+            ki = k[:, :, None, k0:k0 + kv_chunk].float()
+            vi = v[:, :, None, k0:k0 + kv_chunk].float()
+            x = torch.matmul(qi, ki.transpose(-1, -2)) * scale
+            if softcap is not None:
+                t = torch.tanh(x / softcap)
+                x = t * softcap
+            kpos = k0 + torch.arange(ki.shape[3], device=dev)
+            keep = _keep_mask(qpos, kpos, skv, causal, window)
+            p = torch.where(keep, torch.exp(x - li), 0.0)
+            dv[:, :, k0:k0 + kv_chunk] += torch.matmul(
+                p.transpose(-1, -2), doi).sum(2)
+            ds = p * (torch.matmul(doi, vi.transpose(-1, -2)) - di) * scale
+            if softcap is not None:
+                ds = ds * (1.0 - t * t)
+            dq[:, :, :, q0:q0 + cq] += torch.matmul(ds, ki)
+            dk[:, :, k0:k0 + kv_chunk] += torch.matmul(
+                ds.transpose(-1, -2), qi).sum(2)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
@@ -156,10 +263,38 @@ def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 4 + [i] * 7 + [ll] * 12
+        fn.argtypes = ([vp] * 5 + [i] * 7 + [ll] * 12
                        + [ctypes.c_float, i, i, ctypes.c_float, i, vp])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_launcher():
+    from repro_torch.kernels import _build
+
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 10 + [i] * 7 + [ll] * 24
+                       + [ctypes.c_float, i, i, ctypes.c_float, i, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_options(d: int, window, softcap) -> None:
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+
+
+def _heads_major(b: int, s: int, n: int, d: int, dtype, dev) -> torch.Tensor:
+    """A (b, n, s, d) view of a fresh (b, s, n, d) buffer: merging or
+    splitting the heads of it afterwards is free."""
+    return torch.empty((b, s, n, d), dtype=dtype, device=dev).transpose(1, 2)
 
 
 def flash_attention_cuda(
@@ -172,9 +307,11 @@ def flash_attention_cuda(
     softcap: float | None = None,
     scale: float | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Launch the CUDA kernel (CUDA tensors only): the tensor-core kernel
-    for bf16, the SIMT kernel for f32.
+    for bf16, the SIMT kernel for f32.  ``with_lse`` returns (out, lse),
+    lse f32 (b, h, sq) as ``flash_attention_plain_lse`` gives it.
 
     Takes strided (b, h, s, d) views with a unit last stride, so the
     projections' transposed heads need no copy (a bf16 view that TMA
@@ -192,13 +329,7 @@ def flash_attention_cuda(
         raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dim {d}: the kernel is built for {HEAD_DIMS}")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"softcap must be positive, got {softcap}")
+    _check_options(d, window, softcap)
     if q.dtype == torch.bfloat16:
         fixed = []
         for t in (q, k, v):
@@ -210,13 +341,16 @@ def flash_attention_cuda(
     else:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    out = _heads_major(b, sq, h, d, q.dtype, dev)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if scale is None:
         scale = d**-0.5
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, hkv, sq, skv, d,
             *_axis_strides(q), *_axis_strides(k), *_axis_strides(v),
             *out.stride()[:3], float(scale), int(causal),
@@ -231,7 +365,108 @@ def flash_attention_cuda(
                            f"(q {tuple(q.shape)}, kv {tuple(k.shape)}, dtype "
                            f"{q.dtype})")
     launches += 1
-    return out
+    return out if lse is None else (out, lse)
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the three backward kernels (CUDA tensors only, f32 or bf16):
+    (dq, dk, dv) in the inputs' dtype, each a heads-transposed view as the
+    forward's output is.  Takes strided (b, h, s, d) views with a unit last
+    stride (others are copied); ``lse`` is the forward's.  Launches on
+    PyTorch's current stream without synchronising; raises if a launch is
+    refused, and never falls back to the plain version."""
+    global bwd_launches
+    _check(q, k, v)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _check_options(d, window, softcap)
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape)):
+        if t.shape != shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != dev):
+        raise ValueError(f"lse must be f32 {(b, h, sq)} on {dev}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = _heads_major(b, sq, h, d, q.dtype, dev)
+    dk = _heads_major(b, skv, hkv, d, q.dtype, dev)
+    dv = _heads_major(b, skv, hkv, d, q.dtype, dev)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    if scale is None:
+        scale = d**-0.5
+    launch = _bwd_launcher()
+    with torch.cuda.device(dev):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv,
+            sq, skv, d,
+            *(st for t in (q, k, v, out, dout, dq, dk, dv)
+              for st in t.stride()[:3]),
+            float(scale), int(causal), 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), int(q_offset),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, kv "
+                           f"{tuple(k.shape)}, dtype {q.dtype})")
+    bwd_launches += BWD_KERNELS
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the kernels on CUDA tensors (forward with
+    lse, then the backward kernels), the plain versions on CPU tensors.
+    Never the plain version on a CUDA tensor: a build or launch error
+    raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk,
+                kv_chunk, q_offset):
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    scale=scale, q_offset=q_offset)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain_lse(
+                q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **opts)
+            opts.update(q_chunk=q_chunk, kv_chunk=kv_chunk)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, with_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                                   **ctx.opts)
+        else:
+            grads = flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                  **ctx.opts)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def flash_attention(
@@ -253,7 +488,13 @@ def flash_attention(
 
     The kernel reads kv head ``h // (h // hkv)`` for query head h, where
     the reference repeats K/V ``h // hkv`` times; the result is the same.
-    The reference's ``bq`` / ``bkv`` / ``interpret`` have no twin."""
+    The reference's ``bq`` / ``bkv`` / ``interpret`` have no twin.  With
+    grad enabled and an input that requires it, the call goes through
+    ``FlashAttention`` (the same forward, plus its lse, and a backward)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                    q_chunk, kv_chunk, q_offset)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

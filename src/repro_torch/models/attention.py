@@ -5,7 +5,11 @@ The torch twin of ``repro/models/attention.py``.  Paths:
     kernel (``kernels/csrc/flash_attention.cu``), the Pallas kernel's port,
     which is what the reference's docstring has replace the jnp loop on
     hardware; on CPU tensors the same online-softmax loop in plain PyTorch
-    (``kernels/flash_attention.py::flash_attention_plain``);
+    (``kernels/flash_attention.py::flash_attention_plain``).  In training
+    (grad enabled, an input that requires it) it goes through
+    ``FlashAttention``, whose backward is the hand-written backward
+    kernel on CUDA (``csrc/flash_attention_bwd.cu``) and its plain twin on
+    the CPU; the reference differentiates its jnp loop;
   * decode — ``decode_attention``: one query row per slot against the KV
     cache, plain matmuls as in the reference (no kernel there either).
 
@@ -102,7 +106,9 @@ def chunked_attention(
 
     CUDA tensors launch the flash kernel (its own tiles; ``q_chunk`` and
     ``kv_chunk`` shape only the plain loop); CPU tensors run the plain
-    loop.  Never the plain loop on a CUDA tensor.
+    loop.  Never the plain loop on a CUDA tensor.  Differentiable: with
+    grad enabled the backward runs the flash backward kernels (CUDA) or
+    the plain backward (CPU).
     """
     return FA.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, scale=scale, q_chunk=q_chunk,

@@ -1,9 +1,11 @@
-"""Shared model primitives: norms, rope, MLPs, embeddings.
+"""Shared model primitives: norms, rope, MLPs, embeddings, the chunked
+cross-entropy.
 
 The torch twin of ``repro/models/layers.py``.  Parameters are plain dicts
 of tensors with the reference's names and layouts; ``init_*`` draw on the
-generator's device.  ``chunked_cross_entropy`` is training and is not
-ported yet (ROADMAP.md Queue A item 15).
+generator's device.  What remains of the reference's module is its
+sharding: ``shard_act("ce_in")`` under sharding rules comes with
+``parallel/sharding.py`` (ROADMAP.md Queue A item 15b).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 
@@ -148,7 +151,14 @@ def init_embed(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The rows of the token table (the reference's ``p["tok"][tokens]``).
+
+    ``F.embedding`` rather than indexing for its backward: on CUDA its
+    dense backward sums the repeated rows' gradients in f32 before one
+    cast to the table's dtype, where bf16 index accumulation would round
+    at every repeat (a Zipf batch's top token fills about a tenth of
+    it)."""
+    return F.embedding(tokens, p["tok"])
 
 
 def logits_matmul(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -159,3 +169,38 @@ def logits_matmul(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
+
+
+def _ce_chunk(cfg: ArchConfig, p_embed: dict, x: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one sequence chunk, logits in f32."""
+    logits = logits_matmul(cfg, p_embed, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_cross_entropy(
+    cfg: ArchConfig,
+    p_embed: dict,
+    x: torch.Tensor,  # (B, S, d) final hidden states
+    targets: torch.Tensor,  # (B, S)
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean cross-entropy over B * S without keeping (B, S, V) f32 logits.
+
+    One sequence chunk at a time, each under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` scan body): a chunk's (B, chunk,
+    V) logits are freed after its forward and recomputed in the backward.
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_ce_chunk, cfg, p_embed,
+                                   x[:, c0:c0 + chunk],
+                                   targets[:, c0:c0 + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)

@@ -36,13 +36,29 @@ weights over zero values, so that sub-layer adds exactly zero.  A prompt
 shorter than the patch prefix raises ``ValueError`` (the reference's
 concatenation would lengthen the sequence to the prefix instead).
 
-Not ported yet: the training loss (ROADMAP.md Queue A item 15).
+Training: ``forward(..., remat=)`` and ``loss_fn`` (the chunked
+cross-entropy plus ``aux_coef`` times the MoE load-balance loss).  The
+reference checkpoints each scanned group of layers; the port runs one
+layer at a time and checkpoints each: ``"none"`` keeps every
+activation, ``"full"`` recomputes a layer's forward in its backward
+(``torch.utils.checkpoint``), ``"dots"`` saves the layer's 2-D matmul
+outputs (``aten.mm`` / ``aten.addmm``) and recomputes the rest, batched
+(``bmm``) products included — the reference's
+``dots_with_no_batch_dims_saveable``.  All three give the same loss and
+gradients.  MoE training under ``spgemm`` needs a block-SpGEMM backward
+and sharded training needs ``parallel/``: ROADMAP.md Queue A item 15b.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config import ArchConfig, resolve_device
 from repro_torch.models import attention as A
@@ -369,11 +385,40 @@ def _embed_inputs(cfg, params, tokens, patch_embeds=None):
     return x
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing: keep 2-D matmul outputs, recompute the
+    rest (batched products too)."""
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = ("none", "full", "dots")
+
+
+def _remat_layer(fn, remat: str):
+    """``fn`` (one layer) under the ``remat`` policy."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    raise ValueError(f"remat {remat!r}: one of {REMAT}")
+
+
 def _run_blocks(cfg, params, tokens, cache, patch_embeds=None,
-                frame_embeds=None):
+                frame_embeds=None, remat: str = "none"):
     """(final hidden, summed MoE aux loss in f32) of a prefill pass; with
     an encoder and frames, the encoder first and cross-attention in every
-    decoder block."""
+    decoder block; each layer under ``remat`` (``forward`` only)."""
+    layer = _remat_layer(_prefill_block, remat)
     x = _embed_inputs(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_out = None
@@ -385,7 +430,7 @@ def _run_blocks(cfg, params, tokens, cache, patch_embeds=None,
     caches = cache["blocks"] if cache is not None else [None] * cfg.n_layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["blocks"], caches):
-        x, a = _prefill_block(cfg, kind, p, x, c, positions, enc_out)
+        x, a = layer(cfg, kind, p, x, c, positions, enc_out)
         if a is not None:
             aux = aux + a
     return L.apply_norm(cfg, params["final_norm"], x), aux
@@ -393,14 +438,31 @@ def _run_blocks(cfg, params, tokens, cache, patch_embeds=None,
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             patch_embeds: torch.Tensor | None = None,
-            frame_embeds: torch.Tensor | None = None
+            frame_embeds: torch.Tensor | None = None,
+            remat: str = "none",
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward over (B, S) tokens (pixtral's ``patch_embeds`` (B,
-    n, d) as the prefix, whisper's ``frame_embeds`` (B, F, d) through the
-    encoder): (final hidden (B, S, d), the MoE load-balance loss summed
-    over the MoE layers, f32; zero without them)."""
+    """Train / prefill forward over (B, S) tokens (pixtral's
+    ``patch_embeds`` (B, n, d) as the prefix, whisper's ``frame_embeds``
+    (B, F, d) through the encoder): (final hidden (B, S, d), the MoE
+    load-balance loss summed over the MoE layers, f32; zero without
+    them).  ``remat`` (none | full | dots) checkpoints each layer."""
     check_supported(cfg)
-    return _run_blocks(cfg, params, tokens, None, patch_embeds, frame_embeds)
+    return _run_blocks(cfg, params, tokens, None, patch_embeds, frame_embeds,
+                       remat)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: dict, *,
+            aux_coef: float = 0.01, remat: str = "none",
+            loss_chunk: int = 512) -> tuple[torch.Tensor, dict]:
+    """Causal-LM loss: the chunked cross-entropy of ``batch["targets"]``
+    (``loss_chunk`` positions a chunk) plus ``aux_coef`` times the MoE
+    load-balance loss.  Returns (loss, {"ce", "moe_aux"})."""
+    x, aux = forward(cfg, params, batch["tokens"],
+                     patch_embeds=batch.get("patch_embeds"),
+                     frame_embeds=batch.get("frame_embeds"), remat=remat)
+    ce = L.chunked_cross_entropy(cfg, params["embed"], x, batch["targets"],
+                                 chunk=loss_chunk)
+    return ce + aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,

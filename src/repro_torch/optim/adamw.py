@@ -1,0 +1,93 @@
+"""AdamW with configurable moment dtype and global-norm clipping — the
+twin of ``repro/optim/adamw.py``.
+
+Plain functions of trees (nested dicts / lists of tensors) in and out.
+The math is the reference's: update math in f32, moments stored in
+``moment_dtype``, parameters kept in their own dtype with no master copy;
+weight decay applies to every leaf; clipping scales the grads by
+``min(1, clip / max(gn, 1e-9))`` cast to each grad's dtype.  Updates run
+under ``torch.no_grad`` and return new tensors (the reference returns new
+arrays).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.optim.tree import leaves, tree_map
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float | None = 1.0
+    moment_dtype: str = "float32"
+
+
+def adamw_init(cfg: AdamWConfig, params: Any) -> dict[str, Any]:
+    """Zero moments in ``moment_dtype`` on each leaf's device, step 0
+    (int32, a 0-d tensor on the first leaf's device)."""
+    dt = _DTYPES[cfg.moment_dtype]
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    dev = leaves(params)[0].device
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    total = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(
+    cfg: AdamWConfig,
+    params: Any,
+    grads: Any,
+    state: dict[str, Any],
+    lr_scale: float | torch.Tensor = 1.0,
+) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
+    """One update.  Returns (params, state, {"grad_norm"})."""
+    step = state["step"] + 1
+    gn = global_norm(grads)
+    if cfg.clip_norm is not None:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9),
+                            max=1.0)
+        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+    s32 = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                       device=s32.device), s32)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                       device=s32.device), s32)
+    lr = cfg.lr * lr_scale
+    mdt = _DTYPES[cfg.moment_dtype]
+
+    def upd(p, g, mu, nu):
+        g32 = g.float()
+        mu32 = mu.float() * cfg.b1 + g32 * (1 - cfg.b1)
+        nu32 = nu.float() * cfg.b2 + torch.square(g32) * (1 - cfg.b2)
+        mhat = mu32 / b1c.to(p.device)
+        nhat = nu32 / b2c.to(p.device)
+        delta = mhat / (torch.sqrt(nhat) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * delta
+        return p_new.to(p.dtype), mu32.to(mdt), nu32.to(mdt)
+
+    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    pick = lambda i: tree_map(lambda o: o[i], out)
+    new_state = {"mu": pick(1), "nu": pick(2), "step": step}
+    return pick(0), new_state, {"grad_norm": gn}

@@ -8,7 +8,8 @@ reference turns each name into a GSPMD sharding constraint; outside, both
 are no-ops, which is what a single device sees.  The port runs one process
 with no GSPMD, so ``shard_act`` is the identity with no rules installed
 and raises with rules installed: resharding activations across devices
-comes with ``parallel/sharding.py`` (ROADMAP.md Queue A item 15).
+comes with ``parallel/sharding.py`` (ROADMAP.md Queue A item 15b, the
+sharded training slice).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 _STATE = threading.local()
 
 _NO_GSPMD = ("activation resharding (shard_act under sharding rules) needs "
-             "parallel/sharding.py, ROADMAP.md Queue A item 15")
+             "parallel/sharding.py, ROADMAP.md Queue A item 15b")
 
 
 @dataclass(frozen=True)

@@ -413,3 +413,23 @@ def test_group_layouts_on_the_cpu():
         assert torch.equal(ops.block_spgemm(ta, tb, tok, group=g), want)
     with pytest.raises(ValueError, match="panel"):
         K.kernel_tile(23, 23, group=(5, 5))  # 5 x 24 rows > 96
+
+
+def test_cpu_path_is_differentiable():
+    """The CPU path (the plain version) carries gradients to both
+    operands: dA_ik = sum_j ok[i,k,j] G_ij B_kj^T and dB_kj = sum_i
+    ok[i,k,j] A_ik^T G_ij, against a dense einsum's autograd.  The CUDA
+    launch raises instead (tests/test_torch_cuda.py): the kernel has no
+    backward."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((3, 4, 5, 6))).requires_grad_()
+    b = torch.from_numpy(rng.standard_normal((4, 2, 6, 7))).requires_grad_()
+    ok = torch.from_numpy(rng.random((3, 4, 2)) < 0.5)
+    g = torch.from_numpy(rng.standard_normal((3, 2, 5, 7)))
+    c = K.block_spgemm(a.float(), b.float(), ok)
+    got = torch.autograd.grad(c, (a, b), g.float())
+    a2, b2 = (t.detach().clone().requires_grad_() for t in (a, b))
+    dense = torch.einsum("ikj,ikrs,kjst->ijrt", ok.double(), a2, b2)
+    want = torch.autograd.grad(dense, (a2, b2), g)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)

@@ -24,6 +24,7 @@ from repro_torch.kernels import block_spgemm as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref, stacks
 from repro_torch.launch.mesh import make_spgemm_mesh
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import GenerationConfig, ServingEngine
 
@@ -597,3 +598,126 @@ def test_moe_shape_kernel_and_layer_on_cuda(cuda):
     want = K.block_spgemm_stacks_plain(a, bank.blocks, st, ni=3, nj=8)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# (b, h, hkv, sq, skv, d, causal, window, softcap, q_offset)
+FLASH_BWD_CASES = [
+    (1, 2, 2, 256, 256, 64, True, None, None, 0),
+    (2, 8, 2, 200, 200, 32, True, None, None, 0),
+    (1, 2, 1, 333, 333, 128, True, 100, 30.0, 0),
+    (1, 4, 2, 128, 384, 128, True, None, None, 0),
+    (1, 4, 2, 384, 128, 64, False, None, None, 0),
+    (1, 2, 2, 300, 100, 64, True, 32, None, 0),  # rows that keep no key
+    (1, 2, 2, 100, 228, 64, True, None, 50.0, 128),
+]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
+    """The forward's lse against the plain one (+inf on the same rows),
+    then the three backward kernels against the plain backward on the
+    same out and lse: dq, dk, dv within 1e-4 (f32) or 3e-2 (bf16: one
+    output rounding) of each tensor's largest magnitude; three launches."""
+    b, h, hkv, sq, skv, d, causal, window, softcap, q_offset = case
+    rng = np.random.default_rng(2)
+    amp = 4.0 if softcap else 1.0
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s) * a).to(cuda,
+                                                                   dtype)
+                   for s, a in (((b, h, sq, d), amp), ((b, hkv, skv, d), amp),
+                                ((b, hkv, skv, d), 1.0), ((b, h, sq, d), 1.0)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    _, lse = FA.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    out, plse = FA.flash_attention_plain_lse(q, k, v, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+    fin = torch.isfinite(plse)
+    torch.testing.assert_close(lse[fin], plse[fin], rtol=1e-5, atol=1e-4)
+    before = FA.bwd_launches
+    got = FA.flash_attention_backward_cuda(q, k, v, out, plse, do, **kw)
+    assert FA.bwd_launches == before + FA.BWD_KERNELS
+    want = FA.flash_attention_backward_plain(q, k, v, out, plse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        tol = FLASH_BWD_TOL[dtype] * max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+
+
+def test_attention_gradient_on_cuda_goes_through_the_kernels(cuda):
+    """``chunked_attention`` with inputs that require grad: one forward
+    and BWD_KERNELS backward launches, gradients equal to the plain
+    backward's on the kernel's own out and lse (f32)."""
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(cuda,
+                                                                torch.float32)
+                   for s in ((2, 4, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64),
+                             (2, 4, 96, 64)))
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (FA.launches, FA.bwd_launches)
+    out = A.chunked_attention(*live, causal=True, window=40)
+    got = torch.autograd.grad(out, live, do)
+    assert (FA.launches - before[0], FA.bwd_launches - before[1]) == (
+        1, FA.BWD_KERNELS)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, window=40,
+                                     with_lse=True)
+    want = FA.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=True,
+                                            window=40)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_block_spgemm_kernel_refuses_autograd(cuda):
+    """The kernel has no backward: an operand that requires grad raises
+    (under no_grad the same call launches)."""
+    a = torch.randn(2, 2, 4, 4, device=cuda, requires_grad=True)
+    b = torch.randn(2, 2, 4, 4, device=cuda)
+    ok = torch.ones(2, 2, 2, dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="15b"):
+        K.block_spgemm(a, b, ok)
+    before = K.launches
+    with torch.no_grad():
+        K.block_spgemm(a, b, ok)
+    assert K.launches == before + 1
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_reduced_train_step_cuda_matches_cpu(cuda, remat):
+    """One training step of reduced olmo-1b (f32) from the same parameters
+    and batch on the card and the CPU: loss, grad norm and every leaf of
+    params, mu and nu within 1e-4 (``chip_smoke.train_state_close``: an
+    entry whose gradient is f32 rounding noise may move by up to 2 lr);
+    flash launches per layer 1 (none) or 2 (full, dots: forward and
+    recompute), backward launches BWD_KERNELS a layer."""
+    import chip_smoke
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_arch("olmo-1b").reduced()
+    shape = ShapeConfig("train", 64, 4, "train")
+    options = ST.StepOptions(remat=remat, loss_chunk=32)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=4, seed=0))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = T.init_params(cfg, 0, device="cpu")
+        params = _to(params, dev)
+        opt = AdamWConfig(lr=3e-3)
+        state = ST.init_opt_state(params, opt, options)
+        step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                   device=dev)
+        before = (FA.launches, FA.bwd_launches)
+        p, s, m = step(params, state, make_global_batch(data, 0, dev))
+        out[str(dev)] = (p, s, m, FA.launches - before[0],
+                         FA.bwd_launches - before[1])
+    pc, sc, mc, *_ = out["cpu"]
+    pd, sd, md, fwd, bwd = out[str(cuda)]
+    assert fwd == cfg.n_layers * (1 if remat == "none" else 2)
+    assert bwd == cfg.n_layers * FA.BWD_KERNELS
+    for name in ("loss", "grad_norm"):
+        assert abs(float(md[name]) - float(mc[name])) <= 1e-4
+    ok, worst = chip_smoke.train_state_close(torch, (pd, sd), (pc, sc),
+                                             opt.lr, opt.b2)
+    assert ok, worst

@@ -10,6 +10,7 @@ kernel rounds p to bf16 before P.V, the plain loop (like the JAX model's
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -267,3 +268,224 @@ def test_flash_bound_counts_kept_pairs(shape, causal, want_ms):
     ms, by = chip_smoke._flash_bound(*shape, 2, causal)
     assert by == "operations"
     assert ms == pytest.approx(want_ms, abs=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward: plain version, lse, the autograd Function
+# ---------------------------------------------------------------------------
+
+# (b, h, hkv, sq, skv, d, causal, window, softcap, q_offset); chunks of 48
+# queries and 40 keys make every length ragged against them
+BWD_CASES = [
+    (2, 4, 2, 100, 100, 32, True, None, None, 0),  # GQA 2:1, causal
+    (1, 2, 2, 70, 90, 16, False, None, None, 0),  # sq != skv, no mask
+    (1, 4, 1, 96, 96, 16, True, 24, None, 0),  # window, GQA 4:1
+    (1, 2, 2, 80, 80, 32, True, None, 30.0, 0),  # softcap
+    (1, 2, 1, 60, 60, 16, True, 16, 50.0, 0),  # window and softcap
+    (1, 2, 2, 50, 120, 16, True, None, None, 70),  # query offset
+    (1, 2, 2, 90, 40, 16, True, 8, None, 0),  # rows 47+ keep no key
+]
+
+
+def _dense64(q, k, v, *, causal, window, softcap, q_offset):
+    """float64 softmax attention with the kernel's masks; a row that keeps
+    no key gives zeros (and an lse of +inf)."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    x = q @ k.transpose(-1, -2) * d**-0.5
+    if softcap is not None:
+        x = torch.tanh(x / softcap) * softcap
+    keep = FA._keep_mask(q_offset + torch.arange(sq),
+                         torch.arange(k.shape[2]), k.shape[2], causal, window)
+    any_key = keep.any(-1)
+    x = x.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(torch.where(any_key[:, None], x, 0.0), -1)
+    out = torch.where(keep, p, 0.0) @ v
+    lse = torch.where(any_key, torch.logsumexp(x, -1), float("inf"))
+    return out, lse
+
+
+def _bwd_inputs(case, seed=0, dtype=torch.float64):
+    b, h, hkv, sq, skv, d, *_ = case
+    rng = np.random.default_rng(seed)
+    amp = 3.0 if case[8] else 1.0  # logits that reach the cap
+    mk = lambda shape, a=1.0: torch.from_numpy(
+        rng.standard_normal(shape) * a).to(dtype)
+    return (mk((b, h, sq, d), amp), mk((b, hkv, skv, d), amp),
+            mk((b, hkv, skv, d)), mk((b, h, sq, d)))
+
+
+def _kw(case):
+    return dict(causal=case[6], window=case[7], softcap=case[8],
+                q_offset=case[9])
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_backward_matches_float64_autograd(case):
+    """lse, dq, dk and dv of the plain versions (f32, small chunks)
+    against autograd through float64 dense attention, within 1e-5
+    relative to each tensor's largest magnitude; a row that keeps no key
+    has lse +inf and no gradient."""
+    q, k, v, do = _bwd_inputs(case)
+    kw = _kw(case)
+    q64, k64, v64 = (t.clone().requires_grad_() for t in (q, k, v))
+    out64, lse64 = _dense64(q64, k64, v64, **kw)
+    want = torch.autograd.grad(out64, (q64, k64, v64), do)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    out, lse = FA.flash_attention_plain_lse(q32, k32, v32, q_chunk=48,
+                                            kv_chunk=40, **kw)
+    torch.testing.assert_close(out.double(), out64.detach(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse64))
+    fin = torch.isfinite(lse64)
+    torch.testing.assert_close(lse.double()[fin], lse64[fin], rtol=1e-6,
+                               atol=1e-5)
+    got = FA.flash_attention_backward_plain(q32, k32, v32, out, lse, do32,
+                                            q_chunk=48, kv_chunk=40, **kw)
+    for g, w, like in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == like.shape
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                   atol=1e-5 * scale)
+    if not fin.all():  # the rows without a key pass no gradient
+        assert bool((got[0][:, :, ~fin[0, 0]] == 0).all())
+
+
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[9] == 0
+                                  and c[3] <= c[4]], ids=str)
+def test_plain_backward_matches_jax_grad_of_reference(case):
+    """dq, dk and dv against ``jax.grad`` of the reference's
+    ``chunked_attention`` (f32, the same chunks) within 1e-4.  Cases where
+    every row keeps a key: the reference gives a row with none the mean of
+    its chunk's values where the port gives zeros."""
+    q, k, v, do = (t.float().numpy() for t in _bwd_inputs(case, seed=1))
+    kw = dict(causal=case[6], window=case[7], softcap=case[8], q_chunk=48,
+              kv_chunk=40)
+
+    def jloss(qq, kk, vv):
+        return jnp.sum(JA.chunked_attention(qq, kk, vv, **kw) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = FA.flash_attention_plain_lse(tq, tk, tv, **kw)
+    got = FA.flash_attention_backward_plain(tq, tk, tv, out, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_gradient_on_cpu(dtype):
+    """With grad enabled ``flash_attention`` (and the model's
+    ``chunked_attention``) goes through ``FlashAttention``: the plain
+    forward's values and the plain backward's gradients, in the inputs'
+    dtype, and no kernel launch on CPU tensors."""
+    case = (2, 4, 2, 64, 64, 32, True, None, 30.0, 0)
+    q, k, v, do = (t.to(_TORCH[dtype]) for t in _bwd_inputs(case, seed=2))
+    kw = _kw(case)
+    leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (FA.launches, FA.bwd_launches)
+    out = A.chunked_attention(*leaves_, q_chunk=32, kv_chunk=16, **kw)
+    assert out.grad_fn is not None and out.dtype == _TORCH[dtype]
+    got = torch.autograd.grad(out, leaves_, do)
+    assert (FA.launches, FA.bwd_launches) == before
+    plain, lse = FA.flash_attention_plain_lse(q, k, v, q_chunk=32,
+                                              kv_chunk=16, **kw)
+    assert torch.equal(out.detach(), plain)
+    want = FA.flash_attention_backward_plain(q, k, v, plain, lse, do,
+                                             q_chunk=32, kv_chunk=16, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == _TORCH[dtype]
+        assert torch.equal(g, w)
+
+
+def test_no_grad_path_is_the_serving_path():
+    """No input that requires grad, or grad disabled: the plain forward
+    exactly, with no autograd graph."""
+    q, k, v, _ = (t.float() for t in _bwd_inputs(BWD_CASES[0]))
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    got = FA.flash_attention(q, k, v, causal=True)
+    assert got.grad_fn is None and torch.equal(got, want)
+    with torch.no_grad():
+        got = FA.flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert got.grad_fn is None and torch.equal(got, want)
+
+
+def test_backward_kernel_entry_refuses_cpu_tensors():
+    q = torch.randn(1, 1, 8, 32)
+    lse = torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        FA.flash_attention_backward_cuda(q, q, q, q, lse, q)
+
+
+def test_flash_backward_bound_at_olmo_training_shape():
+    """chip_smoke.py's bound of the backward: five products of 2 d
+    operations per kept (q, k) pair at the bf16 tensor rate; 3.44e11
+    operations at olmo-1b's training shape, 0.347 ms."""
+    import chip_smoke
+
+    ms, by = chip_smoke._flash_bwd_bound(8, 16, 16, 2048, 2048, 128, 2, True)
+    assert by == "operations"
+    assert ms == pytest.approx(0.3475, abs=5e-4)
+
+
+@pytest.fixture(scope="module")
+def olmo_backward():
+    """The plain backward at olmo-1b's training sequence and head dim (s
+    2,048, d 128, causal, bf16), one batch row and two heads: inputs,
+    forward out and lse, (dq, dk, dv), and chip_smoke.py's kept pairs."""
+    import chip_smoke
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    b, h, s, d = 1, 2, 2048, 128
+    x = [_t(a, "bfloat16") for a in _inputs(10, [(b, h, s, d)] * 4,
+                                             "bfloat16")]
+    out, lse = FA.flash_attention_plain_lse(*x[:3], causal=True)
+    want = FA.flash_attention_backward_plain(*x[:3], out, lse, x[3])
+    yield x, out, lse, want, chip_smoke.flash_bwd_kept(torch, s, s, 1)
+    torch.set_num_threads(threads)
+
+
+def test_backward_limit_passes_another_summation_order(olmo_backward):
+    """chip_smoke.py holds the bf16 backward kernels at olmo-1b's training
+    shape to ``flash_bwd_ratio``'s limit over each row's and key's kept
+    pairs.  The kernels compute the same f32 function in 64 x 64 tiles and
+    round once: the plain backward in 64 x 64 chunks stands in for them
+    and passes."""
+    import chip_smoke
+
+    x, out, lse, want, kept = olmo_backward
+    tiled = FA.flash_attention_backward_plain(*x[:3], out, lse, x[3],
+                                              q_chunk=64, kv_chunk=64)
+    ratio, _ = chip_smoke.flash_bwd_ratio(tiled, want, kept, "bfloat16")
+    assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["dk_dv_past_1280", "dq_misses_keys"])
+def test_backward_limit_fails_a_dropped_key_range(olmo_backward, fault):
+    """The same limit fails a kernel that leaves dK and dV zero past key
+    1,280, or whose dQ rows from 1,280 on miss the keys past 1,024: the
+    late keys' and rows' gradients (|dK|, |dV| about 0.013 on average
+    here) are small beside the early keys' (up to 4.6), so a limit that
+    is a share of each tensor's largest entry would let such faults
+    pass."""
+    import chip_smoke
+
+    x, out, lse, want, kept = olmo_backward
+    dq, dk, dv = (t.clone() for t in want)
+    if fault == "dk_dv_past_1280":
+        dk[:, :, 1280:] = 0
+        dv[:, :, 1280:] = 0
+    else:
+        q, k, v, do = x
+        dq[:, :, 1280:] = FA.flash_attention_backward_plain(
+            q[:, :, 1280:], k[:, :, :1024], v[:, :, :1024],
+            out[:, :, 1280:], lse[:, :, 1280:], do[:, :, 1280:],
+            causal=False)[0]
+    ratio, _ = chip_smoke.flash_bwd_ratio((dq, dk, dv), want, kept,
+                                          "bfloat16")
+    assert ratio > 10.0

@@ -99,3 +99,17 @@ def test_slice8_modules_stand_alone(module, loaded_by):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert not FORBIDDEN.findall(path.read_text())
     assert loaded_by[module] == []
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+    "repro_torch.optim.compress", "repro_torch.optim.tree",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
+    "repro_torch.launch.steps", "repro_torch.launch.train"])
+def test_slice10_modules_stand_alone(module, loaded_by):
+    """The training stack's modules are in the port's module list, import
+    neither jax nor ``repro`` and load neither."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert not FORBIDDEN.findall(path.read_text())
+    assert loaded_by[module] == []
