@@ -146,12 +146,16 @@ Phases, each raising on failure:
     its plain version, timed beside SDPA and the bound; (d) a prefill
     round and four decode steps under ``torch.profiler`` by kernel group;
 22. the flash backward kernels (delta, dK / dV, dQ; three launches a
-    call) and the forward's row log-sum-exp against their plain versions
-    on the card: causal on and off, windows 32 / 64 / 100, softcaps 30 /
-    50, GQA 8:2, ragged 200 / 333, sq != skv, rows that keep no key, a
-    query offset, d 32 / 64 / 128, f32 and bf16; then at olmo-1b's
-    training shape (b 8, h 16, s 2,048, d 128, bf16, causal) checked and
-    timed beside the plain backward, SDPA's backward and the bound;
+    call; bf16 on the tensor cores, f32 SIMT) and the forward's row
+    log-sum-exp against their plain versions on the card: causal on and
+    off, windows 32 / 64 / 100, softcaps 30 / 50, GQA 8:2, ragged 200 /
+    333, sq != skv, rows that keep no key, a query offset, d 32 / 64 /
+    128, f32 and bf16, a repeat call bit for bit the first; then at
+    olmo-1b's training shape (b 8, h 16, s 2,048, d 128, bf16, causal)
+    checked, repeated bit for bit, and timed whole and kernel by kernel
+    (dK / dV, dQ) beside the plain backward, SDPA's backward and the
+    bound (TFLOP/s on five, seven and ten products; TMA copies; ptxas's
+    registers and spills of the backward kernels);
 23. one training step (``launch.steps.build_train_step``) of reduced
     olmo-1b and gemma2-27b (f32; window, softcaps, post-norms) on the
     card against the same step on the CPU from the same parameters and
@@ -2676,17 +2680,42 @@ def _lse_close(torch, lse, plain) -> bool:
                      <= 1e-4 + 1e-5 * plain[fin].abs()).all())
 
 
-def phase_flash_backward(torch, np, FA) -> dict:
+def _ptxas_kernels(log: str, names) -> list[str]:
+    """'name<D>: N registers, S bytes spill stores, L bytes spill loads'
+    for each entry function of ``-Xptxas -v``'s log whose mangled name
+    holds one of ``names``."""
+    import re
+
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            d = re.search(r"Li(\d+)E", m.group(1))
+            fn = fn and f"{fn}<{d.group(1) if d else '?'}>"
+        elif fn and "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif fn and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append(f"{fn}: {regs} registers, {spill}")
+            fn = None
+    return rows
+
+
+def phase_flash_backward(torch, np, FA, ptxas_log: str = "") -> dict:
     """Phase 22: the forward's lse and the three backward kernels (delta,
     dK / dV, dQ) against the plain versions on the same out and lse, over
-    FLASH_BWD_CASES in f32 and bf16 (BWD_KERNELS launches a call), each
-    output within ``flash_bwd_ratio``'s limit; then at olmo-1b's training
-    shape, causal, in f32 and bf16 on the same inputs: the forward's out
-    and lse and the backward checked, and the bf16 backward timed beside
-    the plain backward, SDPA's backward (its forward + backward less its
-    forward) and the bound."""
+    FLASH_BWD_CASES in f32 and bf16 (BWD_KERNELS launches a call, a second
+    call bit for bit the first), each output within ``flash_bwd_ratio``'s
+    limit; then at olmo-1b's training shape, causal, in f32 and bf16 on the
+    same inputs: the forward's out and lse and the backward checked (and
+    repeated bit for bit), and the bf16 backward timed whole and kernel by
+    kernel (dK / dV, dQ) beside the plain backward, SDPA's backward (its
+    forward + backward less its forward) and the bound; ptxas's registers
+    and spills of the backward kernels."""
     rng = np.random.default_rng(SEED + 22)
     worst, ratio, bad, cases = 0.0, 0.0, [], 0
+    copies = FA.copies
     for case in FLASH_BWD_CASES:
         b, h, hkv, sq, skv, d, causal, window, softcap, q_offset = case
         amp = 4.0 if softcap else 1.0
@@ -2709,18 +2738,23 @@ def phase_flash_backward(torch, np, FA) -> dict:
             got = FA.flash_attention_backward_cuda(q, k, v, out, plse, do,
                                                    **kw)
             launched = FA.bwd_launches - before
+            again = FA.flash_attention_backward_cuda(q, k, v, out, plse, do,
+                                                     **kw)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
             want = FA.flash_attention_backward_plain(q, k, v, out, plse, do,
                                                      **kw)
             r, err = flash_bwd_ratio(got, want, kept, dtype)
             worst, ratio = max(worst, err), max(ratio, r)
-            if not (r <= 1.0 and lse_ok and launched == FA.BWD_KERNELS):
-                bad.append((case, dtype, err, r, lse_ok, launched))
+            if not (r <= 1.0 and lse_ok and same
+                    and launched == FA.BWD_KERNELS):
+                bad.append((case, dtype, err, r, lse_ok, same, launched))
             cases += 1
     print(f"[22] flash backward vs plain: {cases} cases (f32 and bf16), "
           f"lse and +inf rows equal, max |err| {worst:.3e}, worst |err| / "
           f"limit {ratio:.4f} (f32 {FLASH_TOL['float32']} + "
           f"{FLASH_TOL['float32']} |plain|; bf16 {FLASH_BWD_TOL_BF16} over "
-          f"the kept pairs), {FA.BWD_KERNELS} launches a call", flush=True)
+          f"the kept pairs), {FA.BWD_KERNELS} launches a call, repeat calls "
+          f"bit for bit equal", flush=True)
     if bad:
         raise AssertionError(f"flash backward disagrees: {bad}")
 
@@ -2744,21 +2778,31 @@ def phase_flash_backward(torch, np, FA) -> dict:
         del got_out, lse
         dout = do.to(x[0].dtype)
         got = FA.flash_attention_backward_cuda(*x, out, plse, dout)
+        same = all(torch.equal(g, a) for g, a in zip(
+            got, FA.flash_attention_backward_cuda(*x, out, plse, dout)))
         want = FA.flash_attention_backward_plain(*x, out, plse, dout)
         r, err = flash_bwd_ratio(got, want, kept, dtype)
         print(f"[22] flash at b={b} h={h} s={s} d={d} {dtype} causal, "
               f"kernel vs plain: forward out worst |err| / limit "
               f"{out_ratio:.4f}, lse max |err| {lse_err:.3e}; backward max "
-              f"|err| {err:.3e}, worst |err| / limit {r:.4f}", flush=True)
-        if not (out_ratio <= 1.0 and lse_ok and r <= 1.0):
+              f"|err| {err:.3e}, worst |err| / limit {r:.4f}, repeat call "
+              f"bit for bit {same}", flush=True)
+        if not (out_ratio <= 1.0 and lse_ok and r <= 1.0 and same):
             raise AssertionError(
                 f"flash at the training shape, {dtype}: out {out_ratio}, "
-                f"lse {lse_err}, backward {err} ({r} of its limit)")
+                f"lse {lse_err}, backward {err} ({r} of its limit), "
+                f"repeat equal {same}")
         worst = max(worst, err)
         del x, dout, got, want
+    copies = FA.copies - copies
     ms = _time_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, out,
                                                            plse, do),
                   reps=5, warmup=1)
+    launch, _ = FA.backward_launcher(q, k, v, out, plse, do)
+    launch(FA.BWD_DELTA)  # the workspace the other two read
+    dkdv_ms = _time_ms(lambda: launch(FA.BWD_DKDV), reps=5, warmup=1)
+    dq_ms = _time_ms(lambda: launch(FA.BWD_DQ), reps=5, warmup=1)
+    del launch
     plain_ms = _time_ms(lambda: FA.flash_attention_backward_plain(
         q, k, v, out, plse, do), reps=2, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2772,17 +2816,31 @@ def phase_flash_backward(torch, np, FA) -> dict:
                             warmup=2)
     library_ms = _time_ms(sdpa_fwd_bwd, reps=10, warmup=2) - sdpa_fwd
     bound_ms, bound_by = _flash_bwd_bound(b, h, hkv, s, s, d, 2)
-    flops = 5 * 2.0 * d * b * h * (s * (s + 1) // 2)
+    per_product = 2.0 * d * b * h * (s * (s + 1) // 2)
     print(f"[22] flash backward at b={b} h={h} s={s} d={d} bf16 causal: "
-          f"times (ms, median of CUDA events): kernel {ms:.4f}  plain "
-          f"{plain_ms:.4f}  library(sdpa backward = fwd+bwd - fwd) "
-          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}); kernel "
-          f"{flops / ms / 1e9:.3f} TFLOP/s on the five products of the "
-          f"kept pairs; {ms / bound_ms:.1f}x the bound", flush=True)
+          f"times (ms, median of CUDA events): kernel {ms:.4f} (dK / dV "
+          f"kernel {dkdv_ms:.4f}, dQ kernel {dq_ms:.4f}, delta the rest)  "
+          f"plain {plain_ms:.4f}  library(sdpa backward = fwd+bwd - fwd) "
+          f"{library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}); TFLOP/s "
+          f"over the kept pairs: "
+          + ", ".join(f"{per_product * n / ms / 1e9:.3f} on {n} products"
+                      for n in (5, 7, 10))
+          + f" (5: the bound's; 7: with S and dP recomputed by both "
+          f"kernels; 10: as issued, P and dS as bf16 hi + lo); "
+          f"{ms / bound_ms:.1f}x the bound, {ms / library_ms:.2f}x SDPA's "
+          f"backward; TMA copies {copies}", flush=True)
+    for row in _ptxas_kernels(ptxas_log, (
+            "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+            "flash_bwd_delta_kernel")):
+        print(f"[22]   ptxas {row}", flush=True)
+    if copies:
+        raise AssertionError(f"the backward copied {copies} inputs for TMA")
     del q, k, v, do, out, plse, live
     torch.cuda.empty_cache()
     return dict(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound_ms=bound_ms,
-                bwd_library_ms=library_ms, bwd_max_abs_err=worst)
+                bwd_library_ms=library_ms, bwd_max_abs_err=worst,
+                bwd_dkdv_ms=dkdv_ms, bwd_dq_ms=dq_ms)
 
 
 # phase 23: one training step of reduced models (f32) on the card against
@@ -3097,7 +3155,8 @@ def main() -> int:
                                            T, get_arch)
     pixtral_flash, pixtral_kernel = _timed(21, phase_pixtral, torch, np, K,
                                            FA, T, serve)
-    fb = _timed(22, phase_flash_backward, torch, np, FA)
+    fb = _timed(22, phase_flash_backward, torch, np, FA,
+                _build.ptxas_log.get("flash_attention_bwd", ""))
     _timed(23, phase_train_cuda_vs_cpu, torch, np, T, FA, get_arch)
     trained = _timed(24, phase_train, torch, np, T, FA, get_arch, smi)
 
@@ -3124,7 +3183,8 @@ def main() -> int:
         bwd_launches=trained["bwd_launches"], bwd_ms=fb["bwd_ms"],
         bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
         bwd_library_ms=fb["bwd_library_ms"],
-        bwd_max_abs_err=fb["bwd_max_abs_err"],
+        bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
+        bwd_dq_ms=fb["bwd_dq_ms"],
     )]
     print(f"[25] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "

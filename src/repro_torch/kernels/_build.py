@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so`` at the
 root of the checkout (git-ignored), then loaded with ``ctypes``.  The digest
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs at import: the CPU tests import
-every module on a machine without ``nvcc``.
+covers the source, every ``csrc`` header it includes (``#include "x.cuh"``,
+followed recursively) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing here runs at import: the
+CPU tests import every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +26,8 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _libs: dict[str, ctypes.CDLL] = {}
 # what ptxas printed per source (registers, shared memory, spills)
@@ -44,10 +48,25 @@ def _nvcc() -> str:
     )
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, each once,
+    in the order they are first included."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / m.decode()
+                     for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> float:

@@ -43,10 +43,14 @@ key), and its backward runs the backward kernels of
 ``csrc/flash_attention_bwd.cu`` (delta, then dK / dV, then dQ: three
 launches, counted in ``bwd_launches``) on CUDA tensors, or
 ``flash_attention_backward_plain``, the same algorithm in f32 chunked
-loops, on CPU tensors.  Both recompute P = exp(x - lse) in f32 and use it
-unrounded for dV, so the backward is the gradient of the f32 function the
-plain forward computes; at bf16 the kernel's forward rounds p for P.V, so
-its output sits within the forward tolerance above.  ``flash_attention``
+loops, on CPU tensors.  Both recompute P = exp(x - lse) in f32, so the
+backward is the gradient of the f32 function the plain forward computes;
+at bf16 the kernel's forward rounds p for P.V, so its output sits within
+the forward tolerance above.  The bf16 backward runs on the tensor cores
+(``wgmma`` + TMA, like the forward); its P and dS enter the dV, dK and dQ
+products as two bf16 terms each (hi + lo, about 2^-16 relative), since one
+bf16 rounding of them would not hold the plain backward's limit.  The f32
+backward is a SIMT kernel.  ``flash_attention``
 goes through the Function only when grad is enabled and an input requires
 it; otherwise it takes the forward path above unchanged (serving).
 """
@@ -61,6 +65,9 @@ bwd_launches = 0  # backward kernel launches (BWD_KERNELS per backward)
 copies = 0  # bf16 inputs copied to meet TMA's alignment (a plain counter)
 
 BWD_KERNELS = 3  # delta, dK / dV, dQ
+BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4  # ``backward_launcher``'s parts
+BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
+BWD_TILE = 64  # query rows of the bf16 dK / dV kernel's ring tiles
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
@@ -257,6 +264,30 @@ def _axis_strides(t: torch.Tensor) -> list[int]:
                                                     t.stride()[:3])]
 
 
+def _kernel_views(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The views the kernels read: bf16 ones that TMA cannot take are
+    copied into fresh contiguous tensors (counted in ``copies``), f32 ones
+    only when their last stride is not 1."""
+    global copies
+    fixed = []
+    for t in ts:
+        if t.dtype == torch.bfloat16 and not _tma_ready(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            copies += 1
+        elif t.stride(-1) != 1:
+            t = t.contiguous()
+        fixed.append(t)
+    return fixed
+
+
+def _raise_on(err: int, what: str, q: torch.Tensor, k: torch.Tensor) -> None:
+    if err != 0:
+        why = (f"tensor map refused, CUresult {err - 1000}" if err >= 1000
+               else f"CUDA error {err}")
+        raise RuntimeError(f"{what} launch failed: {why} (q {tuple(q.shape)}, "
+                           f"kv {tuple(k.shape)}, dtype {q.dtype})")
+
+
 def _launcher():
     from repro_torch.kernels import _build
 
@@ -275,8 +306,8 @@ def _bwd_launcher():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 10 + [i] * 7 + [ll] * 24
-                       + [ctypes.c_float, i, i, ctypes.c_float, i, vp])
+        fn.argtypes = ([vp] * 10 + [i] * 8 + [ll] * 24
+                       + [ctypes.c_float, i, i, ctypes.c_float, i, i, vp])
         fn.restype = ctypes.c_int
     return fn
 
@@ -320,7 +351,7 @@ def flash_attention_cuda(
     afterwards is free.  Launches on PyTorch's current stream without
     synchronising; raises if the launch is refused.
     """
-    global launches, copies
+    global launches
     _check(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -330,17 +361,7 @@ def flash_attention_cuda(
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_options(d, window, softcap)
-    if q.dtype == torch.bfloat16:
-        fixed = []
-        for t in (q, k, v):
-            if not _tma_ready(t):
-                t = t.clone(memory_format=torch.contiguous_format)
-                copies += 1
-            fixed.append(t)
-        q, k, v = fixed
-    else:
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+    q, k, v = _kernel_views(q, k, v)
     out = _heads_major(b, sq, h, d, q.dtype, dev)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -358,17 +379,12 @@ def flash_attention_cuda(
             0.0 if softcap is None else float(softcap), int(q_offset),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        what = (f"tensor map refused, CUresult {err - 1000}" if err >= 1000
-                else f"CUDA error {err}")
-        raise RuntimeError(f"flash_attention kernel launch failed: {what} "
-                           f"(q {tuple(q.shape)}, kv {tuple(k.shape)}, dtype "
-                           f"{q.dtype})")
+    _raise_on(err, "flash_attention kernel", q, k)
     launches += 1
     return out if lse is None else (out, lse)
 
 
-def flash_attention_backward_cuda(
+def backward_launcher(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -381,14 +397,14 @@ def flash_attention_backward_cuda(
     softcap: float | None = None,
     scale: float | None = None,
     q_offset: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the three backward kernels (CUDA tensors only, f32 or bf16):
-    (dq, dk, dv) in the inputs' dtype, each a heads-transposed view as the
-    forward's output is.  Takes strided (b, h, s, d) views with a unit last
-    stride (others are copied); ``lse`` is the forward's.  Launches on
-    PyTorch's current stream without synchronising; raises if a launch is
-    refused, and never falls back to the plain version."""
-    global bwd_launches
+):
+    """The checks, views and buffers of one backward (CUDA tensors only):
+    returns ``(launch, (dq, dk, dv))``.  ``launch(parts)`` launches the
+    kernels whose bits are set in ``parts`` (BWD_DELTA, BWD_DKDV, BWD_DQ),
+    in that order, on PyTorch's current stream, counting each in
+    ``bwd_launches``; the delta kernel fills the workspace the other two
+    read.  ``flash_attention_backward_cuda`` is ``launch(BWD_ALL)``;
+    ``chip_smoke.py`` times the dK / dV and dQ kernels alone through it."""
     _check(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -406,34 +422,69 @@ def flash_attention_backward_cuda(
             or lse.device != dev):
         raise ValueError(f"lse must be f32 {(b, h, sq)} on {dev}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                          for t in (q, k, v, out, dout))
+    q, k, v, dout = _kernel_views(q, k, v, dout)
+    out = out if out.stride(-1) == 1 else out.contiguous()
     lse = lse.contiguous()
-    dq = _heads_major(b, sq, h, d, q.dtype, dev)
-    dk = _heads_major(b, skv, hkv, d, q.dtype, dev)
-    dv = _heads_major(b, skv, hkv, d, q.dtype, dev)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    if scale is None:
-        scale = d**-0.5
-    launch = _bwd_launcher()
-    with torch.cuda.device(dev):
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv,
-            sq, skv, d,
-            *(st for t in (q, k, v, out, dout, dq, dk, dv)
-              for st in t.stride()[:3]),
-            float(scale), int(causal), 0 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), int(q_offset),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
-                           f"error {err} (q {tuple(q.shape)}, kv "
-                           f"{tuple(k.shape)}, dtype {q.dtype})")
-    bwd_launches += BWD_KERNELS
-    return dq, dk, dv
+    grads = (_heads_major(b, sq, h, d, q.dtype, dev),
+             _heads_major(b, skv, hkv, d, q.dtype, dev),
+             _heads_major(b, skv, hkv, d, q.dtype, dev))
+    # delta (b, h, ld); the tensor-core kernels also take lse copied to the
+    # same layout, its rows padded to whole 64-row query tiles
+    bf16 = q.dtype == torch.bfloat16
+    ld = -(-sq // BWD_TILE) * BWD_TILE if bf16 else sq
+    work = torch.empty(((2 if bf16 else 1) * b * h * ld,),
+                       dtype=torch.float32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(),
+            *(t.data_ptr() for t in grads), _DTYPE_CODE[q.dtype], b, h, hkv,
+            sq, skv, d, ld, *_axis_strides(q), *_axis_strides(k),
+            *_axis_strides(v), *out.stride()[:3], *_axis_strides(dout),
+            *(st for t in grads for st in t.stride()[:3]),
+            float(d**-0.5 if scale is None else scale), int(causal),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), int(q_offset))
+    kernel = _bwd_launcher()
+
+    # _alive: the tensors behind ``args``' pointers live as long as launch
+    def launch(parts: int = BWD_ALL,
+               _alive=(q, k, v, out, lse, dout, work)) -> None:
+        global bwd_launches
+        with torch.cuda.device(dev):
+            err = kernel(*args, int(parts),
+                         torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "flash_attention backward", q, k)
+        bwd_launches += bin(parts & BWD_ALL).count("1")
+
+    return launch, grads
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the three backward kernels (CUDA tensors only): (dq, dk, dv)
+    in the inputs' dtype, each a heads-transposed view as the forward's
+    output is; the tensor-core kernels for bf16, the SIMT kernels for f32.
+    Takes strided (b, h, s, d) views with a unit last stride (a bf16 view
+    that TMA cannot read is copied once, and counted in ``copies``);
+    ``lse`` is the forward's.  Launches on PyTorch's current stream
+    without synchronising; raises if a launch is refused, and never falls
+    back to the plain version."""
+    launch, grads = backward_launcher(
+        q, k, v, out, lse, dout, causal=causal, window=window,
+        softcap=softcap, scale=scale, q_offset=q_offset)
+    launch(BWD_ALL)
+    return grads
 
 
 class FlashAttention(torch.autograd.Function):

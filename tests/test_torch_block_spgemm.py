@@ -358,6 +358,29 @@ def test_build_names_the_missing_compiler(monkeypatch, tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_build_digest_covers_included_headers(monkeypatch, tmp_path):
+    """Both flash sources include ``csrc/hopper.cuh``: editing it changes
+    their library paths (a stale ``.so`` is never loaded), and leaves the
+    path of a source that does not include it as it was."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.sources("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "hopper.cuh"]
+    names = ("flash_attention", "flash_attention_bwd", "block_spgemm")
+    before = {n: _build.lib_path(n) for n in names}
+    header = csrc / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    after = {n: _build.lib_path(n) for n in names}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
+    assert after["block_spgemm"] == before["block_spgemm"]
+
+
 def _edge_ok(bs: int, g: int, stride: int, n_sub: int, micro: int) -> bool:
     """``edge_ok`` of ``csrc/block_spgemm.cu``'s launcher, transcribed."""
     if g < 1 or stride < micro or stride % micro != 0 \

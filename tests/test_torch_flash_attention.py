@@ -465,6 +465,66 @@ def test_backward_limit_passes_another_summation_order(olmo_backward):
     assert ratio <= 1.0
 
 
+def _backward_bf16_operands(q, k, v, out, lse, dout, *, split, q_chunk=64,
+                            kv_chunk=128):
+    """The plain backward's f32 algorithm (causal) with P and dS rounded
+    to bf16 before their products, as the tensor-core kernels feed them
+    to ``wgmma``: once, or (``split``) as hi = bf16(x) plus lo = bf16(x -
+    hi); sums in f32 over q_chunk x kv_chunk tiles."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g, scale = h // hkv, d**-0.5
+
+    def rnd(t):
+        hi = t.to(torch.bfloat16).float()
+        return hi + (t - hi).to(torch.bfloat16).float() if split else hi
+
+    qg, dog = (t.reshape(b, hkv, g, sq, d).float() for t in (q, dout))
+    delta = (dog * out.reshape(b, hkv, g, sq, d).float()).sum(-1)
+    lseg = lse.reshape(b, hkv, g, sq)
+    dq = torch.zeros((b, hkv, g, sq, d))
+    dk = torch.zeros((b, hkv, skv, d))
+    dv = torch.zeros((b, hkv, skv, d))
+    for q0 in range(0, sq, q_chunk):
+        qi, doi = qg[:, :, :, q0:q0 + q_chunk], dog[:, :, :, q0:q0 + q_chunk]
+        cq = qi.shape[3]
+        li = lseg[:, :, :, q0:q0 + cq, None]
+        di = delta[:, :, :, q0:q0 + cq, None]
+        qpos = q0 + torch.arange(cq)
+        for k0 in range(0, skv, kv_chunk):
+            ki = k[:, :, None, k0:k0 + kv_chunk].float()
+            vi = v[:, :, None, k0:k0 + kv_chunk].float()
+            keep = FA._keep_mask(qpos, k0 + torch.arange(ki.shape[3]), skv,
+                                 True, None)
+            p = torch.where(keep, torch.exp(
+                torch.matmul(qi, ki.transpose(-1, -2)) * scale - li), 0.0)
+            ds = p * (torch.matmul(doi, vi.transpose(-1, -2)) - di) * scale
+            p, ds = rnd(p), rnd(ds)
+            dv[:, :, k0:k0 + kv_chunk] += torch.matmul(
+                p.transpose(-1, -2), doi).sum(2)
+            dq[:, :, :, q0:q0 + cq] += torch.matmul(ds, ki)
+            dk[:, :, k0:k0 + kv_chunk] += torch.matmul(
+                ds.transpose(-1, -2), qi).sum(2)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_backward_limit_holds_bf16_operands_only_split(olmo_backward, split):
+    """The tensor-core backward feeds P and dS to its dV, dK and dQ
+    products as bf16 hi + lo pairs, in 64 x 128 tiles: that stays inside
+    the unchanged limit at olmo-1b's training shape (about 0.71 of it).
+    One bf16 rounding of each (2^-9 relative a term) would not: an early
+    key's dK / dV sums ~2,000 queries whose first terms are large and
+    cancel, and the rounding moves it to about 12 times its limit."""
+    import chip_smoke
+
+    x, out, lse, want, kept = olmo_backward
+    got = _backward_bf16_operands(*x[:3], out, lse, x[3], split=split)
+    ratio, _ = chip_smoke.flash_bwd_ratio(got, want, kept, "bfloat16")
+    assert (ratio <= 1.0) == split, ratio
+
+
 @pytest.mark.parametrize("fault", ["dk_dv_past_1280", "dq_misses_keys"])
 def test_backward_limit_fails_a_dropped_key_range(olmo_backward, fault):
     """The same limit fails a kernel that leaves dK and dV zero past key
