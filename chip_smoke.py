@@ -171,7 +171,28 @@ Phases, each raising on failure:
     share; one step under ``torch.profiler`` by group (GEMMs, flash
     forward, flash backward, cross-entropy, AdamW, the rest) with the
     idle share; then at the reduced size 4 steps, a checkpoint and a
-    resumed launch to 8 against one 8-step run within 1e-6.
+    resumed launch to 8 against one 8-step run within 1e-6;
+25. sharded training on meshes of ranks on the one card
+    (``launch.steps.build_train_step(..., mesh=)``: TP over ``model``,
+    FSDP over ``data``, the batch over ``(pod, data)``).  (a) reduced
+    olmo-1b, gemma2-27b and qwen1.5-4b (f32) on (data 2, model 2) and
+    (pod 2, data 1, model 2) with ``head_2p5d``, under ZeRO-1,
+    microbatch 2, compressed gradients and sequence parallelism: one
+    step against the one-device step on the card within phase 23's
+    limits, bytes per rank equal to ``steps.step_bytes``'s count from
+    the specs, flash launches exact per rank; (b) olmo-1b at full width
+    and depth through ``launch.train.run(["--mesh", "2x2", ...])`` with
+    phase 24's traffic: finite losses, the last below the first, step 1's
+    loss within 1e-2 of phase 24's, flash counts 4 ranks x phase 24's, no
+    TMA copy; step ms, tokens/s, the model-FLOP share, peak memory beside
+    the state the specs place, bytes per rank per step beside the count;
+    one step under ``torch.profiler`` by group (collectives their own);
+    then at the reduced size a 2 x 2 checkpoint resumed on 1 x 1 against
+    the same run without the round trip, within 1e-6; (c) the 2.5D LM
+    head (``parallel.matmul_2p5d``) at olmo's training shape (T 16,384, d
+    2,048, V 50,304, bf16) on (pod 2, model 2): within the bf16 limit of
+    one ``torch.matmul``, bytes exactly ``plan_2p5d``'s, timed beside
+    that matmul and the all-gather-the-weight baseline.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -181,6 +202,7 @@ and prints no result.  Imports nothing of jax or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3072,6 +3094,310 @@ def phase_train(torch, np, T, FA, get_arch, card: str) -> dict:
                 losses=losses, mfu=mfu, tokens_s=b * s / step_ms * 1e3)
 
 
+# phase 25: sharded training on meshes of ranks on the one card
+SHARD_CASES = (  # (arch, mesh, options) for (a), reduced, f32
+    ("olmo-1b", (2, 2), dict(remat="none")),
+    ("olmo-1b", (2, 2), dict(remat="full")),
+    ("gemma2-27b", (2, 2), dict(remat="dots")),
+    ("qwen1.5-4b", (2, 2), dict(remat="full")),
+    ("olmo-1b", (2, 1, 2), dict(remat="full", head_2p5d=True)),
+    ("gemma2-27b", (2, 1, 2), dict(remat="none", head_2p5d=True)),
+    ("olmo-1b", (2, 2), dict(remat="full", zero1=True)),
+    ("olmo-1b", (2, 2), dict(remat="full", microbatch=2)),
+    ("olmo-1b", (2, 2), dict(remat="full", compress_grads=True)),
+    ("gemma2-27b", (2, 2), dict(remat="full", seq_parallel=True)),
+)
+SHARD_ARGV = [*TRAIN_ARGV, "--mesh", "2x2"]
+SHARD_RESUME_ARGV = ["--arch", "olmo-1b", "--reduced", "--seq-len", "128",
+                     "--global-batch", "4", "--log-every", "4", "--seed",
+                     str(SEED)]
+HEAD_SHAPE = dict(t=16384, d=2048, v=50304)  # olmo's LM head, 8 x 2,048
+
+
+def _mesh_of(mesh_mod, dims, device="cuda"):
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data",
+                                                              "model")
+    return mesh_mod.make_mesh(dims, names, device)
+
+
+def _state_bytes(torch, SH, mesh, shapes, specs) -> float:
+    """Bytes the sharded state takes on the card: every distinct shard
+    of every leaf once (replicas on one device share it)."""
+    from repro_torch.optim.tree import leaves
+
+    total = 0.0
+    for leaf, spec in zip(leaves(shapes), leaves(specs)):
+        n = {SH.chunk_index(mesh, spec, r) for r in range(mesh.size)}
+        item = torch.empty((), dtype=leaf.dtype).element_size()
+        total += len(n) * item * math.prod(SH.local_shape(leaf.shape,
+                                                          spec, mesh))
+    return total
+
+
+def phase_sharded_train(torch, np, T, FA, get_arch, mesh_mod, card: str,
+                        first_loss: float) -> dict:
+    """Phase 25 (see the module docstring): (a) the sharded step against
+    the one-device step on the card, (b) olmo-1b at full width and depth
+    through ``launch.train.run`` on a 2 x 2 mesh of ranks, (c) the 2.5D
+    LM head.  Returns (b)'s numbers and launch counts."""
+    import tempfile
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import transport as TR
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.tree import leaves
+    from repro_torch.parallel import runtime as RT
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.matmul_2p5d import (
+        gather_2p5d,
+        matmul_2p5d,
+        place_2p5d,
+        plan_2p5d,
+    )
+
+    # (a) the sharded step against the one-device step, reduced, f32
+    opt = AdamWConfig(lr=3e-3)
+    seq, batch = 192, 4
+    shape = ShapeConfig("train", seq, batch, "train")
+    for arch, dims, kw in SHARD_CASES:
+        cfg = get_arch(arch).reduced()
+        mesh = _mesh_of(mesh_mod, dims)
+        options = ST.StepOptions(loss_chunk=64, **kw)
+        params = T.init_params(cfg, SEED, device="cuda")
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch, seed=SEED))
+        one = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                  device="cuda")
+        p1, s1, m1 = one(params, ST.init_opt_state(params, opt, options),
+                         make_global_batch(data, 0, "cuda"))
+        step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                   device="cuda", mesh=mesh)
+        p2, s2 = ST.init_sharded(cfg, mesh, params, opt, options)
+        _, _, p_spec, o_spec = ST.abstract_state(cfg, mesh, opt, options)
+        FA.launches = FA.bwd_launches = 0
+        TR.reset_bytes()
+        p2, s2, m2 = step(p2, s2, make_global_batch(data, 0, mesh))
+        moved, fwd, bwd = TR.bytes_moved(), FA.launches, FA.bwd_launches
+        count = ST.step_bytes(cfg, mesh, shape, options, opt)
+        got = (SH.unshard_tree(mesh, p2, p_spec),
+               {"mu": SH.unshard_tree(mesh, s2["mu"], o_spec["mu"]),
+                "nu": SH.unshard_tree(mesh, s2["nu"], o_spec["nu"]),
+                "step": s2["step"]})
+        ok, worst = train_state_close(torch, got, (p1, s1), opt.lr, opt.b2)
+        m_err = max(abs(float(m2[n]) - float(m1[n]))
+                    for n in ("loss", "grad_norm"))
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        k = options.microbatch
+        want = (mesh.size * k * n_attn * (1 if options.remat == "none"
+                                          else 2),
+                mesh.size * k * n_attn * FA.BWD_KERNELS)
+        flags = ", ".join(f"{a}={v}" for a, v in kw.items())
+        print(f"[25a] reduced {arch} f32 on {dict(mesh.shape)} ({flags}): "
+              f"loss {float(m2['loss']):.6f} vs one device "
+              f"{float(m1['loss']):.6f}, max |loss, grad_norm err| "
+              f"{m_err:.3e}, max |err| params {worst['params']:.3e} mu "
+              f"{worst['mu']:.3e} nu {worst['nu']:.3e} (tolerance "
+              f"{TRAIN_TOL}); bytes per rank {moved:.0f} (count from the "
+              f"specs {count:.0f}); flash launches forward {fwd} backward "
+              f"{bwd} (want {want[0]}, {want[1]})", flush=True)
+        if not (ok and m_err <= TRAIN_TOL) or moved != count or (
+                fwd, bwd) != want:
+            raise AssertionError(f"sharded {arch} {dims} {kw}: {worst}, "
+                                 f"{m_err}, bytes {moved} vs {count}, "
+                                 f"launches {(fwd, bwd)} vs {want}")
+        del p1, s1, p2, s2, got, params
+    torch.cuda.empty_cache()
+
+    # (b) olmo-1b at full width and depth on a 2 x 2 mesh of ranks
+    cfg = get_arch("olmo-1b")
+    b, s = 8, 2048
+    mesh = _mesh_of(mesh_mod, (2, 2))
+    options = ST.StepOptions(remat="full", loss_chunk=512)
+    shape = ShapeConfig("train", s, b, "train")
+    opt = AdamWConfig(lr=3e-3)
+    p_shape, o_shape, p_spec, o_spec = ST.abstract_state(cfg, mesh, opt,
+                                                         options)
+    state = sum(_state_bytes(torch, SH, mesh, sh, sp) for sh, sp in (
+        (p_shape, p_spec), (o_shape["mu"], o_spec["mu"]),
+        (o_shape["nu"], o_spec["nu"])))
+    count = ST.step_bytes(cfg, mesh, shape, options, opt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = FA.bwd_launches = FA.copies = 0
+    TR.reset_bytes()
+    run = train.run(SHARD_ARGV)
+    fwd, bwd, copies = FA.launches, FA.bwd_launches, FA.copies
+    moved = TR.bytes_moved() / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    want = (mesh.size * cfg.n_layers * 2 * TRAIN_STEPS,
+            mesh.size * cfg.n_layers * FA.BWD_KERNELS * TRAIN_STEPS)
+    step_ms = 1e3 * statistics.median(run["step_s"][1:])
+    n_params = cfg.param_count()
+    pairs = b * cfg.n_heads * (s * (s + 1) // 2)
+    model_flops = (6.0 * n_params * b * s
+                   + 3 * 4.0 * cfg.hd * pairs * cfg.n_layers)
+    mfu = model_flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"[25b] olmo-1b full width and depth on {dict(mesh.shape)} "
+          f"ranks of one card (bf16, remat full, lr 3e-3), {TRAIN_STEPS} "
+          f"steps of {b} x {s} tokens through launch.train --mesh 2x2: "
+          "losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.3f}" for x in run["grad_norms"])
+          + f"; step 1's loss vs phase 24's {first_loss:.4f}: |diff| "
+          f"{abs(losses[0] - first_loss):.3e} (limit 1e-2); flash launches "
+          f"forward {fwd} backward {bwd} (want {want[0]}, {want[1]}), TMA "
+          f"copies {copies}", flush=True)
+    print(f"[25b] on {card}: step ms median (steps 2-{TRAIN_STEPS}) "
+          f"{step_ms:.2f}, first step {1e3 * run['step_s'][0]:.2f} ms; "
+          f"{b * s / step_ms * 1e3:.1f} tokens/s; model-FLOP share "
+          f"{mfu:.4f} (phase 24's formula); peak memory "
+          f"{peak / 2**30:.2f} GiB, the state the specs place (params, mu, "
+          f"nu; each distinct shard once) {state / 2**30:.2f} GiB; bytes "
+          f"per rank per step {moved:.0f} (count from the specs "
+          f"{count:.0f})", flush=True)
+    if not (run["rc"] == 0 and len(losses) == TRAIN_STEPS
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and abs(losses[0] - first_loss) <= 1e-2):
+        raise AssertionError(f"sharded olmo-1b training: rc {run['rc']}, "
+                             f"losses {losses} (phase 24: {first_loss})")
+    if (fwd, bwd) != want or copies or moved != count:
+        raise AssertionError(f"sharded olmo-1b: flash {fwd} / {bwd} (want "
+                             f"{want}), {copies} copies, bytes {moved} vs "
+                             f"{count}")
+    del run
+
+    # one step under the profiler, by group, the collectives their own
+    step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                               device="cuda", mesh=mesh)
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                           device="cuda")
+    box = dict(zip("ps", ST.init_sharded(cfg, mesh, params, opt, options)))
+    del params
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                      global_batch=b, seed=SEED))
+
+    def one(i):
+        box["p"], box["s"], m = step(box["p"], box["s"],
+                                     make_global_batch(data, i, mesh))
+        float(m["loss"])
+
+    one(0)
+    spans = {"cross_entropy": "cross_entropy", "adamw": "adamw",
+             "collectives": "collectives"}
+    targets = [(RT.DecoderRuntime, "_ce_chunk", "cross_entropy"),
+               (ST, "adamw_update", "adamw")]
+    targets += [(TR, n, "collectives") for n in
+                ("psum", "psum_scatter", "all_gather", "all_to_all", "pmax")]
+    with _Spans(torch, targets):
+        wall, groups, n_kernels = _span_profile(torch, lambda: one(1), spans)
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in a step")
+    print(f"[25b] one sharded step under torch.profiler: wall {wall:.2f} "
+          f"ms, device busy {busy:.2f} ms, idle share {1 - busy / wall:.4f}"
+          f", {n_kernels} kernels; device ms by group: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items())
+          + " (collectives: the copies and sums of the psums, gathers and "
+          "scatters between the ranks' tensors)", flush=True)
+    del box, step
+    torch.cuda.empty_cache()
+
+    # a 2 x 2 checkpoint resumed on 1 x 1, against the same run without
+    # the round trip through the disk, at the reduced size
+    rcfg = get_arch("olmo-1b").reduced()
+    rshape = ShapeConfig("train", 128, 4, "train")
+    ropts = ST.StepOptions(remat="full", loss_chunk=128)
+    rmesh = _mesh_of(mesh_mod, (2, 2))
+    rdata = SyntheticLMData(DataConfig(vocab=rcfg.vocab, seq_len=128,
+                                       global_batch=4, seed=SEED))
+    p = T.init_params(rcfg, torch.Generator("cuda").manual_seed(SEED),
+                      device="cuda")
+    p, st = ST.init_sharded(rcfg, rmesh, p, opt, ropts)
+    sharded = ST.build_train_step(rcfg, rshape, opt=opt, options=ropts,
+                                  device="cuda", mesh=rmesh)
+    single = ST.build_train_step(rcfg, rshape, opt=opt, options=ropts,
+                                 device="cuda")
+    _, _, rp_spec, ro_spec = ST.abstract_state(rcfg, rmesh, opt, ropts)
+    mem = []
+    for i in range(4):
+        p, st, m = sharded(p, st, make_global_batch(rdata, i, rmesh))
+        mem.append(float(m["loss"]))
+    p, st = SH.unshard_tree(rmesh, p, rp_spec), SH.unshard_tree(
+        rmesh, st, ro_spec)
+    for i in range(4, 8):
+        p, st, m = single(p, st, make_global_batch(rdata, i, "cuda"))
+        mem.append(float(m["loss"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        first = train.run([*SHARD_RESUME_ARGV, "--mesh", "2x2", "--steps",
+                           "4", "--ckpt-dir", tmp, "--ckpt-every", "4"])
+        second = train.run([*SHARD_RESUME_ARGV, "--steps", "8",
+                            "--ckpt-dir", tmp])
+    resumed = first["losses"] + second["losses"]
+    err = max(abs(x - y) for x, y in zip(resumed, mem))
+    print(f"[25b] elastic restart (reduced olmo-1b f32, 4 x 128 tokens): 4 "
+          f"steps on 2 x 2, checkpoint, resume on 1 x 1 from step "
+          f"{second['start_step']} to 8; max |loss - the same run without "
+          f"the round trip| {err:.3e} (limit 1e-6)", flush=True)
+    if not (second["start_step"] == 4 and len(resumed) == 8
+            and err <= 1e-6):
+        raise AssertionError(f"2x2 -> 1x1 resume differs: {resumed} vs "
+                             f"{mem}")
+
+    # (c) the 2.5D LM head at olmo's training shape, bf16
+    t, d, v = HEAD_SHAPE["t"], HEAD_SHAPE["d"], HEAD_SHAPE["v"]
+    hmesh = mesh_mod.make_mesh((2, 2), ("pod", "model"), "cuda")
+    g = torch.Generator("cuda").manual_seed(SEED)
+    x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((d, v), generator=g, device="cuda") * d**-0.5).to(
+        torch.bfloat16)
+    xs, ws = place_2p5d(hmesh, x, w)
+    TR.reset_bytes()
+    with torch.no_grad():
+        out = matmul_2p5d(hmesh, xs, ws, reduce="scatter")
+    moved = TR.bytes_moved()
+    plan = plan_2p5d(tokens=t, d_model=d, vocab=v, l=2, tp=2,
+                     bytes_per_el=2)
+    full = x @ w
+    ok, err = _close(gather_2p5d(hmesh, out, reduce="scatter"), full,
+                     TOL["bfloat16"])
+    del out
+    # baseline: each (pod, model) rank all-gathers its d-sharded weight
+    # block over pod and multiplies its own token rows by it
+    rows = place_2p5d(hmesh, x, w)[1]
+    x_rows = [x.chunk(2, dim=0)[hmesh.coords(r)[0]] for r in range(4)]
+
+    def base():
+        wf = TR.all_gather(hmesh, rows, "pod", dim=0)
+        return [a @ b for a, b in zip(x_rows, wf)]
+
+    def ours():
+        return matmul_2p5d(hmesh, xs, ws, reduce="scatter")
+
+    with torch.no_grad():
+        ms_2p5d = _time_ms(ours, reps=5)
+        ms_base = _time_ms(base, reps=5)
+        ms_mm = _time_ms(lambda: x @ w, reps=5)
+    print(f"[25c] 2.5D LM head (T {t}, d {d}, V {v}, bf16) on "
+          f"{dict(hmesh.shape)} ranks of one card: max |err| vs one "
+          f"torch.matmul {err:.3e} (limit {TOL['bfloat16']} + "
+          f"{TOL['bfloat16']} |ref|); bytes per rank {moved:.0f} (plan_2p5d "
+          f"{plan.bytes_2p5d:.0f}; the weight all-gather baseline's plan "
+          f"{plan.bytes_baseline:.0f}); on {card}: 2.5D {ms_2p5d:.3f} ms "
+          f"(4 ranks' partial products and the psum-scatter, in turn), "
+          f"all-gather baseline {ms_base:.3f} ms, one torch.matmul "
+          f"{ms_mm:.3f} ms", flush=True)
+    if not ok or moved != plan.bytes_2p5d:
+        raise AssertionError(f"2.5D head: err {err}, bytes {moved} vs "
+                             f"{plan.bytes_2p5d}")
+    del x, w, xs, ws, full, rows, x_rows
+    torch.cuda.empty_cache()
+    return dict(fwd_launches=fwd, bwd_launches=bwd, step_ms=step_ms,
+                tokens_s=b * s / step_ms * 1e3, mfu=mfu, peak=peak)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3159,6 +3485,8 @@ def main() -> int:
                 _build.ptxas_log.get("flash_attention_bwd", ""))
     _timed(23, phase_train_cuda_vs_cpu, torch, np, T, FA, get_arch)
     trained = _timed(24, phase_train, torch, np, T, FA, get_arch, smi)
+    sharded_train = _timed(25, phase_sharded_train, torch, np, T, FA,
+                           get_arch, mesh_mod, smi, trained["losses"][0])
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -3176,17 +3504,19 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
         launches=(served["flash_launches"] + serve_flash + jamba_flash
-                  + whisper_flash + pixtral_flash + trained["fwd_launches"]),
+                  + whisper_flash + pixtral_flash + trained["fwd_launches"]
+                  + sharded_train["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
-        bwd_launches=trained["bwd_launches"], bwd_ms=fb["bwd_ms"],
+        bwd_launches=trained["bwd_launches"]
+        + sharded_train["bwd_launches"], bwd_ms=fb["bwd_ms"],
         bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
         bwd_library_ms=fb["bwd_library_ms"],
         bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
         bwd_dq_ms=fb["bwd_dq_ms"],
     )]
-    print(f"[25] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[26] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -3202,7 +3532,10 @@ def main() -> int:
           f"backward launched the backward kernels "
           f"{trained['bwd_launches']} times: {trained['step_ms']:.2f} ms a "
           f"step, {trained['tokens_s']:.1f} tokens/s, model-FLOP share "
-          f"{trained['mfu']:.4f}); phase "
+          f"{trained['mfu']:.4f}) + {sharded_train['fwd_launches']} "
+          f"(phase 25's olmo-1b on 2 x 2 ranks, backward "
+          f"{sharded_train['bwd_launches']}: {sharded_train['step_ms']:.2f}"
+          f" ms a step, {sharded_train['tokens_s']:.1f} tokens/s); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

@@ -19,6 +19,16 @@ Guarantees (the reference's):
   ``KeyError``, a shape that differs from the tree it restores into
   raises ``ValueError``.
 
+Sharded trees (``parallel.sharding.Shards`` leaves, a mesh of ranks) are
+saved gathered — the on-disk format does not change — with the mesh in
+the manifest, and restored onto any mesh by re-sharding each leaf to the
+specs given for the current one (the reference's elastic restart).  A
+leaf whose replicas hold differing values (the per-rank compression
+residual: each data rank's own) is saved rank by rank instead,
+``<leaf_id>.rank<r>.npy`` with ``"per_rank": true`` in its index entry,
+and restores only onto the mesh that saved it; onto another mesh it
+raises ``ValueError``, as no re-sharding of per-rank state is exact.
+
 Leaf ids are the paths of dict keys and list indices joined with ``__``
 in the port's own tree (one dict per layer, where the reference stacks a
 pattern position's layers).  bf16 leaves: numpy has no bfloat16, and the
@@ -81,11 +91,46 @@ def _mesh_meta(mesh) -> dict:
             "axes": list(mesh.axis_names)}
 
 
+def _replicas_differ(mesh, xs, spec) -> bool:
+    """Whether two ranks that ``spec`` gives the same chunk hold
+    different values."""
+    from repro_torch.parallel.sharding import chunk_index
+
+    first = {}
+    for r, t in enumerate(xs):
+        key = chunk_index(mesh, spec, r)
+        if key not in first:
+            first[key] = t
+        elif t is not first[key] and not torch.equal(
+                t.to(first[key].device), first[key]):
+            return True
+    return False
+
+
+def _gathered(tree: Any, mesh, specs) -> list[tuple[str, Any]]:
+    """(name, full tensor) of every leaf, ``Shards`` gathered by their
+    spec in ``specs`` onto the CPU; (name, list of every rank's tensor)
+    for a ``Shards`` leaf whose replicas differ."""
+    from repro_torch.parallel.sharding import Shards, unshard
+
+    spec_of = dict(named_leaves(specs)) if specs is not None else {}
+    out = []
+    for name, leaf in named_leaves(tree):
+        if isinstance(leaf, Shards):
+            if _replicas_differ(mesh, leaf, spec_of[name]):
+                out.append((name, [t.cpu() for t in leaf]))
+                continue
+            leaf = unshard(mesh, leaf, spec_of[name], device="cpu")
+        out.append((name, torch.as_tensor(leaf)))
+    return out
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, *, mesh=None,
-                    keep: int = 3) -> str:
+                    keep: int = 3, specs: Any = None) -> str:
     """Atomically save ``tree`` (nested dicts / lists of tensors) as step
     ``step``; ``mesh`` (a ``launch.mesh.Mesh``) goes into the manifest.
-    Returns the final path."""
+    ``Shards`` leaves are gathered by their spec in ``specs`` (a tree of
+    the same structure).  Returns the final path."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:09d}")
     tmp = final + ".tmp"
@@ -93,8 +138,14 @@ def save_checkpoint(directory: str, step: int, tree: Any, *, mesh=None,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     index = {}
-    for name, leaf in named_leaves(tree):
-        leaf = torch.as_tensor(leaf)
+    for name, leaf in _gathered(tree, mesh, specs):
+        if isinstance(leaf, list):  # per-rank state, rank by rank
+            files = [f"{name}.rank{r}.npy" for r in range(len(leaf))]
+            for fname, t in zip(files, leaf):
+                _save(os.path.join(tmp, fname), t)
+            index[name] = {"files": files, "shape": list(leaf[0].shape),
+                           "dtype": _dtype_name(leaf[0]), "per_rank": True}
+            continue
         fname = f"{name}.npy"
         _save(os.path.join(tmp, fname), leaf)
         index[name] = {"file": fname, "shape": list(leaf.shape),
@@ -138,19 +189,40 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, tree_like: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, tree_like: Any, *,
+                       mesh=None, specs: Any = None) -> Any:
     """Restore into the structure of ``tree_like`` (tensors, or anything
     with a ``shape``), each leaf in the checkpoint's dtype on the device of
-    its ``tree_like`` leaf (the CPU for a leaf that is not a tensor)."""
+    its ``tree_like`` leaf (the CPU for a leaf that is not a tensor).  A
+    ``Shards`` leaf is restored whole and re-sharded onto ``mesh`` by its
+    spec in ``specs``, whatever mesh saved it; a leaf saved rank by rank
+    only onto the mesh that saved it."""
+    from repro_torch.parallel.sharding import Shards, local_shape, shard
+
+    spec_of = dict(named_leaves(specs)) if specs is not None else {}
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
-        index = json.load(f)["leaves"]
+        manifest = json.load(f)
+    index = manifest["leaves"]
     restored = {}
     for name, like in named_leaves(tree_like):
         if name not in index:
             raise KeyError(f"checkpoint {path} missing leaf {name}")
         entry = index[name]
+        if entry.get("per_rank"):
+            restored[name] = _restore_per_rank(path, name, entry, like,
+                                               manifest["mesh"], mesh)
+            continue
         arr = np.load(os.path.join(path, entry["file"]))
+        if isinstance(like, Shards):
+            spec = spec_of[name]
+            if local_shape(arr.shape, spec, mesh) != tuple(like[0].shape):
+                raise ValueError(f"{name}: checkpoint shape {arr.shape} "
+                                 f"does not shard as {tuple(like[0].shape)}"
+                                 f" under {spec}")
+            restored[name] = shard(mesh, _from_numpy(arr, entry["dtype"]),
+                                   spec)
+            continue
         expected = tuple(getattr(like, "shape", arr.shape))
         if tuple(arr.shape) != expected:
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
@@ -161,17 +233,38 @@ def restore_checkpoint(directory: str, step: int, tree_like: Any) -> Any:
     return tree_map(lambda _: restored[next(names)], tree_like)
 
 
+def _restore_per_rank(path, name, entry, like, saved, mesh):
+    """A leaf saved rank by rank, onto the mesh that saved it."""
+    from repro_torch.parallel.sharding import Shards
+
+    if not isinstance(like, Shards) or _mesh_meta(mesh) != saved:
+        raise ValueError(
+            f"{name}: per-rank state saved on mesh {saved['shape']} "
+            f"{saved['axes']} restores only onto that mesh, not "
+            f"{_mesh_meta(mesh)['shape']}")
+    out = []
+    for fname, t in zip(entry["files"], like):
+        x = _from_numpy(np.load(os.path.join(path, fname)), entry["dtype"])
+        if tuple(x.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(x.shape)} "
+                             f"!= {tuple(t.shape)}")
+        out.append(x.to(t.device))
+    return Shards(out)
+
+
 class CheckpointManager:
     """Keep-k manager + auto-resume used by ``launch/train.py``."""
 
-    def __init__(self, directory: str, *, keep: int = 3, mesh=None):
+    def __init__(self, directory: str, *, keep: int = 3, mesh=None,
+                 specs: Any = None):
         self.directory = directory
         self.keep = keep
         self.mesh = mesh
+        self.specs = specs  # for sharded trees: their spec tree
 
     def save(self, step: int, tree: Any) -> str:
         return save_checkpoint(self.directory, step, tree, mesh=self.mesh,
-                               keep=self.keep)
+                               keep=self.keep, specs=self.specs)
 
     def latest(self) -> int | None:
         return latest_step(self.directory)
@@ -180,4 +273,5 @@ class CheckpointManager:
         step = self.latest()
         if step is None:
             return None
-        return step, restore_checkpoint(self.directory, step, tree_like)
+        return step, restore_checkpoint(self.directory, step, tree_like,
+                                        mesh=self.mesh, specs=self.specs)

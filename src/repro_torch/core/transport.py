@@ -12,6 +12,10 @@ lists.  They follow the reference's ``lax`` collectives:
 * ``all_gather_panels`` — the gather engine's pull-from-home.
 * ``psum`` / ``psum_scatter`` — the sums over ``l`` of the stacked engine
   (and the sweep's convergence partials over ``(r, c)``).
+* ``all_gather`` / ``all_to_all`` / ``pmax`` — the sharded LM step's
+  weight gathers (FSDP), sequence gathers and the 2.5D head's relayout
+  (``parallel/collectives.py`` gives them, ``psum`` and ``psum_scatter``
+  their backward).
 
 Two panel states, as in the reference (DBCSR ships only occupied blocks):
 
@@ -36,7 +40,8 @@ counter (``bytes_moved`` / ``reset_bytes``) under
 ``commvolume.plan_volume``'s conventions: a permute costs its full payload
 whichever ranks it addresses (dense: blocks and mask; compressed:
 capacity x (block bytes + 4)), an all-gather (n-1)/n of its output, a psum
-2(n-1)/n of its input, a psum-scatter (n-1) times its output.  The sum
+(or pmax) 2(n-1)/n of its input, a psum-scatter (n-1) times its output, an
+all-to-all (n-1)/n of its input.  The sum
 over one multiply equals the plan's volume for the resolved transport.
 """
 from __future__ import annotations
@@ -362,6 +367,59 @@ def psum_scatter(mesh, xs: list, axes, dim: int = 0) -> list:
         for r, chunk in zip(g, total.chunk(n, dim=dim)):
             out[r] = chunk.to(mesh.devices[r], copy=True)
     _count((n - 1) * _nbytes(out[0]))
+    return out
+
+
+def all_gather(mesh, xs: list, axes, dim: int = 0) -> list:
+    """Tiled ``lax.all_gather`` over ``axes``: every rank gets its group's
+    tensors concatenated along ``dim`` in group order (ranks of a group on
+    one device share the tensor)."""
+    out = [None] * mesh.size
+    groups = mesh.groups(axes)
+    for g in groups:
+        d0 = mesh.devices[g[0]]
+        total = torch.cat([xs[r].to(d0) for r in g], dim=dim)
+        for r in g:
+            out[r] = total.to(mesh.devices[r])
+    n = len(groups[0])
+    _count((n - 1) * _nbytes(xs[0]))  # (n - 1) / n of the output
+    return out
+
+
+def all_to_all(mesh, xs: list, axes, split_dim: int, concat_dim: int) -> list:
+    """Tiled ``lax.all_to_all`` over ``axes``: rank m of a group splits its
+    tensor into n chunks along ``split_dim`` and sends chunk j to rank j,
+    which concatenates what it receives along ``concat_dim`` in group
+    order.  Costs (n - 1) / n of the input."""
+    out = [None] * mesh.size
+    groups = mesh.groups(axes)
+    n = len(groups[0])
+    if xs[0].shape[split_dim] % n:
+        raise ValueError(f"dimension {split_dim} of size "
+                         f"{xs[0].shape[split_dim]} does not split into {n}")
+    for g in groups:
+        parts = [xs[r].chunk(n, dim=split_dim) for r in g]
+        for j, r in enumerate(g):
+            dev = mesh.devices[r]
+            out[r] = torch.cat([parts[i][j].to(dev) for i in range(n)],
+                               dim=concat_dim)
+    _count((n - 1) / n * _nbytes(xs[0]))
+    return out
+
+
+def pmax(mesh, xs: list, axes) -> list:
+    """``lax.pmax`` over ``axes`` (priced as a psum)."""
+    groups = mesh.groups(axes)
+    out = [None] * mesh.size
+    for g in groups:
+        d0 = mesh.devices[g[0]]
+        top = xs[g[0]].to(d0, copy=True)
+        for r in g[1:]:
+            top = torch.maximum(top, xs[r].to(d0))
+        for r in g:
+            out[r] = top.to(mesh.devices[r])
+    n = len(groups[0])
+    _count(2.0 * (n - 1) / n * _nbytes(xs[0]))
     return out
 
 

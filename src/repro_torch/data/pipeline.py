@@ -10,9 +10,9 @@ a fixed successor of the previous one), each row drawn from
 exactly the stream from N.
 
 ``make_global_batch`` gives the whole batch as int64 tensors on one
-device.  The reference builds a batch sharded over a mesh from host-local
-rows; on one device there are no shard-local rows, and the mesh form
-comes with the sharded training of ROADMAP.md Queue A item 15b.
+device, or on a mesh of ranks (the reference's form) each rank's rows
+under a batch spec, generated for that rank alone (``_rows(step, lo,
+hi)``) on its device.
 """
 from __future__ import annotations
 
@@ -63,10 +63,33 @@ class SyntheticLMData:
         return {"tokens": rows[:, :-1], "targets": rows[:, 1:]}
 
 
-def make_global_batch(data: SyntheticLMData, step: int,
-                      device) -> dict[str, torch.Tensor]:
-    """Batch ``step`` as int64 (global_batch, seq_len) tensors on
-    ``device`` (the values of ``batch_numpy``)."""
-    dev = torch.device(device)
-    return {name: torch.from_numpy(a.astype(np.int64)).to(dev)
-            for name, a in data.batch_numpy(step).items()}
+def make_global_batch(data: SyntheticLMData, step: int, device,
+                      spec=None) -> dict:
+    """Batch ``step`` (the values of ``batch_numpy``) as int64 tensors.
+
+    ``device``: one device, which gets the whole (global_batch, seq_len)
+    batch; or a ``launch.mesh.Mesh`` of ranks, which gets per-rank
+    ``parallel.sharding.Shards`` of the rows ``spec`` (default:
+    ``sharding.batch_spec``, rows over ``(pod, data)``) assigns each rank —
+    the rows a rank holds are generated once, for it, on its device."""
+    if not hasattr(device, "groups"):
+        dev = torch.device(device)
+        return {name: torch.from_numpy(a.astype(np.int64)).to(dev)
+                for name, a in data.batch_numpy(step).items()}
+    from repro_torch.parallel.sharding import Shards, batch_spec, chunk_index
+
+    mesh, cfg = device, data.cfg
+    if spec is None:
+        spec = batch_spec(mesh, cfg.global_batch, cfg.seq_len)
+    out, made = {"tokens": [], "targets": []}, {}
+    for r in range(mesh.size):
+        i, n = chunk_index(mesh, spec, r)[0]
+        lo, hi = i * cfg.global_batch // n, (i + 1) * cfg.global_batch // n
+        key = (lo, hi, mesh.devices[r])
+        if key not in made:
+            rows = torch.from_numpy(data._rows(step, lo, hi).astype(np.int64))
+            made[key] = (rows[:, :-1].to(mesh.devices[r]),
+                         rows[:, 1:].to(mesh.devices[r]))
+        out["tokens"].append(made[key][0])
+        out["targets"].append(made[key][1])
+    return {name: Shards(v) for name, v in out.items()}

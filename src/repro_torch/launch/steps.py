@@ -1,47 +1,106 @@
 """The training step — the twin of ``repro/launch/steps.py``'s
-``build_train_step`` on one device.
+``build_train_step`` and ``abstract_state``, on one device or on a mesh
+of ranks.
 
-``StepOptions`` holds the reference's options that act on one device,
-with its defaults: ``remat``, ``loss_chunk``, ``aux_coef``,
-``microbatch`` and ``compress_grads``.  The reference's sharding options
-(``fsdp_axis``, ``seq_parallel``, ``head_2p5d``, ``bf16_reduce``,
-``zero1``) come with sharded training, ROADMAP.md Queue A item 15b;
-``build_serve_step`` / ``build_prefill_step`` of the dry run are item
-16 (the port serves through ``serving/engine.py``).
+``StepOptions`` holds the reference's options with its defaults:
+``remat``, ``fsdp_axis``, ``seq_parallel``, ``loss_chunk``,
+``head_2p5d``, ``compress_grads``, ``bf16_reduce``, ``microbatch``,
+``zero1`` and ``aux_coef``; the sharding options act only on a mesh.
+``build_serve_step`` / ``build_prefill_step`` of the dry run are
+ROADMAP.md Queue A item 16 (the port serves through
+``serving/engine.py``).
 
-The step: gradients of ``transformer.loss_fn`` by autograd (in the
-parameters' dtype), or with ``microbatch = k`` the mean over k row slices
-of the batch in f32 accumulators (g / k added per slice, loss, ce and aux
-averaged the same way); with ``compress_grads`` the bf16 payload and its
-f32 residual (``opt_state["efb"]``), cast back to f32; then one AdamW
-update.  Metrics: ``loss``, ``ce``, ``moe_aux``, ``grad_norm``.
+The one-device step: gradients of ``transformer.loss_fn`` by autograd (in
+the parameters' dtype), or with ``microbatch = k`` the mean over k row
+slices of the batch in f32 accumulators (g / k added per slice, loss, ce
+and aux averaged the same way); with ``compress_grads`` the bf16 payload
+and its f32 residual (``opt_state["efb"]``), cast back to f32; then one
+AdamW update.  Metrics: ``loss``, ``ce``, ``moe_aux``, ``grad_norm``.
+
+The sharded step (``mesh=``, the dense family): parameters, moments and
+residuals are trees of ``sharding.Shards`` laid out by ``abstract_state``'s
+specs — TP over ``model``, FSDP over ``fsdp_axis``, the batch over
+``(pod, data)`` — and the loss is ``parallel/runtime.py``'s.  After each
+microbatch's backward every gradient is reduced into the moment layout:
+psum-scattered over the axes the moments shard and the parameters do not
+(ZeRO-1), psummed over the batch axes its FSDP gather did not already sum;
+with k microbatches the f32 accumulators live in that layout.  Under
+``compress_grads`` the accumulated gradient is compressed per rank with
+its own residual (parameter layout) and that reduction runs on the bf16
+payload (``optim.compressed_allreduce``).  The clipping norm counts each
+distinct shard once (``optim.sharded_global_norm``); AdamW updates each
+distinct moment shard once, and ZeRO-1's updated shards are all-gathered
+back to the parameters' layout.  Each rank splits its own rows into the
+k microbatches (the reference slices the global batch first; the sum is
+the same).  ``step_bytes`` counts the bytes per rank a step moves from the
+specs alone.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.config import ArchConfig, ShapeConfig, resolve_device
+from repro_torch.core import transport as TR
 from repro_torch.models import transformer as T
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
     adamw_update,
     compress_grads,
+    compressed_allreduce,
     init_compress_state,
+    sharded_global_norm,
 )
 from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.runtime import DecoderRuntime, check_supported
 
 
 @dataclass(frozen=True)
 class StepOptions:
     remat: str = "dots"  # none | full | dots
+    fsdp_axis: Any = "data"
+    seq_parallel: bool = False
     loss_chunk: int = 1024
+    head_2p5d: bool = False
     compress_grads: bool = False
+    bf16_reduce: bool = False  # bf16 partials for TP-contracted matmuls
     microbatch: int = 1  # gradient-accumulation steps
+    zero1: bool = False  # shard only the optimizer state over fsdp_axis
     aux_coef: float = 0.01
+
+
+_MOMENT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def abstract_state(cfg: ArchConfig, mesh, opt: AdamWConfig | None,
+                   options: StepOptions):
+    """(params shapes, opt-state shapes, params specs, opt-state specs):
+    trees of ``sharding.Leaf`` and ``sharding.P``.  Under ZeRO-1 the
+    parameters drop FSDP and the moments keep it; the residual ``efb``
+    takes the parameters' specs."""
+    p_shape = SH.param_shapes(cfg)
+    p_fsdp = None if options.zero1 else options.fsdp_axis
+    p_spec = SH.param_specs(cfg, p_shape, mesh, fsdp_axis=p_fsdp,
+                            head_2p5d=options.head_2p5d)
+    if opt is None:
+        return p_shape, None, p_spec, None
+    m_spec = SH.param_specs(cfg, p_shape, mesh, fsdp_axis=options.fsdp_axis,
+                            head_2p5d=options.head_2p5d)
+    mdt = _MOMENT[opt.moment_dtype]
+    moments = tree_map(lambda x: SH.Leaf(x.shape, mdt), p_shape)
+    o_shape = {"mu": moments, "nu": moments,
+               "step": SH.Leaf((), torch.int32)}
+    o_spec = {"mu": m_spec, "nu": m_spec, "step": SH.P()}
+    if options.compress_grads:
+        o_shape["efb"] = tree_map(lambda x: SH.Leaf(x.shape, torch.float32),
+                                  p_shape)
+        o_spec["efb"] = p_spec
+    return p_shape, o_shape, p_spec, o_spec
 
 
 def init_opt_state(params: Any, opt: AdamWConfig,
@@ -72,25 +131,35 @@ def _grads(cfg, options, params, batch):
             grads)
 
 
-def build_train_step(cfg: ArchConfig, shape: ShapeConfig, *,
-                     opt: AdamWConfig | None = None,
-                     options: StepOptions = StepOptions(),
-                     device=None) -> Callable:
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` for batches of ``shape`` (``tokens`` / ``targets`` (B, S)
-    on ``device``, CUDA unless asked otherwise).  ``opt`` defaults to
-    AdamW with the arch's moment dtype; ``opt_state`` comes from
-    ``init_opt_state``."""
-    if opt is None:
-        opt = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
-    T.check_supported(cfg)
-    dev = resolve_device(device)
+def _check_options(shape: ShapeConfig, options: StepOptions) -> int:
     k = options.microbatch
     if k < 1 or shape.global_batch % k:
         raise ValueError(f"microbatch {k} must divide the global batch "
                          f"{shape.global_batch}")
     if options.remat not in T.REMAT:
         raise ValueError(f"remat {options.remat!r}: one of {T.REMAT}")
+    return k
+
+
+def build_train_step(cfg: ArchConfig, shape: ShapeConfig, *,
+                     opt: AdamWConfig | None = None,
+                     options: StepOptions = StepOptions(),
+                     device=None, mesh=None) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` for batches of ``shape`` (``tokens`` / ``targets`` (B, S)
+    on ``device``, CUDA unless asked otherwise).  ``opt`` defaults to
+    AdamW with the arch's moment dtype; ``opt_state`` comes from
+    ``init_opt_state``.  With ``mesh`` (a ``launch.mesh.Mesh`` whose ranks
+    sit on ``device``'s type) the sharded step: params and state as
+    ``init_sharded`` places them, the batch as per-rank ``Shards``
+    (``data.make_global_batch(..., mesh)``) or whole tensors."""
+    if opt is None:
+        opt = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    T.check_supported(cfg)
+    dev = resolve_device(device)
+    k = _check_options(shape, options)
+    if mesh is not None:
+        return _sharded_step(cfg, shape, opt, options, dev, mesh)
 
     def train_step(params, opt_state, batch):
         for name in ("tokens", "targets"):
@@ -128,3 +197,292 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, *,
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _rules(cfg, mesh, shape, options):
+    return SH.activation_rules(
+        cfg, mesh, batch=shape.global_batch,
+        seq_parallel=options.seq_parallel, head_2p5d=options.head_2p5d,
+        reduce_dtype=torch.bfloat16 if options.bf16_reduce else None)
+
+
+def _batch_names(mesh) -> tuple[str, ...]:
+    ba = SH.batch_axes(mesh)
+    return ba if isinstance(ba, tuple) else (ba,)
+
+
+def _sync_plan(p_spec, m_spec, batch) -> list:
+    """The reduction of one leaf's gradient into its moment layout:
+    ("scatter", axes, dim) where the moments shard a dim the parameters do
+    not, then ("psum", axes) over the batch axes no FSDP gather and no
+    scatter summed (the model axis never: its ranks' gradients are whole
+    or their own shards')."""
+    done = {a for e in p_spec for a in SH.entry_axes(e)}
+    plan = []
+    for dim, (pe, me) in enumerate(zip(p_spec, m_spec)):
+        if pe != me:
+            plan.append(("scatter", me, dim))
+            done |= set(SH.entry_axes(me))
+    rest = tuple(a for a in batch if a not in done)
+    if rest:
+        plan.append(("psum", rest, None))
+    return plan
+
+
+def _distinct(fn, *lists) -> list:
+    """``fn`` rank by rank over per-rank lists, once per distinct tuple of
+    inputs (replicas share their result)."""
+    seen, out = {}, []
+    for args in zip(*lists):
+        key = tuple(id(a) for a in args)
+        if key not in seen:
+            seen[key] = fn(*args)
+        out.append(seen[key])
+    return out
+
+
+def init_sharded(cfg: ArchConfig, mesh, params: Any, opt: AdamWConfig,
+                 options: StepOptions = StepOptions()):
+    """(sharded params, their zero optimizer state): ``params`` — a full
+    tree, drawn once — placed on the ranks by ``abstract_state``'s
+    specs, so a sharded run starts from a one-device run's parameters.
+    The state: moments in the moment layout, the step on rank 0's device,
+    one residual per rank."""
+    p_shape, o_shape, p_spec, o_spec = abstract_state(cfg, mesh, opt,
+                                                      options)
+    sharded = SH.shard_tree(mesh, params, p_spec)
+    state = {name: tree_map(lambda x, s: SH.zeros(mesh, x.shape, s, x.dtype),
+                            o_shape[name], o_spec[name])
+             for name in ("mu", "nu")}
+    state["step"] = torch.zeros((), dtype=torch.int32,
+                                device=mesh.devices[0])
+    if options.compress_grads:
+        state["efb"] = tree_map(
+            lambda x, s: SH.zeros(mesh, x.shape, s, torch.float32,
+                                  per_rank=True), p_shape, o_spec["efb"])
+    return sharded, state
+
+
+def _sharded_step(cfg, shape, opt, options, dev, mesh):
+    check_supported(cfg, mesh)
+    for d in mesh.devices:
+        if d.type != dev.type:
+            raise ValueError(f"a rank on {d}, the step on {dev}")
+    k = options.microbatch
+    rules = _rules(cfg, mesh, shape, options)
+    _, _, p_spec, o_spec = abstract_state(cfg, mesh, opt, options)
+    m_spec = o_spec["mu"]
+    batch_axes = _batch_names(mesh)
+    n_batch = math.prod(mesh.shape[a] for a in batch_axes)
+    if shape.global_batch % (k * n_batch):
+        raise ValueError(f"the global batch {shape.global_batch} must "
+                         f"split into {k} microbatches over {n_batch} "
+                         f"batch ranks")
+    if options.seq_parallel and shape.seq_len % mesh.shape["model"]:
+        raise ValueError(f"seq_parallel: seq_len {shape.seq_len} over "
+                         f"model {mesh.shape['model']}")
+    runtime = DecoderRuntime(cfg, mesh, p_spec, rules, remat=options.remat,
+                             loss_chunk=options.loss_chunk)
+    p_specs, m_specs = leaves(p_spec), leaves(m_spec)
+    plans = [_sync_plan(ps, ms, batch_axes)
+             for ps, ms in zip(p_specs, m_specs)]
+    batch_spec = SH.batch_spec(mesh, shape.global_batch, shape.seq_len)
+    rows = shape.global_batch // n_batch // k
+    n_tokens = shape.global_batch // k * shape.seq_len
+
+    def sync(g, plan):
+        for op, axes, dim in plan:
+            if op == "scatter":
+                g = TR.psum_scatter(mesh, g, axes, dim)
+            else:
+                g = TR.psum(mesh, g, axes)
+        return g
+
+    def micro_grads(params, tokens, targets):
+        live = [[t.detach().requires_grad_() for t in s]
+                for s in leaves(params)]
+        it = iter(live)
+        tree = tree_map(lambda _: next(it), params)
+        losses = runtime.local_losses(tree, tokens, targets, n_tokens)
+        flat = [t for s in live for t in s]
+        got = iter(torch.autograd.grad(
+            losses, flat, grad_outputs=[torch.ones_like(x) for x in losses],
+            allow_unused=True))
+        grads = [[g if g is not None else torch.zeros_like(t)
+                  for t, g in zip(s, got)] for s in live]
+        return [x.detach() for x in losses], grads
+
+    def train_step(params, opt_state, batch):
+        parts = {}
+        for name in ("tokens", "targets"):
+            x = batch[name]
+            if not isinstance(x, SH.Shards):
+                if tuple(x.shape) != (shape.global_batch, shape.seq_len):
+                    raise ValueError(f"{name} {tuple(x.shape)} != "
+                                     f"{(shape.global_batch, shape.seq_len)}")
+                x = SH.shard(mesh, x, batch_spec)
+            if any(t.device.type != dev.type for t in x):
+                raise ValueError(f"{name} off {dev}")
+            parts[name] = x
+        acc, loss = None, None
+        for i in range(k):
+            mb = {n: [t[i * rows:(i + 1) * rows] for t in x]
+                  for n, x in parts.items()}
+            l_i, g_i = micro_grads(params, mb["tokens"], mb["targets"])
+            if not options.compress_grads:
+                g_i = [sync(g, plan) for g, plan in zip(g_i, plans)]
+            if k > 1:
+                g_i = [_distinct(lambda a: a.float() / k, g) for g in g_i]
+                acc = g_i if acc is None else [
+                    _distinct(torch.add, a, g) for a, g in zip(acc, g_i)]
+                loss = [x / k for x in l_i] if loss is None else [
+                    a + x / k for a, x in zip(loss, l_i)]
+            else:
+                acc, loss = g_i, l_i
+        residual = None
+        if options.compress_grads:
+            acc, residual = _compressed_sync(mesh, acc, opt_state["efb"],
+                                             plans, p_specs, m_specs)
+        grads_tree = _tree_of(params, acc)
+        gn = sharded_global_norm(mesh, grads_tree, m_spec)
+        new_p, mu, nu, step = _adamw_sharded(
+            mesh, opt, params, acc, opt_state, p_specs, m_specs, gn)
+        opt_state = {"mu": mu, "nu": nu, "step": step}
+        if residual is not None:
+            opt_state["efb"] = residual
+        ce = TR.psum(mesh, loss, batch_axes)[0].to(dev)
+        metrics = {"ce": ce, "moe_aux": torch.zeros((), device=dev),
+                   "loss": ce, "grad_norm": gn.to(dev)}
+        return new_p, opt_state, metrics
+
+    return train_step
+
+
+def _tree_of(like, flat_lists) -> Any:
+    """``like``'s structure with ``Shards`` of ``flat_lists`` (in leaf
+    order) at its leaves."""
+    it = iter(flat_lists)
+    return tree_map(lambda _: SH.Shards(next(it)), like)
+
+
+def _compressed_sync(mesh, acc, efb, plans, p_specs, m_specs):
+    """Compress every rank's accumulated gradient with its residual, sum
+    the bf16 payloads over each leaf's remaining axes
+    (``compressed_allreduce``), and slice the result into the moment
+    layout.  Returns (grads, residual tree)."""
+    grads, res = [], []
+    for g, r, plan, ps, ms in zip(acc, leaves(efb), plans, p_specs,
+                                  m_specs):
+        axes = tuple(a for _, ax, _ in plan for a in SH.entry_axes(ax))
+        if axes:
+            synced, r2 = compressed_allreduce(
+                mesh, SH.Shards(g), SH.Shards(r), axis=axes, mean=False)
+        else:
+            q, r2 = zip(*(compress_grads(a, b) for a, b in zip(g, r)))
+            synced = _distinct(lambda x: x.float(), list(q))
+        out = []
+        for rank, t in enumerate(synced):
+            sub = tuple((i, n) if pe != me else (0, 1) for pe, me, (i, n)
+                        in zip(ps, ms, SH.chunk_index(mesh, ms, rank)))
+            out.append(SH.take(t, sub))
+        grads.append(out)
+        res.append(SH.Shards(r2))
+    it = iter(res)
+    return grads, tree_map(lambda _: next(it), efb)
+
+
+def _adamw_sharded(mesh, opt, params, grads, opt_state, p_specs, m_specs,
+                   gn):
+    """AdamW on every distinct moment-layout shard once (clipped by the
+    global norm ``gn``); ZeRO-1's shards all-gathered back to the
+    parameters' layout.  Returns (params, mu, nu, step)."""
+    fp, fg, fmu, fnu, owners = {}, {}, {}, {}, []
+    for li, (p, g, mu, nu, ps, ms) in enumerate(zip(
+            leaves(params), grads, leaves(opt_state["mu"]),
+            leaves(opt_state["nu"]), p_specs, m_specs)):
+        keys = []
+        for r in range(mesh.size):
+            idx = SH.chunk_index(mesh, ms, r)
+            key = f"{li}/{idx}/{mesh.devices[r]}"
+            if key not in fp:
+                sub = tuple((i, n) if pe != me else (0, 1)
+                            for pe, me, (i, n) in zip(ps, ms, idx))
+                fp[key], fg[key] = SH.take(p[r], sub), g[r]
+                fmu[key], fnu[key] = mu[r], nu[r]
+            keys.append(key)
+        owners.append(keys)
+    new_p, core, _ = adamw_update(
+        opt, fp, fg, {"mu": fmu, "nu": fnu, "step": opt_state["step"]},
+        grad_norm=gn)
+    out_p, out_mu, out_nu = [], [], []
+    for keys, ps, ms in zip(owners, p_specs, m_specs):
+        pl = [new_p[key] for key in keys]
+        for dim, (pe, me) in enumerate(zip(ps, ms)):
+            if pe != me:
+                pl = TR.all_gather(mesh, pl, me, dim)
+        out_p.append(SH.Shards(pl))
+        out_mu.append(SH.Shards(core["mu"][key] for key in keys))
+        out_nu.append(SH.Shards(core["nu"][key] for key in keys))
+    return (_tree_of(params, out_p), _tree_of(params, out_mu),
+            _tree_of(params, out_nu), core["step"])
+
+
+def step_bytes(cfg: ArchConfig, mesh, shape: ShapeConfig,
+               options: StepOptions = StepOptions(),
+               opt: AdamWConfig | None = None) -> float:
+    """Bytes per rank one sharded step moves, counted from the specs and
+    shapes alone: each microbatch's forward and backward
+    (``DecoderRuntime.loss_bytes``) and its gradient reduction into the moment
+    layout (a psum-scatter (n - 1) times its output, a psum 2 (n - 1) / n
+    of its input), or under ``compress_grads`` one bf16 psum of each
+    gradient; the loss's psum over the batch axes and the clipping norm's
+    over the mesh (one f32 each); ZeRO-1's all-gather of the updated
+    parameters ((n - 1) / n of each output)."""
+    if opt is None:
+        opt = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    k = options.microbatch
+    rules = _rules(cfg, mesh, shape, options)
+    p_shape, _, p_spec, o_spec = abstract_state(cfg, mesh, opt, options)
+    axes = dict(mesh.shape)
+    batch_axes = _batch_names(mesh)
+    n_batch = math.prod(axes[a] for a in batch_axes)
+    runtime = DecoderRuntime(cfg, mesh, p_spec, rules, remat=options.remat,
+                             loss_chunk=options.loss_chunk)
+    total = k * runtime.loss_bytes(p_shape,
+                                   rows=shape.global_batch // n_batch // k,
+                                   seq=shape.seq_len)
+
+    def size(entry):
+        return math.prod(axes[a] for a in SH.entry_axes(entry))
+
+    for leaf, ps, ms in zip(leaves(p_shape), leaves(p_spec),
+                            leaves(o_spec["mu"])):
+        item = torch.empty((), dtype=leaf.dtype).element_size()
+        local = math.prod(leaf.shape) * item
+        for e in ps:
+            local /= size(e)
+        plan = _sync_plan(ps, ms, batch_axes)
+        if options.compress_grads:
+            n = math.prod(size(ax) for _, ax, _ in plan)
+            total += 2 * (n - 1) / n * local / item * 2
+        else:
+            g = local
+            for op, ax, _ in plan:
+                n = size(ax)
+                if op == "scatter":
+                    g /= n
+                    total += k * (n - 1) * g
+                else:
+                    total += k * 2 * (n - 1) / n * g
+        for pe, me in zip(ps, ms):
+            if pe != me:
+                n = size(me)
+                total += (n - 1) / n * local
+    n_all = mesh.size
+    total += 2 * (n_batch - 1) / n_batch * 4 + 2 * (n_all - 1) / n_all * 4
+    return total

@@ -1,8 +1,8 @@
 """Training driver: checkpointed, resumable, straggler-aware — the twin of
-``repro/launch/train.py`` on one device.
+``repro/launch/train.py``, on one device or on a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --reduced --steps 6 --seq-len 32 --global-batch 4
+        --reduced --steps 6 --seq-len 32 --global-batch 4 [--mesh 2x2]
 
 Runs on CUDA unless ``--device cpu`` is given, and raises without a CUDA
 device.  As in the reference:
@@ -13,11 +13,18 @@ device.  As in the reference:
     is logged and checkpointed early);
   * SIGTERM asks for a checkpoint at the next step edge, then exit 0;
   * ``--compress-grads`` (bf16 payload, f32 error feedback), ``--remat``;
+  * elastic restart: checkpoints carry the mesh, and a resume on another
+    mesh re-shards to the current specs;
   * exit 1 on a non-finite loss, 0 otherwise.
 Parameters are drawn on the device from ``--seed``
 (``T.init_params(cfg, torch.Generator(device).manual_seed(seed))``); the
-optimizer is AdamW at ``--lr`` with the arch's moment dtype.  ``--mesh``
-takes ``1x1`` only: sharded training is ROADMAP.md Queue A item 15b.
+optimizer is AdamW at ``--lr`` with the arch's moment dtype.  ``--mesh
+DxM`` / ``PxDxM`` (any size but 1) trains on a mesh of (pod,) data and
+model ranks that all sit on the one device (``launch.steps``'s sharded
+step, dense family): the full tree is drawn once from the seed and then
+sharded, so a sharded run starts from a ``1x1`` run's parameters;
+``--fsdp-axis``, ``--seq-parallel``, ``--head-2p5d``, ``--bf16-reduce``,
+``--zero1`` and ``--microbatch`` set the step's options.
 
 ``run(argv)`` returns what a caller measures: the losses, grad norms and
 wall seconds of every step run, and the exit code; ``main`` returns the
@@ -37,8 +44,14 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ShapeConfig, resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData, make_global_batch
-from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.steps import StepOptions, build_train_step, init_opt_state
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.steps import (
+    StepOptions,
+    abstract_state,
+    build_train_step,
+    init_opt_state,
+    init_sharded,
+)
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig
 
@@ -68,15 +81,14 @@ class StragglerWatchdog:
 
 
 def parse_mesh(spec: str, device) -> Mesh:
-    """``1x1`` -> a one-device (data, model) mesh; any other mesh raises."""
+    """``DxM`` -> a (data, model) mesh, ``PxDxM`` -> (pod, data, model),
+    every rank on ``device``."""
     dims = tuple(int(x) for x in spec.split("x"))
-    if len(dims) not in (2, 3):
-        raise ValueError(f"mesh spec {spec!r}: want DxM or PxDxM")
-    if dims != (1, 1):
-        raise NotImplementedError(
-            f"--mesh {spec}: the port trains on one device (1x1); sharded "
-            "training is ROADMAP.md Queue A item 15b")
-    return Mesh(("data", "model"), dims, (torch.device(device),))
+    if len(dims) == 2:
+        return make_mesh(dims, ("data", "model"), device)
+    if len(dims) == 3:
+        return make_mesh(dims, ("pod", "data", "model"), device)
+    raise ValueError(f"mesh spec {spec!r}: want DxM or PxDxM")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -97,6 +109,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--fsdp-axis", default="data",
+                    help="data, pod,data or none")
+    ap.add_argument("--seq-parallel", action="store_true")
+    ap.add_argument("--head-2p5d", action="store_true")
+    ap.add_argument("--bf16-reduce", action="store_true")
+    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--microbatch", type=int, default=1)
     return ap
 
 
@@ -109,18 +128,32 @@ def run(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     mesh = parse_mesh(args.mesh, dev)
+    sharded = mesh.size > 1
     shape = ShapeConfig("train", args.seq_len, args.global_batch, "train")
+    fsdp = {"none": None, "pod,data": ("pod", "data")}.get(args.fsdp_axis,
+                                                          args.fsdp_axis)
     options = StepOptions(remat=args.remat, compress_grads=args.compress_grads,
-                          loss_chunk=min(512, args.seq_len))
+                          loss_chunk=min(512, args.seq_len), fsdp_axis=fsdp,
+                          seq_parallel=args.seq_parallel,
+                          head_2p5d=args.head_2p5d,
+                          bf16_reduce=args.bf16_reduce, zero1=args.zero1,
+                          microbatch=args.microbatch)
     opt = AdamWConfig(lr=args.lr, moment_dtype=cfg.opt_state_dtype)
     step_fn = build_train_step(cfg, shape, opt=opt, options=options,
-                               device=dev)
+                               device=dev, mesh=mesh if sharded else None)
 
     # ---- init or resume -------------------------------------------------
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                            device=dev)
-    opt_state = init_opt_state(params, opt, options)
-    mgr = CheckpointManager(args.ckpt_dir, mesh=mesh) if args.ckpt_dir else None
+    specs = None
+    if sharded:
+        params, opt_state = init_sharded(cfg, mesh, params, opt, options)
+        _, _, p_spec, o_spec = abstract_state(cfg, mesh, opt, options)
+        specs = {"params": p_spec, "opt": o_spec}
+    else:
+        opt_state = init_opt_state(params, opt, options)
+    mgr = (CheckpointManager(args.ckpt_dir, mesh=mesh, specs=specs)
+           if args.ckpt_dir else None)
     start_step = 0
     if mgr is not None and mgr.latest() is not None:
         start_step, restored = mgr.restore_latest(
@@ -146,7 +179,7 @@ def run(argv=None) -> dict:
         watchdog = StragglerWatchdog()
         t_start = time.time()
         for step in range(start_step, args.steps):
-            batch = make_global_batch(data, step, dev)
+            batch = make_global_batch(data, step, mesh if sharded else dev)
             t0 = time.time()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])  # blocks; also the step boundary

@@ -3,9 +3,10 @@ cross-entropy.
 
 The torch twin of ``repro/models/layers.py``.  Parameters are plain dicts
 of tensors with the reference's names and layouts; ``init_*`` draw on the
-generator's device.  What remains of the reference's module is its
-sharding: ``shard_act("ce_in")`` under sharding rules comes with
-``parallel/sharding.py`` (ROADMAP.md Queue A item 15b).
+generator's device.  The reference's ``shard_act("ce_in")`` cut in the
+cross-entropy (``head_2p5d``: d over the pod axis) is the sharded
+runtime's (``parallel/runtime.py``), which runs the vocab-parallel and 2.5D
+forms of ``chunked_cross_entropy`` over per-rank lists.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
+from repro_torch.parallel.ctx import tp_reduce_dtype
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -126,7 +128,8 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, d: int, ff: int,
 
 def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """swiglu / geglu / gelu; gelu is the tanh form (``jax.nn.gelu``'s
-    default)."""
+    default).  Under ``bf16_reduce`` rules the down-projection comes out in
+    the rules' reduce dtype (``parallel.ctx.tp_reduce_dtype``)."""
     h = x @ p["w_in"]
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
@@ -134,7 +137,9 @@ def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_out"]
+    y = h @ p["w_out"]
+    dt = tp_reduce_dtype()
+    return y if dt is None else y.to(dt)
 
 
 # ---------------------------------------------------------------------------

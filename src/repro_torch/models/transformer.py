@@ -46,7 +46,8 @@ outputs (``aten.mm`` / ``aten.addmm``) and recomputes the rest, batched
 (``bmm``) products included — the reference's
 ``dots_with_no_batch_dims_saveable``.  All three give the same loss and
 gradients.  MoE training under ``spgemm`` needs a block-SpGEMM backward
-and sharded training needs ``parallel/``: ROADMAP.md Queue A item 15b.
+(ROADMAP.md Queue A item 15b.4).  The sharded step runs the dense
+family's layers through ``parallel/runtime.py`` on per-rank shards.
 """
 from __future__ import annotations
 

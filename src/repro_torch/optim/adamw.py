@@ -53,16 +53,44 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
+def sharded_global_norm(mesh, grads: Any, specs: Any) -> torch.Tensor:
+    """``global_norm`` of a gradient tree on a mesh of ranks (``Shards``
+    leaves laid out by ``specs``): every rank sums the squares of the
+    shards it is the first holder of — its coordinate 0 on every axis its
+    leaf's spec does not name, so a replica counts once — and one psum
+    over the whole mesh adds the ranks' sums.  Returns the norm on rank
+    0's device."""
+    from repro_torch.core import transport as TR
+
+    names = mesh.axis_names
+    local = [torch.zeros((), dtype=torch.float32, device=d)
+             for d in mesh.devices]
+    for g, spec in zip(leaves(grads), leaves(specs)):
+        named = {a for e in spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        for r in range(mesh.size):
+            if all(c == 0 for a, c in zip(names, mesh.coords(r))
+                   if a not in named):
+                local[r] = local[r] + torch.sum(torch.square(g[r].float()))
+    return torch.sqrt(TR.psum(mesh, local, tuple(names))[0])
+
+
+@torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig,
     params: Any,
     grads: Any,
     state: dict[str, Any],
     lr_scale: float | torch.Tensor = 1.0,
+    *,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
-    """One update.  Returns (params, state, {"grad_norm"})."""
+    """One update.  Returns (params, state, {"grad_norm"}).  ``grad_norm``
+    is the norm to clip by when the trees hold only part of the gradient
+    (a sharded step's shards: ``sharded_global_norm``); by default the
+    trees' own ``global_norm``."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9),
                             max=1.0)

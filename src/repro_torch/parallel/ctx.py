@@ -1,15 +1,20 @@
-"""Activation-sharding context — the part of ``repro/parallel/ctx.py`` the
-MoE layer needs.
+"""Activation-sharding context — the twin of ``repro/parallel/ctx.py``.
 
 Model code stays mesh-agnostic: it calls ``shard_act(x, name)`` at the
 canonical cut points and reads ``tp_reduce_dtype()`` for its
 tensor-parallel contractions.  Inside ``with sharding_rules(rules):`` the
 reference turns each name into a GSPMD sharding constraint; outside, both
-are no-ops, which is what a single device sees.  The port runs one process
-with no GSPMD, so ``shard_act`` is the identity with no rules installed
-and raises with rules installed: resharding activations across devices
-comes with ``parallel/sharding.py`` (ROADMAP.md Queue A item 15b, the
-sharded training slice).
+are no-ops, which is what a single device sees.
+
+The port has no GSPMD: a sharded activation is a list of per-rank tensors,
+and the sharded decoder (``parallel/runtime.py``) reads the table of the
+installed rules (``parallel/sharding.activation_rules``) at the
+reference's cut points and runs the collectives each entry implies
+(``parallel/collectives.py``).  So ``shard_act`` on one plain tensor stays
+the identity without rules and raises under installed rules: one tensor
+cannot be resharded, and a silent no-op would hide a path that skipped
+the runtime.  ``tp_reduce_dtype`` gives the rules' ``reduce_dtype`` (bf16
+partials of the tensor-parallel products under ``bf16_reduce``).
 """
 from __future__ import annotations
 
@@ -21,15 +26,19 @@ import torch
 
 _STATE = threading.local()
 
-_NO_GSPMD = ("activation resharding (shard_act under sharding rules) needs "
-             "parallel/sharding.py, ROADMAP.md Queue A item 15b")
+_NO_GSPMD = ("one tensor cannot be resharded under sharding rules: sharded "
+             "activations are per-rank lists, laid out by parallel/runtime.py "
+             "for the dense family (the MoE family's sharded step, whose "
+             "layers cut here, is ROADMAP.md Queue A item 15c; the other "
+             "families' 15d-15g)")
 
 
 @dataclass(frozen=True)
 class ShardingRules:
-    """Name -> partition spec table for activation constraints (the specs
-    are opaque here), and ``reduce_dtype``: when set, tensor-parallel
-    contractions produce their partials in this dtype."""
+    """Name -> partition spec table for activation constraints
+    (``sharding.P`` specs, which ``parallel/runtime.py`` reads), and
+    ``reduce_dtype``: when set, tensor-parallel contractions produce their
+    partials in this dtype."""
 
     table: dict = field(default_factory=dict)
     reduce_dtype: torch.dtype | None = None
@@ -54,8 +63,8 @@ def current_rules() -> ShardingRules | None:
 
 def shard_act(x: torch.Tensor, name: str) -> torch.Tensor:
     """Constrain activation ``x`` per the active rule set: the identity
-    without one (one device, as in the reference); with one, resharding
-    is not ported yet and raises."""
+    without one (one device, as in the reference); with one, a plain
+    tensor raises (the runtime lays out per-rank lists itself)."""
     if current_rules() is None:
         return x
     raise NotImplementedError(f"{name}: {_NO_GSPMD}")

@@ -1,0 +1,404 @@
+"""The sharded decoder runtime: the dense family's training loss on a mesh
+of ranks (a port-only module: the reference writes its model once and lets
+GSPMD partition it from ``param_specs`` and ``activation_rules``).
+
+One process holds every rank (``launch/mesh.py``).  A parameter is a list
+of per-rank shards placed by ``parallel/sharding.param_specs``; an
+activation is a list of per-rank tensors.  Each rank's part of a layer is
+the ported layer run on its shards with a local configuration
+(``n_heads / m``, ``n_kv_heads / m`` heads on its column shards of ``wq``
+/ ``wk`` / ``wv`` and row shard of ``wo``, its column shards of ``w_in``
+/ ``w_gate`` and row shard of ``w_out``), so ``attention.qkv_proj``,
+``chunked_attention`` (the flash kernels on the card), ``out_proj`` and
+``layers.apply_mlp`` serve both paths.  The collectives are explicit
+(``parallel/collectives.py``) and follow the activation table the rules
+name at the reference's cut points:
+
+* ``btd`` after a row-parallel product: a psum over ``model`` (Megatron),
+  or under ``seq_parallel`` (``btd`` split over ``model`` on the
+  sequence) a psum-scatter, the residual stream and its norms then
+  running on S / m positions;
+* ``btd_full`` before a column-parallel product: the identity with a psum
+  backward, or under ``seq_parallel`` an all-gather of the sequence;
+* ``bhsd`` / ``bksd``: heads over ``model`` when both head counts divide
+  it; otherwise attention runs whole on every model rank, its weights
+  gathered over ``model`` first (qwen1.5-4b's 20 heads on 16);
+* ``logits``: vocab over ``model`` — a vocab-parallel embedding (local
+  rows, others masked, then the ``btd`` reduction) and a vocab-parallel
+  chunked cross-entropy (local logits; the max, the sum of exponentials
+  and the target's logit combined over ``model``);
+* ``ce_in`` (``head_2p5d`` on a ``pod`` axis): each CE chunk's rows are
+  gathered over ``pod`` and its d split over ``pod`` (an all-to-all), and
+  the LM-head contraction is ``matmul_2p5d``'s partial products reduced
+  by one psum-scatter over ``pod`` back to each rank's own rows.
+
+FSDP: each layer's weight shards are all-gathered over their FSDP axes
+inside the (remat'd) layer function, so no gathered weight outlives its
+layer under ``remat`` full / dots; the gathers' backward psum-scatters
+the gradients back to the shards.  The token table is gathered once per
+step and serves the embedding and, tied, the head.
+
+Every rank's loss is its rows' cross-entropy sum over the global token
+count; under Megatron's convention each is seeded with one, and the sum
+over the batch axes is the loss.  Families other than ``dense`` raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ctx import sharding_rules
+from repro_torch.parallel.matmul_2p5d import matmul_2p5d
+from repro_torch.parallel.sharding import entry_axes
+
+FAMILIES = ("dense",)
+# the ROADMAP.md Queue A items that add the other families' sharded steps
+NEXT_ITEM = {"moe": "15c", "hybrid": "15d", "ssm": "15e", "audio": "15f",
+             "vlm": "15g"}
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
+def check_supported(cfg, mesh) -> None:
+    """Raise for a family or a mesh the sharded runtime does not run."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: a sharded step for the {cfg.family!r} family is "
+            f"ROADMAP.md Queue A item {NEXT_ITEM.get(cfg.family, '15c')}; "
+            f"the sharded runtime runs {FAMILIES}")
+    if tuple(mesh.axis_names) not in MESH_AXES:
+        raise ValueError(f"mesh axes {mesh.axis_names}: one of {MESH_AXES}")
+
+
+class DecoderRuntime:
+    """The loss of one batch on a mesh of ranks, under the table of
+    ``rules`` (``sharding.activation_rules``) and the spec tree
+    ``p_spec`` (``sharding.param_specs``)."""
+
+    def __init__(self, cfg, mesh, p_spec, rules, *, remat: str = "none",
+                 loss_chunk: int = 512):
+        check_supported(cfg, mesh)
+        self.cfg, self.mesh, self.p_spec, self.rules = cfg, mesh, p_spec, rules
+        self.remat, self.loss_chunk = remat, loss_chunk
+        t = rules.table
+        self.m = mesh.shape["model"]
+        names = mesh.axis_names
+        self.mi = [mesh.coords(r)[names.index("model")]
+                   for r in range(mesh.size)]
+        self.pi = ([mesh.coords(r)[names.index("pod")]
+                    for r in range(mesh.size)] if "pod" in names else None)
+        self.attn_tp = t["bhsd"][1] == "model" and t["bksd"][1] == "model"
+        self.seq_split = t["btd"][1] == "model"
+        self.ce_2p5d = "ce_in" in t
+        emb = p_spec["embed"]
+        self.head_spec = emb.get("out", emb["tok"])
+        self.embed_tp = emb["tok"][0] == "model"
+        self.head_tp = self.head_spec[0] == "model"
+        blk = p_spec["blocks"][0]
+        self.mlp_tp = "model" in blk["mlp"]["w_in"]
+        # the spec entries a weight keeps when gathered to its compute
+        # layout: heads that do not divide ``model`` gather it too
+        self.attn_keep = ("model",) if self.attn_tp else ()
+        self.mlp_keep = self.tok_keep = ("model",)
+        self.head_keep = ("model", "pod")
+        self.cfg_attn = dataclasses.replace(
+            cfg, head_dim=cfg.hd,
+            n_heads=cfg.n_heads // (self.m if self.attn_tp else 1),
+            n_kv_heads=cfg.n_kv_heads // (self.m if self.attn_tp else 1))
+        self.kinds = T.layer_kinds(cfg)
+        self._layer_fn = T._remat_layer(self._layer, remat)
+
+    # ---- layout transitions (the activation table's cut points) --------
+    # Each method below names the collective of one cut point; the forward
+    # runs it (``_run``) and ``loss_bytes`` counts it (``ACT_BYTES``).
+
+    def btd_op(self, tp: bool) -> str | None:
+        """``btd`` after a product: where its parts sum over ``model``
+        (``tp``) a psum (Megatron), or under ``seq_parallel`` a
+        psum-scatter of the sequence; where every model rank computed it
+        whole, nothing, or under ``seq_parallel`` each rank's chunk."""
+        if tp:
+            return "psum_scatter" if self.seq_split else "psum"
+        return "split" if self.seq_split else None
+
+    def full_op(self, tp: bool) -> str | None:
+        """``btd_full`` before a product: the identity with a psum
+        backward where the ranks consume parts (``tp``), or under
+        ``seq_parallel`` an all-gather of the sequence whose gradient is
+        summed (``tp``) or sliced."""
+        if self.seq_split:
+            return "gather_sum" if tp else "gather_slice"
+        return "copy" if tp else None
+
+    def norm_op(self) -> str | None:
+        """A norm's weights: under ``seq_parallel`` each rank sees S / m
+        positions, so their gradients sum over ``model``."""
+        return "copy" if self.seq_split else None
+
+    @staticmethod
+    def gather_plan(spec, keep) -> list:
+        """(dim, entry, grad) of each all-gather that brings a weight's
+        shards to the compute layout: every spec entry not in ``keep``
+        (FSDP axes: the gradient psum-scattered back; ``model``:
+        replicated consumers, each rank's own chunk)."""
+        return [(dim, entry, "slice" if "model" in entry_axes(entry)
+                 else "sum") for dim, entry in enumerate(spec)
+                if entry is not None and entry not in keep]
+
+    def _run(self, op, xs, axes="model", dim=1) -> list:
+        if op is None:
+            return list(xs)
+        if op == "psum":
+            return C.psum(self.mesh, xs, axes)
+        if op == "copy":
+            return C.copy(self.mesh, xs, axes)
+        if op == "psum_scatter":
+            return C.psum_scatter(self.mesh, xs, axes, dim=dim)
+        if op == "split":
+            return C.split(self.mesh, xs, axes, dim=dim)
+        return C.all_gather(self.mesh, xs, axes, dim=dim,
+                            grad=op.removeprefix("gather_"))
+
+    def _gather(self, xs, spec, keep) -> list:
+        for dim, entry, grad in self.gather_plan(spec, keep):
+            xs = C.all_gather(self.mesh, xs, entry, dim=dim, grad=grad)
+        return list(xs)
+
+    def _norm(self, p: dict, xs) -> list:
+        p = {k: self._run(self.norm_op(), v) for k, v in p.items()}
+        return [L.apply_norm(self.cfg, {k: v[r] for k, v in p.items()}, x)
+                for r, x in enumerate(xs)]
+
+    # ---- the model ------------------------------------------------------
+
+    def _embed(self, tok, tokens) -> list:
+        out = []
+        for r, (w, t) in enumerate(zip(tok, tokens)):
+            if self.embed_tp:  # local vocab rows; the others give zeros
+                loc = t - self.mi[r] * w.shape[0]
+                inside = (loc >= 0) & (loc < w.shape[0])
+                e = F.embedding(torch.where(inside, loc, 0), w)
+                out.append(e * inside[..., None].to(w.dtype))
+            else:
+                out.append(F.embedding(t, w))
+        return self._run(self.btd_op(self.embed_tp), out)
+
+    def _layer(self, cfg, kind, p, x, spec, positions):
+        """One attention + MLP layer over every rank (``cfg`` is unused:
+        the signature is ``transformer._remat_layer``'s)."""
+        with sharding_rules(self.rules):  # the recompute runs outside
+            return self._layer_body(kind, p, x, spec, positions)
+
+    def _layer_body(self, kind, p, x, spec, positions):
+        cfg = self.cfg
+        pa = {k: self._gather(v, spec["attn"][k], self.attn_keep)
+              for k, v in p["attn"].items()}
+        xa = self._run(self.full_op(self.attn_tp), self._norm(p["ln1"], x))
+        ys = []
+        for r, xr in enumerate(xa):
+            w = {k: v[r] for k, v in pa.items()}
+            q, k, v = A.qkv_proj(self.cfg_attn, w, xr, positions[r])
+            o = A.chunked_attention(q, k, v, causal=True,
+                                    window=kind.get("window"),
+                                    softcap=cfg.attn_softcap)
+            ys.append(A.out_proj(self.cfg_attn, w, o))
+        y = self._run(self.btd_op(self.attn_tp), ys)
+        if cfg.post_norm:
+            y = self._norm(p["post_ln1"], y)
+        x = [a + b for a, b in zip(x, y)]
+
+        pm = {k: self._gather(v, spec["mlp"][k], self.mlp_keep)
+              for k, v in p["mlp"].items()}
+        xm = self._run(self.full_op(self.mlp_tp), self._norm(p["ln2"], x))
+        ys = [L.apply_mlp(cfg, {k: v[r] for k, v in pm.items()}, xr)
+              for r, xr in enumerate(xm)]
+        y = self._run(self.btd_op(self.mlp_tp), ys)
+        if cfg.post_norm:
+            y = self._norm(p["post_ln2"], y)
+        return [a + b for a, b in zip(x, y)]
+
+    def _ce_chunk(self, xs, ws, ts) -> list:
+        """Summed cross-entropy of one chunk of positions on every rank."""
+        cfg, mesh = self.cfg, self.mesh
+        if self.ce_2p5d:
+            xl = C.all_to_all(mesh, xs, "pod", split_dim=2, concat_dim=0)
+            d_l = xl[0].shape[2]
+            outs = matmul_2p5d(mesh, [x.reshape(-1, d_l) for x in xl],
+                               [w.T for w in ws], depth_axis="pod",
+                               reduce="scatter")
+            logits = [o.reshape(x.shape[0], x.shape[1], -1)
+                      for o, x in zip(outs, xs)]
+        else:
+            logits = [x @ w.T for x, w in zip(xs, ws)]
+        if cfg.final_softcap is not None:
+            cap = cfg.final_softcap
+            logits = [torch.tanh(z / cap) * cap for z in logits]
+        logits = [z.float() for z in logits]
+        if not self.head_tp:
+            return [torch.sum(torch.logsumexp(z, dim=-1)
+                              - torch.gather(z, -1, t[..., None])[..., 0])
+                    for z, t in zip(logits, ts)]
+        top = C.pmax(mesh, [z.detach().amax(-1) for z in logits], "model")
+        parts = []
+        for r, (z, t) in enumerate(zip(logits, ts)):
+            loc = t - self.mi[r] * z.shape[-1]
+            inside = (loc >= 0) & (loc < z.shape[-1])
+            gold = torch.gather(z, -1, torch.where(inside, loc, 0)[..., None])
+            gold = torch.where(inside, gold[..., 0], 0.0)
+            sumexp = torch.exp(z - top[r][..., None]).sum(-1)
+            parts.append(torch.stack([sumexp, gold]))
+        tot = C.psum(mesh, parts, "model")
+        return [torch.sum(m + torch.log(s[0]) - s[1])
+                for m, s in zip(top, tot)]
+
+    def local_losses(self, params, tokens, targets, n_tokens: int) -> list:
+        """Every rank's share of the mean cross-entropy: its rows' sum over
+        ``n_tokens`` (the global batch's).  ``params``: the port's tree
+        with a list of per-rank tensors at every leaf; ``tokens`` /
+        ``targets``: per-rank (rows, S) lists.  Runs under the rules (and
+        each layer installs them again for its recompute)."""
+        with sharding_rules(self.rules):
+            return self._local_losses(params, tokens, targets, n_tokens)
+
+    def _local_losses(self, params, tokens, targets, n_tokens):
+        cfg, mesh, spec = self.cfg, self.mesh, self.p_spec
+        emb = params["embed"]
+        tok = self._gather(emb["tok"], spec["embed"]["tok"], self.tok_keep)
+        x = self._embed(tok, tokens)
+        s = tokens[0].shape[1]
+        positions = [torch.arange(s, device=t.device) for t in tokens]
+        # a recompute reruns the whole layer, its last reduction too, so
+        # the collectives a step runs do not hang on what autograd saves
+        with set_checkpoint_early_stop(False):
+            for kind, p, sp in zip(self.kinds, params["blocks"],
+                                   spec["blocks"]):
+                x = self._layer_fn(cfg, kind, p, x, sp, positions)
+        x = self._run(self.full_op(self.head_tp),
+                      self._norm(params["final_norm"], x))
+        head = tok if "out" not in emb else self._gather(
+            emb["out"], self.head_spec, self.head_keep)
+        if self.ce_2p5d and self.head_spec[1] != "pod":
+            d_l = cfg.d_model // mesh.shape["pod"]
+            head = [w.narrow(1, self.pi[r] * d_l, d_l)
+                    for r, w in enumerate(head)]
+        chunk = min(self.loss_chunk, s)
+        if s % chunk:
+            raise ValueError(f"loss chunk {chunk} must divide {s}")
+        total = None
+        for c0 in range(0, s, chunk):
+            sums = checkpoint(self._ce_chunk,
+                              [xi[:, c0:c0 + chunk] for xi in x], head,
+                              [t[:, c0:c0 + chunk] for t in targets],
+                              use_reentrant=False)
+            total = sums if total is None else [a + b for a, b in
+                                                zip(total, sums)]
+        return [t / n_tokens for t in total]
+
+
+
+    # ---- bytes per rank ---------------------------------------------------
+
+    def loss_bytes(self, shapes, *, rows: int, seq: int) -> float:
+        """Bytes per rank that one forward and backward of
+        ``local_losses`` moves on ``rows`` per rank of ``seq`` tokens:
+        the collectives the cut-point methods above name, priced by
+        ``ACT_BYTES`` on ``shapes`` (``sharding.param_shapes``).  The
+        layers' forward collectives run twice under remat full / dots (the
+        recompute reruns the whole layer), the CE chunks' always (each
+        chunk is checkpointed)."""
+        cfg, spec = self.cfg, self.p_spec
+        axes = dict(self.mesh.shape)
+        rep = (self.m - 1) / self.m
+        e = _itemsize(T.model_dtype(cfg))
+        er = e if self.rules.reduce_dtype is None else _itemsize(
+            self.rules.reduce_dtype)
+        act = rows * seq * cfg.d_model  # elements of one (rows, S, d)
+
+        def op(name, nbytes):
+            f, b = ACT_BYTES[name]
+            return f * rep * nbytes, b * rep * nbytes
+
+        def gathers(leaf, sp, keep):
+            size = _nbytes(leaf) / math.prod(_entry_size(axes, x) for x in sp)
+            fwd = bwd = 0.0
+            for _, entry, grad in self.gather_plan(sp, keep):
+                n = _entry_size(axes, entry)
+                size *= n
+                fwd += (n - 1) / n * size
+                bwd += (n - 1) / n * size if grad == "sum" else 0.0
+            return fwd, bwd
+
+        def norms(p, names):
+            return [op(self.norm_op(), _nbytes(leaf)) for n in names
+                    if n in p for leaf in p[n].values()]
+
+        def total(parts):
+            return sum(f for f, _ in parts), sum(b for _, b in parts)
+
+        fwd, bwd = total([
+            gathers(shapes["embed"]["tok"], spec["embed"]["tok"],
+                    self.tok_keep),
+            op(self.btd_op(self.embed_tp), act * e)])
+        layers = []
+        for p, sp in zip(shapes["blocks"], spec["blocks"]):
+            layers += [gathers(leaf, sp["attn"][k], self.attn_keep)
+                       for k, leaf in p["attn"].items()]
+            layers += [gathers(leaf, sp["mlp"][k], self.mlp_keep)
+                       for k, leaf in p["mlp"].items()]
+            for tp in (self.attn_tp, self.mlp_tp):
+                layers += [op(self.full_op(tp), act * e),
+                           op(self.btd_op(tp), act * er)]
+            layers += norms(p, ("ln1", "ln2", "post_ln1", "post_ln2"))
+        f, b = total(layers)
+        fwd += f * (2 if self.remat in ("full", "dots") else 1)
+        bwd += b
+        head = norms(shapes, ("final_norm",))
+        head.append(op(self.full_op(self.head_tp), act * e))
+        if "out" in shapes["embed"]:
+            head.append(gathers(shapes["embed"]["out"], self.head_spec,
+                                self.head_keep))
+        f, b = total(head)
+        fwd, bwd = fwd + f, bwd + b
+        chunk = min(self.loss_chunk, seq)
+        ce_f = ce_b = 0.0
+        if self.ce_2p5d:
+            pod = axes["pod"]
+            x_chunk = rows * chunk * cfg.d_model * e
+            ce_f += (pod - 1) / pod * x_chunk  # the all-to-all
+            ce_b += (pod - 1) / pod * x_chunk
+            out = rows * chunk * cfg.vocab // (self.m if self.head_tp
+                                               else 1) * e
+            ce_f += (pod - 1) * out  # matmul_2p5d's psum-scatter
+            ce_b += (pod - 1) * out
+        if self.head_tp:
+            ce_f += 2 * rep * rows * chunk * 4 * 3  # the max, sumexp, gold
+        return fwd + bwd + seq // chunk * (2 * ce_f + ce_b)
+
+
+# (forward, backward) bytes per rank of each cut point's collective over
+# ``model``, in units of (m - 1) / m of the whole tensor it reduces or
+# gathers (the transport's conventions: a psum 2 (n - 1) / n of its input,
+# an all-gather (n - 1) / n of its output, a psum-scatter (n - 1) times
+# its output)
+ACT_BYTES = {None: (0, 0), "psum": (2, 0), "copy": (0, 2),
+             "psum_scatter": (1, 1), "split": (0, 1), "gather_sum": (1, 1),
+             "gather_slice": (1, 0)}
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _nbytes(leaf) -> float:
+    return math.prod(leaf.shape) * _itemsize(leaf.dtype)
+
+
+def _entry_size(axes, entry) -> int:
+    return math.prod(axes[a] for a in entry_axes(entry))

@@ -145,3 +145,78 @@ def test_reads_a_checkpoint_the_reference_wrote(tmp_path):
             theirs = f.read()
         with open(tmp_path / "port" / "step_000000004" / name, "rb") as f:
             assert f.read() == theirs, name
+
+
+def test_sharded_save_restores_onto_other_meshes(tmp_path):
+    """``check_checkpoint_cross_mesh``'s elastic path: a tree sharded on a
+    (data 2, model 2) mesh of ranks is saved gathered, then restored onto
+    (1, 1) as plain tensors and onto (4, 1) re-sharded to that mesh's
+    specs: the trees are equal."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import (
+        P,
+        Shards,
+        shard_tree,
+        unshard_tree,
+    )
+
+    full = {"w": torch.arange(64.0).reshape(8, 8),
+            "h": torch.arange(16.0).to(torch.bfloat16).reshape(4, 4),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    mesh_a = make_mesh((2, 2), ("data", "model"), "cpu")
+    specs_a = {"w": P("data", "model"), "h": P(None, "model"), "step": P()}
+    save_checkpoint(str(tmp_path), 1, shard_tree(mesh_a, full, specs_a),
+                    mesh=mesh_a, specs=specs_a)
+    with open(tmp_path / "step_000000001" / "manifest.json") as f:
+        manifest = json.load(f)
+    assert manifest["mesh"] == {"shape": [2, 2], "axes": ["data", "model"]}
+    assert manifest["leaves"]["w"]["shape"] == [8, 8]
+    _assert_tree_equal(restore_checkpoint(str(tmp_path), 1, full), full)
+    mesh_b = make_mesh((4, 1), ("data", "model"), "cpu")
+    specs_b = {"w": P("data", None), "h": P("data", "model"), "step": P()}
+    like = shard_tree(mesh_b, {k: torch.zeros_like(v) for k, v in
+                               full.items()}, specs_b)
+    got = restore_checkpoint(str(tmp_path), 1, like, mesh=mesh_b,
+                             specs=specs_b)
+    assert isinstance(got["w"], Shards) and tuple(got["w"][0].shape) == (2, 8)
+    _assert_tree_equal(unshard_tree(mesh_b, got, specs_b), full)
+    with pytest.raises(ValueError, match="does not shard"):
+        restore_checkpoint(str(tmp_path), 1, shard_tree(
+            mesh_b, {"w": torch.zeros(8, 4), "h": full["h"],
+                     "step": full["step"]}, specs_b), mesh=mesh_b,
+            specs=specs_b)
+
+
+def test_per_rank_state_restores_exactly_onto_its_own_mesh(tmp_path):
+    """A leaf whose replicas hold different values (each data rank's
+    compression residual) is saved rank by rank and restored exactly onto
+    the mesh that saved it; onto another mesh it raises.  A leaf whose
+    replicas agree is saved gathered, as before."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, Shards, shard, zeros
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    specs = {"r": P(None, "model"), "w": P(None, "model")}
+    g = torch.Generator().manual_seed(0)
+    own = Shards(torch.randn((4, 2), generator=g) for _ in range(4))
+    tree = {"r": own, "w": shard(mesh, torch.arange(16.0).reshape(4, 4),
+                                 specs["w"])}
+    save_checkpoint(str(tmp_path), 1, tree, mesh=mesh, specs=specs)
+    with open(tmp_path / "step_000000001" / "manifest.json") as f:
+        index = json.load(f)["leaves"]
+    assert index["r"]["per_rank"] and len(index["r"]["files"]) == 4
+    assert "per_rank" not in index["w"] and index["w"]["shape"] == [4, 4]
+    like = {"r": zeros(mesh, (4, 4), specs["r"], torch.float32,
+                       per_rank=True),
+            "w": zeros(mesh, (4, 4), specs["w"], torch.float32)}
+    got = restore_checkpoint(str(tmp_path), 1, like, mesh=mesh, specs=specs)
+    for a, b in zip(got["r"], own):
+        assert torch.equal(a, b)
+    _assert_tree_equal(list(got["w"]), list(tree["w"]))
+    other = make_mesh((4, 1), ("data", "model"), "cpu")
+    with pytest.raises(ValueError, match="per-rank state"):
+        restore_checkpoint(str(tmp_path), 1, {
+            "r": zeros(other, (4, 4), specs["r"], torch.float32,
+                       per_rank=True),
+            "w": zeros(other, (4, 4), specs["w"], torch.float32)},
+            mesh=other, specs=specs)

@@ -51,3 +51,27 @@ def test_stream_is_step_addressable_and_learnable():
     rows = a._rows(0, 0, 8)
     follow = (a._successor[rows[:, :-1]] == rows[:, 1:]).mean()
     assert 0.45 < follow < 0.6
+
+
+def test_make_global_batch_on_a_mesh_gives_each_rank_its_rows():
+    """``check_data_global_batch``: on a (data 4, model 2) mesh of ranks
+    each rank holds its data shard's rows of ``batch_numpy`` (model ranks
+    share them), generated for that shard alone."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import Shards, batch_spec, unshard
+
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    data = SyntheticLMData(DataConfig(vocab=64, seq_len=16, global_batch=8))
+    spec = batch_spec(mesh, 8, 16)
+    assert spec[0] == "data"
+    gb = make_global_batch(data, 2, mesh, spec)
+    want = data.batch_numpy(2)
+    for name in ("tokens", "targets"):
+        assert isinstance(gb[name], Shards) and len(gb[name]) == 8
+        for r in range(8):
+            d = mesh.coords(r)[0]
+            assert gb[name][r].dtype == torch.int64
+            np.testing.assert_array_equal(gb[name][r].numpy(),
+                                          want[name][2 * d:2 * d + 2])
+        np.testing.assert_array_equal(
+            unshard(mesh, gb[name], spec).numpy(), want[name])

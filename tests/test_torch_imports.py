@@ -113,3 +113,16 @@ def test_slice10_modules_stand_alone(module, loaded_by):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert not FORBIDDEN.findall(path.read_text())
     assert loaded_by[module] == []
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
+    "repro_torch.parallel.runtime", "repro_torch.parallel.matmul_2p5d",
+    "repro_torch.parallel.pipeline", "repro_torch.parallel.ctx"])
+def test_slice12_modules_stand_alone(module, loaded_by):
+    """The sharding layer's modules are in the port's module list, import
+    neither jax nor ``repro`` and load neither."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert not FORBIDDEN.findall(path.read_text())
+    assert loaded_by[module] == []

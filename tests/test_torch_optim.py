@@ -168,3 +168,46 @@ def test_adamw_leaves_params_without_grad_history():
     for x, y, z in zip(leaves(p), before, leaves(new_p)):
         assert torch.equal(x, y) and not torch.equal(x, z)
         assert not z.requires_grad
+
+
+def test_compressed_allreduce_matches_reference_expectations():
+    """``check_compressed_allreduce`` on a (4,) data mesh of ranks: every
+    rank's synced gradient is the mean of the bf16 payloads, and each
+    rank's residual is its quantization error exactly."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import Shards
+
+    mesh = make_mesh((4,), ("data",), "cpu")
+    g = (np.random.default_rng(0).standard_normal((4, 64)) * 1e-2).astype(
+        np.float32)
+    gt = torch.from_numpy(g)
+    synced, resid = O.compressed_allreduce(
+        mesh, {"w": Shards(gt[i] for i in range(4))},
+        {"w": Shards(torch.zeros(64) for _ in range(4))}, axis="data")
+    want = np.asarray(jnp.mean(jnp.asarray(g).astype(jnp.bfloat16)
+                               .astype(jnp.float32), 0))
+    q = np.asarray(jnp.asarray(g).astype(jnp.bfloat16), np.float32)
+    for i in range(4):
+        assert synced["w"][i].dtype == torch.float32
+        np.testing.assert_allclose(synced["w"][i].numpy(), want, rtol=2e-2,
+                                   atol=1e-4)
+        np.testing.assert_allclose(resid["w"][i].numpy(), g[i] - q[i],
+                                   atol=1e-7)
+
+
+def test_sharded_global_norm_counts_each_shard_once():
+    """A leaf split over data and replicated over model, and one
+    replicated everywhere: the norm is the full tree's."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, shard
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rng = np.random.default_rng(3)
+    full = {"w": torch.from_numpy(rng.standard_normal((8, 6))
+                                  .astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal(6).astype(np.float32))}
+    specs = {"w": P("data", None), "b": P(None)}
+    sharded = {k: shard(mesh, v, specs[k]) for k, v in full.items()}
+    got = O.sharded_global_norm(mesh, sharded, specs)
+    want = O.global_norm(full)
+    assert abs(float(got) - float(want)) <= 1e-6 * float(want)
