@@ -192,7 +192,26 @@ Phases, each raising on failure:
     head (``parallel.matmul_2p5d``) at olmo's training shape (T 16,384, d
     2,048, V 50,304, bf16) on (pod 2, model 2): within the bf16 limit of
     one ``torch.matmul``, bytes exactly ``plan_2p5d``'s, timed beside
-    that matmul and the all-gather-the-weight baseline.
+    that matmul and the all-gather-the-weight baseline;
+26. the dry run.  (a) olmo-1b at full width and depth (bf16) served on
+    (data 2, model 2) ranks of the card (``launch.steps.build_prefill_step``
+    / ``build_serve_step(..., mesh=)``: the cache laid out by
+    ``cache_specs``) against the one-device steps on the same parameters:
+    8 prompts of 2,048 tokens, then 32 decode steps on the one-device
+    run's greedy tokens; every step's logits within the bf16 limit (3e-2
+    of the largest), flash launches exactly one per rank and layer, no TMA
+    copy; the sharded prefill s, decode ms a step (and the one-device
+    step's) and the share of greedy tokens equal.  (b) the dry run's
+    tracer (``roofline/hlo_cost.py`` on ``meta`` ranks) against the card
+    on phase 24's 1 x 1 step and phase 25's 2 x 2 step: the traced FLOPs
+    equal ``FlopCounterMode`` over the real step, the traced wire bytes
+    ``step_bytes`` and the measured ``bytes_moved``; the traced peak
+    beside ``max_memory_allocated``, the roofline's bound beside the
+    measured step.  (c) ``launch.dryrun``'s cells of olmo-1b (decode_32k,
+    prefill_32k, train_4k) on the abstract single-pod mesh, each ``ok``:
+    trace_s, the three terms, the dominant one and the memory per device;
+    host work on ``meta`` tensors, run last so that it shares the host
+    with no timed measurement.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -270,10 +289,14 @@ def _clocks(tag: str) -> None:
 
 
 def _timed(n: int, fn, *args):
-    """Run phase ``n`` between two clock readings."""
+    """Run phase ``n`` between two clock readings, and print its host
+    seconds."""
     _clocks(f"[{n}] before:")
+    t0 = time.perf_counter()
     out = fn(*args)
     _clocks(f"[{n}] after:")
+    print(f"[{n}] phase {n} took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
@@ -2349,9 +2372,10 @@ def _flash_at(torch, np, FA, shape: tuple, causal: bool, tag: str,
     against its plain version, each output within ``flash_serve_limit``
     for the keys its row keeps (i + 1 for causal row i, sq == skv; all skv
     otherwise), then the SIMT f32 kernel on the same inputs cast to f32 at
-    1e-4 (phase 9's checks); the bf16 kernel timed beside its plain
-    version, ``scaled_dot_product_attention`` (``enable_gqa`` when hkv <
-    h) and the bound."""
+    1e-4 (phase 9's checks); the bf16 kernel timed (and through its op's
+    dispatch, the path a trace takes) beside its plain version,
+    ``scaled_dot_product_attention`` (``enable_gqa`` when hkv < h) and the
+    bound."""
     b, h, hkv, sq, skv, d = shape
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d),
@@ -2384,6 +2408,10 @@ def _flash_at(torch, np, FA, shape: tuple, causal: bool, tag: str,
                              f"{errs}")
     ms = _time_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
                   reps=10, warmup=2)
+    # the same launch through its op's dispatch, the path a trace or
+    # FlopCounterMode takes (a plain call launches directly)
+    op_ms = _time_ms(lambda: torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, causal, None, None, None, 0, False), reps=10, warmup=2)
     plain_ms = _time_ms(lambda: FA.flash_attention_plain(q, k, v,
                                                          causal=causal),
                         reps=2, warmup=1)
@@ -2394,7 +2422,8 @@ def _flash_at(torch, np, FA, shape: tuple, causal: bool, tag: str,
     bound_ms, bound_by = _flash_bound(b, h, hkv, sq, skv, d, 2, causal)
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
     print(f"{tag} flash at {where} bf16: times (ms, median of CUDA events):"
-          f" kernel {ms:.4f}  plain {plain_ms:.4f}  library(sdpa"
+          f" kernel {ms:.4f} (through the op {op_ms:.4f})  plain "
+          f"{plain_ms:.4f}  library(sdpa"
           f"{', enable_gqa' if gqa else ''}) {library_ms:.4f}  bound "
           f"{bound_ms:.4f} ({bound_by}); kernel "
           f"{4.0 * d * pairs / ms / 1e9:.3f} TFLOP/s on the kept pairs",
@@ -3398,6 +3427,207 @@ def phase_sharded_train(torch, np, T, FA, get_arch, mesh_mod, card: str,
                 tokens_s=b * s / step_ms * 1e3, mfu=mfu, peak=peak)
 
 
+# phase 26: the dry run — sharded serving, the tracer against the card, and
+# run_cell on the production mesh
+SHARD_SERVE = dict(batch=8, prompt=2048, new=32)
+# sharded vs one-device logits in bf16: the reference's bf16 tolerance,
+# relative to the largest logit (the CPU tests' rule)
+SHARD_SERVE_TOL = 3e-2
+DRYRUN_CELLS = ("decode_32k", "prefill_32k", "train_4k")
+
+
+def _unshard_logits(torch, SH, mesh, shards, batch, vocab):
+    return SH.unshard(mesh, shards, SH.batch_spec(mesh, batch, 1, vocab))
+
+
+def phase_dryrun(torch, np, T, FA, get_arch, mesh_mod, card: str,
+                 trained: dict, sharded_train: dict) -> dict:
+    """Phase 26 (see the module docstring): (a) sharded serving of olmo-1b
+    on 2 x 2 ranks against the one-device steps, (b) the dry run's tracer
+    against the card on phase 24's and phase 25's steps, (c) the dry run's
+    cells of olmo-1b on the single-pod mesh.  Returns (a)'s flash
+    launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import roofline as RL
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import transport as TR
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.parallel import sharding as SH
+
+    # (a) sharded serving: 8 x 2,048-token prompts, then 32 decode steps
+    cfg = get_arch("olmo-1b")
+    b, s, new = SHARD_SERVE["batch"], SHARD_SERVE["prompt"], SHARD_SERVE["new"]
+    depth = s + new
+    mesh = _mesh_of(mesh_mod, (2, 2))
+    shape = ShapeConfig("serve", depth, b, "prefill")
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                           device="cuda")
+    pre1, _ = ST.build_prefill_step(cfg, shape, device="cuda")
+    dec1, _ = ST.build_serve_step(cfg, shape, device="cuda")
+    pre, (p_sds, _, _) = ST.build_prefill_step(cfg, shape, device="cuda",
+                                               mesh=mesh)
+    dec, _ = ST.build_serve_step(cfg, shape, device="cuda", mesh=mesh)
+    sharded = SH.shard_tree(mesh, params, tree_map(lambda x: x.spec, p_sds))
+    cache1 = T.init_cache(cfg, b, depth, device="cuda")
+    cache = ST.init_sharded_cache(cfg, mesh, b, depth)
+    g = torch.Generator("cuda").manual_seed(SEED + 26)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+
+    def limit_ok(got, want):
+        d = float((got.float() - want.float()).abs().max())
+        return d <= SHARD_SERVE_TOL * max(1.0, float(want.float().abs()
+                                                     .max())), d
+
+    with torch.no_grad():
+        FA.launches = 0
+        want, cache1 = pre1(params, cache1, {"tokens": toks})
+        one_launches = FA.launches
+        torch.cuda.synchronize()
+        FA.launches = FA.copies = 0
+        t0 = time.perf_counter()
+        got, cache = pre(sharded, cache, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches, copies = FA.launches, FA.copies
+        ok, err = limit_ok(_unshard_logits(torch, SH, mesh, got, b,
+                                           cfg.vocab), want)
+        worst, same, total = err, 0, 0
+        dec_ms, dec1_ms = [], []
+        for i in range(new):
+            nxt = torch.argmax(want[:, -1], -1)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, cache1 = dec1(params, cache1, nxt, s + i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, cache = dec(sharded, cache, nxt, s + i)
+            torch.cuda.synchronize()
+            dec1_ms.append(1e3 * (t1 - t0))
+            dec_ms.append(1e3 * (time.perf_counter() - t1))
+            full = _unshard_logits(torch, SH, mesh, got, b, cfg.vocab)
+            ok_i, err_i = limit_ok(full, want)
+            ok, worst = ok and ok_i, max(worst, err_i)
+            same += int((full[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                        .sum())
+            total += b
+    want_launches = mesh.size * cfg.n_layers
+    print(f"[26a] olmo-1b full width and depth (bf16) served on "
+          f"{dict(mesh.shape)} ranks of one card, {b} prompts x {s} tokens "
+          f"then {new} decode steps, against the one-device steps on the "
+          f"same parameters and tokens: max |logits err| {worst:.3e} "
+          f"(limit {SHARD_SERVE_TOL} x max(1, max |logit|)); greedy tokens "
+          f"equal {same} of {total} ({same / total:.4f}); flash launches "
+          f"{launches} (want {want_launches}: one per rank and layer), "
+          f"one-device {one_launches}, TMA copies {copies}", flush=True)
+    print(f"[26a] on {card}: sharded prefill {prefill_s:.3f} s, decode "
+          f"{statistics.median(dec_ms):.2f} ms a step (median of {new}); "
+          f"one device decode {statistics.median(dec1_ms):.2f} ms a step",
+          flush=True)
+    if not ok or launches != want_launches or copies:
+        raise AssertionError(f"sharded serving: err {worst}, launches "
+                             f"{launches} (want {want_launches}), copies "
+                             f"{copies}")
+    del params, sharded, cache, cache1, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the tracer against the card: phase 24's 1 x 1 step, phase 25's
+    # 2 x 2 step (olmo-1b, 8 x 2,048 tokens, remat full)
+    shape = ShapeConfig("train", 2048, 8, "train")
+    options = ST.StepOptions(remat="full", loss_chunk=512)
+    opt = AdamWConfig(lr=3e-3)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                      global_batch=8, seed=SEED))
+    for tag, dims, ms in (("1 x 1", None, trained["step_ms"]),
+                          ("2 x 2", (2, 2), sharded_train["step_ms"])):
+        mesh = None if dims is None else _mesh_of(mesh_mod, dims)
+        # the same ranks on one meta device: replicas shared as on the card
+        meta = None if mesh is None else mesh_mod.Mesh(
+            mesh.axis_names, mesh.sizes, (torch.device("meta"),) * mesh.size)
+        t0 = time.perf_counter()
+        cost = DR.trace_cell(cfg, shape, meta, options)
+        trace_s = time.perf_counter() - t0
+        count = 0.0 if mesh is None else ST.step_bytes(cfg, mesh, shape,
+                                                        options, opt)
+        report = RL.analyze(cost, n_chips=1,
+                            model_flops_total=RL.model_flops(cfg, shape))
+        params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                               device="cuda")
+        step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                   device="cuda", mesh=mesh)
+        if mesh is None:
+            state = ST.init_opt_state(params, opt, options)
+            batch = make_global_batch(data, 0, "cuda")
+        else:
+            params, state = ST.init_sharded(cfg, mesh, params, opt, options)
+            batch = make_global_batch(data, 0, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        TR.reset_bytes()
+        with FlopCounterMode(display=False) as fc:
+            out = step(params, state, batch)
+            float(out[2]["loss"])
+        peak = torch.cuda.max_memory_allocated()
+        moved = TR.bytes_moved()
+        flops = fc.get_total_flops()
+        print(f"[26b] olmo-1b training step on {tag} ranks of the card: "
+              f"traced FLOPs {cost.flops:.6e} (FlopCounterMode over the "
+              f"step on the card {flops:.6e}); traced wire bytes per rank "
+              f"{cost.collective_wire_bytes:.0f} (step_bytes {count:.0f}, "
+              f"measured {moved:.0f}); traced HBM bytes "
+              f"{cost.hbm_bytes:.4e}; traced peak {cost.peak_bytes / 2**30:.2f}"
+              f" GiB (arguments {cost.argument_bytes / 2**30:.2f}) beside "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB; trace "
+              f"{trace_s:.1f} s of host time", flush=True)
+        print(f"[26b] on {card}: the roofline of that step on one H100 "
+              f"(data-sheet peaks): compute {1e3 * report.compute_s:.2f} ms, "
+              f"memory {1e3 * report.memory_s:.2f} ms, collective "
+              f"{1e3 * report.collective_s:.2f} ms, bound "
+              f"{1e3 * report.bound_s:.2f} ms ({report.dominant}) beside "
+              f"the measured step {ms:.2f} ms", flush=True)
+        if cost.flops != flops or not (cost.collective_wire_bytes == count
+                                       == moved):
+            raise AssertionError(f"tracer vs the card on {tag}: FLOPs "
+                                 f"{cost.flops} vs {flops}, bytes "
+                                 f"{cost.collective_wire_bytes} vs {count} "
+                                 f"vs {moved}")
+        del params, state, batch, out, step
+        torch.cuda.empty_cache()
+
+    # (c) the dry run's olmo-1b cells on the abstract single-pod mesh: host
+    # work on ``meta`` tensors, after every timed measurement of the run
+    t0 = time.perf_counter()
+    for shape_id in DRYRUN_CELLS:
+        rec = DR.run_cell("olmo_1b", shape_id, "single",
+                          DR.parse_options([]), verbose=False)
+        if not rec.get("ok"):
+            raise AssertionError(f"dry run olmo-1b {shape_id}: {rec}")
+        rl = rec["roofline"]
+        mem = rl["memory"]
+        print(f"[26c] dry run olmo-1b {shape_id} on {rec['mesh_shape']} "
+              f"(abstract ranks, H100 data-sheet peaks): trace_s "
+              f"{rec['trace_s']}; per device FLOPs "
+              f"{rl['flops_per_device']:.4e}, HBM bytes "
+              f"{rl['hbm_bytes_per_device']:.4e}, wire bytes "
+              f"{rl['collective_bytes_per_device']:.4e}; compute "
+              f"{1e3 * rl['compute_s']:.3f} ms, memory "
+              f"{1e3 * rl['memory_s']:.3f} ms, collective "
+              f"{1e3 * rl['collective_s']:.3f} ms, dominant "
+              f"{rl['dominant']}; memory per device: arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB, temporaries "
+              f"{mem['temp_bytes'] / 2**30:.3f} GiB, peak "
+              f"{mem['peak_bytes'] / 2**30:.3f} GiB of 80", flush=True)
+    print(f"[26c] the three cells took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(fwd_launches=launches + one_launches,
+                sharded_launches=launches, one_launches=one_launches,
+                prefill_s=prefill_s, decode_ms=statistics.median(dec_ms))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3487,6 +3717,8 @@ def main() -> int:
     trained = _timed(24, phase_train, torch, np, T, FA, get_arch, smi)
     sharded_train = _timed(25, phase_sharded_train, torch, np, T, FA,
                            get_arch, mesh_mod, smi, trained["losses"][0])
+    served_2x2 = _timed(26, phase_dryrun, torch, np, T, FA, get_arch,
+                        mesh_mod, smi, trained, sharded_train)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -3505,7 +3737,8 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:25",
         launches=(served["flash_launches"] + serve_flash + jamba_flash
                   + whisper_flash + pixtral_flash + trained["fwd_launches"]
-                  + sharded_train["fwd_launches"]),
+                  + sharded_train["fwd_launches"]
+                  + served_2x2["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
@@ -3516,7 +3749,7 @@ def main() -> int:
         bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
         bwd_dq_ms=fb["bwd_dq_ms"],
     )]
-    print(f"[26] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[27] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -3535,7 +3768,11 @@ def main() -> int:
           f"{trained['mfu']:.4f}) + {sharded_train['fwd_launches']} "
           f"(phase 25's olmo-1b on 2 x 2 ranks, backward "
           f"{sharded_train['bwd_launches']}: {sharded_train['step_ms']:.2f}"
-          f" ms a step, {sharded_train['tokens_s']:.1f} tokens/s); phase "
+          f" ms a step, {sharded_train['tokens_s']:.1f} tokens/s) + "
+          f"{served_2x2['sharded_launches']} + {served_2x2['one_launches']} "
+          f"(phase 26's olmo-1b prefill on 2 x 2 ranks and on one device: "
+          f"{served_2x2['prefill_s']:.3f} s, decode "
+          f"{served_2x2['decode_ms']:.2f} ms a step); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

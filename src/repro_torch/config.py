@@ -1,7 +1,8 @@
 """Configuration of the PyTorch port: architectures, shapes, run settings.
 
 The architecture configs (``ArchConfig`` and its sub-configs) and the
-serving/training shape set (``SHAPES``) are pure data, copied from the JAX
+serving/training shape set (``SHAPES``, with ``shape_applicable`` and the
+inputs' stand-ins ``input_specs``) are pure data, copied from the JAX
 package's ``config.py`` so that both packages describe a model the same
 way.  Three run settings follow: the panel-transport mode
 (``REPRO_TRANSPORT``), the block-storage dtype of the dtype-matrixed test
@@ -252,6 +253,42 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether this (arch, shape) cell runs; reason if skipped."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("full-attention architecture: 500k-token decode needs "
+                       "sub-quadratic attention (DESIGN.md §Arch-applicability)")
+    return True, ""
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
+    """Shape / dtype stand-ins (``sharding.Leaf``) for every model input,
+    nothing allocated.  The reference's, except that token ids are int64
+    (the port's index ops take int64, and its data stream gives it)."""
+    from repro_torch.parallel.sharding import Leaf
+
+    b, s = shape.global_batch, shape.seq_len
+    dt = _TORCH_DTYPES[arch.dtype]
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = Leaf((b, s), torch.int64)
+        specs["targets"] = Leaf((b, s), torch.int64)
+    elif shape.kind == "prefill":
+        specs["tokens"] = Leaf((b, s), torch.int64)
+    else:  # decode: one new token against a seq_len-deep cache/state
+        specs["tokens"] = Leaf((b, 1), torch.int64)
+        specs["position"] = Leaf((), torch.int64)
+    if arch.frontend == "vision" and shape.kind != "decode":
+        specs["patch_embeds"] = Leaf((b, arch.n_patches, arch.d_model), dt)
+    if arch.encoder is not None and shape.kind != "decode":
+        specs["frame_embeds"] = Leaf((b, arch.encoder.n_frames,
+                                      arch.d_model), dt)
+    return specs
 
 
 # ---------------------------------------------------------------------------

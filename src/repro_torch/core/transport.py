@@ -43,9 +43,17 @@ capacity x (block bytes + 4)), an all-gather (n-1)/n of its output, a psum
 (or pmax) 2(n-1)/n of its input, a psum-scatter (n-1) times its output, an
 all-to-all (n-1)/n of its input.  The sum
 over one multiply equals the plan's volume for the resolved transport.
+``bytes_by_kind`` splits the same counter by the reference's HLO names
+(``all-reduce``, ``reduce-scatter``, ``all-gather``, ``all-to-all``,
+``collective-permute``), with the number of calls of each, and
+``in_collective`` is true while a collective runs: a trace
+(``roofline/hlo_cost.py``) prices the copies and sums that move the data
+between the ranks' tensors as wire bytes, not as the ranks' own work.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,6 +77,8 @@ AUTO_COMPRESS_MAX_FILL = 0.25
 MIN_CAPACITY = 8
 
 _bytes = 0.0  # bytes per destination rank since the last reset
+_by_kind: dict[str, list] = {}  # kind -> [bytes, calls] since the reset
+_depth = 0  # collectives running (nested: a psum inside a gather's backward)
 
 
 def bytes_moved() -> float:
@@ -77,14 +87,57 @@ def bytes_moved() -> float:
     return _bytes
 
 
+def bytes_by_kind() -> dict[str, tuple[float, int]]:
+    """``bytes_moved`` by collective kind: kind -> (bytes, calls)."""
+    return {k: (v[0], v[1]) for k, v in _by_kind.items()}
+
+
 def reset_bytes() -> None:
     global _bytes
     _bytes = 0.0
+    _by_kind.clear()
 
 
-def _count(n: float) -> None:
+def in_collective() -> bool:
+    """Whether a collective is running (its copies and sums are the wire's
+    work, not a rank's)."""
+    return _depth > 0
+
+
+@contextlib.contextmanager
+def collective_scope():
+    """Work that belongs to a collective (``in_collective`` holds): the
+    copies that give ranks sharing a device their own results."""
+    global _depth
+    _depth += 1
+    try:
+        yield
+    finally:
+        _depth -= 1
+
+
+def _collective(fn):
+    """Mark a function as one collective: ``in_collective`` holds while it
+    runs (one counter, the cost of a call's frame).  Every collective of
+    the port passes here, the engines' and the training step's own
+    gradient reductions as well as ``parallel/collectives.py``'s."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        global _depth
+        _depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _depth -= 1
+    return run
+
+
+def _count(n: float, kind: str) -> None:
     global _bytes
     _bytes += n
+    acc = _by_kind.setdefault(kind, [0.0, 0])
+    acc[0] += n
+    acc[1] += 1
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -261,6 +314,7 @@ def dense_view(tr: PanelTransport, state, nr: int, nc: int, dtype=None):
     return blocks, mask
 
 
+@_collective
 def permute(mesh, state, axes, pairs):
     """One hop: ``lax.ppermute`` of every list of ``state`` over ``axes``.
 
@@ -282,11 +336,12 @@ def permute(mesh, state, axes, pairs):
         for r, y in enumerate(ys):
             if y is None:
                 ys[r] = zeros(xs[r].shape, xs[r].dtype, mesh.devices[r])
-        _count(_nbytes(xs[0]))
+        _count(_nbytes(xs[0]), "collective-permute")
         out.append(ys)
     return tuple(out)
 
 
+@_collective
 def all_gather_panels(mesh, tr: PanelTransport, capacity: int, blocks: list,
                       mask: list, axis_name: str, axis: int):
     """The gather engine's pull-from-home along ``axis_name``, concatenated
@@ -323,7 +378,7 @@ def all_gather_panels(mesh, tr: PanelTransport, capacity: int, blocks: list,
             out_b[r] = gb.to(mesh.devices[r])
             out_m[r] = gm.to(mesh.devices[r])
     # (n - 1) / n of the gathered output, n payloads
-    _count((len(groups[0]) - 1) * payload)
+    _count((len(groups[0]) - 1) * payload, "all-gather")
     return out_b, out_m
 
 
@@ -341,6 +396,7 @@ def _group_sums(mesh, xs: list, axes) -> tuple[list, list]:
     return groups, sums
 
 
+@_collective
 def psum(mesh, xs: list, axes) -> list:
     """``lax.psum`` over ``axes``: every rank gets its group's sum (ranks
     of a group on one device share the tensor)."""
@@ -350,10 +406,11 @@ def psum(mesh, xs: list, axes) -> list:
         for r in g:
             out[r] = total.to(mesh.devices[r])
     n = len(groups[0])
-    _count(2.0 * (n - 1) / n * _nbytes(xs[0]))
+    _count(2.0 * (n - 1) / n * _nbytes(xs[0]), "all-reduce")
     return out
 
 
+@_collective
 def psum_scatter(mesh, xs: list, axes, dim: int = 0) -> list:
     """Tiled ``lax.psum_scatter`` over ``axes``: the group's sum split into
     equal chunks along ``dim``, chunk m to the group's m-th rank."""
@@ -366,10 +423,11 @@ def psum_scatter(mesh, xs: list, axes, dim: int = 0) -> list:
     for g, total in zip(groups, sums):
         for r, chunk in zip(g, total.chunk(n, dim=dim)):
             out[r] = chunk.to(mesh.devices[r], copy=True)
-    _count((n - 1) * _nbytes(out[0]))
+    _count((n - 1) * _nbytes(out[0]), "reduce-scatter")
     return out
 
 
+@_collective
 def all_gather(mesh, xs: list, axes, dim: int = 0) -> list:
     """Tiled ``lax.all_gather`` over ``axes``: every rank gets its group's
     tensors concatenated along ``dim`` in group order (ranks of a group on
@@ -382,10 +440,12 @@ def all_gather(mesh, xs: list, axes, dim: int = 0) -> list:
         for r in g:
             out[r] = total.to(mesh.devices[r])
     n = len(groups[0])
-    _count((n - 1) * _nbytes(xs[0]))  # (n - 1) / n of the output
+    # (n - 1) / n of the output
+    _count((n - 1) * _nbytes(xs[0]), "all-gather")
     return out
 
 
+@_collective
 def all_to_all(mesh, xs: list, axes, split_dim: int, concat_dim: int) -> list:
     """Tiled ``lax.all_to_all`` over ``axes``: rank m of a group splits its
     tensor into n chunks along ``split_dim`` and sends chunk j to rank j,
@@ -403,10 +463,11 @@ def all_to_all(mesh, xs: list, axes, split_dim: int, concat_dim: int) -> list:
             dev = mesh.devices[r]
             out[r] = torch.cat([parts[i][j].to(dev) for i in range(n)],
                                dim=concat_dim)
-    _count((n - 1) / n * _nbytes(xs[0]))
+    _count((n - 1) / n * _nbytes(xs[0]), "all-to-all")
     return out
 
 
+@_collective
 def pmax(mesh, xs: list, axes) -> list:
     """``lax.pmax`` over ``axes`` (priced as a psum)."""
     groups = mesh.groups(axes)
@@ -419,7 +480,7 @@ def pmax(mesh, xs: list, axes) -> list:
         for r in g:
             out[r] = top.to(mesh.devices[r])
     n = len(groups[0])
-    _count(2.0 * (n - 1) / n * _nbytes(xs[0]))
+    _count(2.0 * (n - 1) / n * _nbytes(xs[0]), "all-reduce")
     return out
 
 

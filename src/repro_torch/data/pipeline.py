@@ -85,7 +85,7 @@ def make_global_batch(data: SyntheticLMData, step: int, device,
     for r in range(mesh.size):
         i, n = chunk_index(mesh, spec, r)[0]
         lo, hi = i * cfg.global_batch // n, (i + 1) * cfg.global_batch // n
-        key = (lo, hi, mesh.devices[r])
+        key = (lo, hi, mesh.home(r))
         if key not in made:
             rows = torch.from_numpy(data._rows(step, lo, hi).astype(np.int64))
             made[key] = (rows[:, :-1].to(mesh.devices[r]),

@@ -53,12 +53,32 @@ bf16 rounding of them would not hold the plain backward's limit.  The f32
 backward is a SIMT kernel.  ``flash_attention``
 goes through the Function only when grad is enabled and an input requires
 it; otherwise it takes the forward path above unchanged (serving).
+
+Traceable ops.  Both launches are ``torch.library`` custom ops,
+``repro_torch::flash_attention_fwd`` (out and the row lse) and
+``repro_torch::flash_attention_bwd`` (dq, dk, dv): their CUDA
+implementation launches the kernels above, their fake implementation
+gives the outputs' shapes, strides and dtypes, and their FLOP formulas
+(``torch.utils.flop_counter``) count the kept (q, k) pairs only
+(``kept_pairs``): 4 d a pair forward, the five products' 10 d backward.
+So a trace under a fake tensor mode (``roofline/hlo_cost.py``) sees one
+op per call whose inputs and outputs are the kernel's HBM traffic, and
+``FlopCounterMode`` around a step on the card counts the same FLOPs.  A
+``meta`` tensor (no data: the dry run's abstract ranks) takes the op too,
+and gets its fake implementation; a CPU tensor never does.  A plain CUDA
+tensor outside any dispatch mode skips the op's dispatch and launches
+directly (``_through_op``): the same launch, without the op's tens of
+microseconds of Python a call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 launches = 0  # kernel launches since the last reset (a plain counter)
 bwd_launches = 0  # backward kernel launches (BWD_KERNELS per backward)
@@ -328,36 +348,50 @@ def _heads_major(b: int, s: int, n: int, d: int, dtype, dev) -> torch.Tensor:
     return torch.empty((b, s, n, d), dtype=dtype, device=dev).transpose(1, 2)
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int | None = None,
-    softcap: float | None = None,
-    scale: float | None = None,
-    q_offset: int = 0,
-    with_lse: bool = False,
-):
-    """Launch the CUDA kernel (CUDA tensors only): the tensor-core kernel
-    for bf16, the SIMT kernel for f32.  ``with_lse`` returns (out, lse),
-    lse f32 (b, h, sq) as ``flash_attention_plain_lse`` gives it.
-
-    Takes strided (b, h, s, d) views with a unit last stride, so the
-    projections' transposed heads need no copy (a bf16 view that TMA
-    cannot read is copied once, and counted in ``copies``); the output is
-    a (b, h, sq, d) view of a (b, sq, h, d) buffer, so merging the heads
-    afterwards is free.  Launches on PyTorch's current stream without
-    synchronising; raises if the launch is refused.
-    """
-    global launches
-    _check(q, k, v)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+def _on_card(q: torch.Tensor) -> None:
+    """The kernels' wrappers take CUDA tensors, or ``meta`` ones that the
+    ops answer with their fake implementation; never CPU tensors."""
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
+
+
+@functools.lru_cache(maxsize=512)
+def kept_pairs(sq: int, skv: int, causal: bool = True,
+               window: int | None = None, q_offset: int = 0) -> int:
+    """The (q, k) pairs one head keeps under the kernels' masks: query row
+    i (position q_offset + i) keeps key j < skv with j <= position when
+    causal and j > position - window under a window."""
+    pos = np.arange(q_offset, q_offset + sq, dtype=np.int64)
+    hi = np.minimum(pos, skv - 1) if causal else np.full_like(pos, skv - 1)
+    lo = (np.maximum(pos - window + 1, 0) if window is not None
+          else np.zeros_like(pos))
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _pairs(q_shape, k_shape, causal, window, q_offset) -> int:
+    b, h, sq, _ = q_shape
+    return b * h * kept_pairs(sq, k_shape[2], bool(causal), window,
+                              q_offset)
+
+
+def _through_op(q: torch.Tensor) -> bool:
+    """Whether a call goes through its op rather than straight to the
+    launch: a tensor that is not a plain CUDA tensor (``meta``, fake), or a
+    dispatch mode that must see the call (a trace, ``FlopCounterMode``).
+    The op's Python dispatch costs tens of microseconds a call, which the
+    launches of a step (and a kernel's timing) need not carry."""
+    return (q.device.type != "cuda" or type(q) is not torch.Tensor
+            or is_in_torch_dispatch_mode())
+
+
+def _fwd_launch(q, k, v, causal, window, softcap, scale, q_offset,
+                with_lse):
+    """The forward launch: (out, lse), lse None unless ``with_lse``."""
+    global launches
+    dev = q.device
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_options(d, window, softcap)
@@ -381,7 +415,72 @@ def flash_attention_cuda(
         )
     _raise_on(err, "flash_attention kernel", q, k)
     launches += 1
-    return out if lse is None else (out, lse)
+    return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int | None, softcap: float | None, scale: float | None,
+            q_offset: int, with_lse: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward launch as an op: (out, lse), lse empty unless
+    ``with_lse`` (an op returns tensors)."""
+    out, lse = _fwd_launch(q, k, v, causal, window, softcap, scale,
+                           q_offset, with_lse)
+    return out, (lse if with_lse else q.new_empty((0,),
+                                                  dtype=torch.float32))
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window, softcap, scale, q_offset, with_lse):
+    b, h, sq, d = q.shape
+    _check_options(d, window, softcap)
+    return (_heads_major(b, sq, h, d, q.dtype, q.device),
+            q.new_empty((b, h, sq) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, causal, window, softcap, scale, q_offset,
+      with_lse, *args, out_shape=None, **kwargs) -> int:
+    """QK^T and PV: 2 d each per kept pair."""
+    return 4 * q_shape[3] * _pairs(q_shape, k_shape, causal, window,
+                                   q_offset)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    with_lse: bool = False,
+):
+    """Launch the CUDA kernel (CUDA tensors only): the tensor-core kernel
+    for bf16, the SIMT kernel for f32.  ``with_lse`` returns (out, lse),
+    lse f32 (b, h, sq) as ``flash_attention_plain_lse`` gives it.
+
+    Takes strided (b, h, s, d) views with a unit last stride, so the
+    projections' transposed heads need no copy (a bf16 view that TMA
+    cannot read is copied once, and counted in ``copies``); the output is
+    a (b, h, sq, d) view of a (b, sq, h, d) buffer, so merging the heads
+    afterwards is free.  Launches on PyTorch's current stream without
+    synchronising; raises if the launch is refused.  Goes through the op
+    ``repro_torch::flash_attention_fwd`` where ``_through_op`` says so (a
+    ``meta`` tensor gets its fake implementation).
+    """
+    _check(q, k, v)
+    _on_card(q)
+    run = (torch.ops.repro_torch.flash_attention_fwd if _through_op(q)
+           else _fwd_launch)
+    out, lse = run(q, k, v, causal, window, softcap, scale, q_offset,
+                   with_lse)
+    return (out, lse) if with_lse else out
 
 
 def backward_launcher(
@@ -458,6 +557,43 @@ def backward_launcher(
     return launch, grads
 
 
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                causal: bool, window: int | None, softcap: float | None,
+                scale: float | None, q_offset: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three backward launches: (dq, dk, dv)."""
+    launch, grads = backward_launcher(
+        q, k, v, out, lse, dout, causal=causal, window=window,
+        softcap=softcap, scale=scale, q_offset=q_offset)
+    launch(BWD_ALL)
+    return grads
+
+
+_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", _bwd_launch, mutates_args=(),
+    device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, window, softcap, scale, q_offset):
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _check_options(d, window, softcap)
+    return (_heads_major(b, sq, h, d, q.dtype, q.device),
+            _heads_major(b, skv, hkv, d, q.dtype, q.device),
+            _heads_major(b, skv, hkv, d, q.dtype, q.device))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, causal,
+      window, softcap, scale, q_offset, *args, out_shape=None,
+      **kwargs) -> int:
+    """The five products S, dP, dV, dK, dQ: 2 d each per kept pair."""
+    return 10 * q_shape[3] * _pairs(q_shape, k_shape, causal, window,
+                                    q_offset)
+
+
 def flash_attention_backward_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -479,19 +615,21 @@ def flash_attention_backward_cuda(
     that TMA cannot read is copied once, and counted in ``copies``);
     ``lse`` is the forward's.  Launches on PyTorch's current stream
     without synchronising; raises if a launch is refused, and never falls
-    back to the plain version."""
-    launch, grads = backward_launcher(
-        q, k, v, out, lse, dout, causal=causal, window=window,
-        softcap=softcap, scale=scale, q_offset=q_offset)
-    launch(BWD_ALL)
-    return grads
+    back to the plain version.  Goes through the op
+    ``repro_torch::flash_attention_bwd`` where ``_through_op`` says so."""
+    _check(q, k, v)
+    _on_card(q)
+    run = (torch.ops.repro_torch.flash_attention_bwd if _through_op(q)
+           else _bwd_launch)
+    return run(q, k, v, out, lse, dout, causal, window, softcap, scale,
+               q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with a gradient: the kernels on CUDA tensors (forward with
-    lse, then the backward kernels), the plain versions on CPU tensors.
-    Never the plain version on a CUDA tensor: a build or launch error
-    raises."""
+    """Attention with a gradient: the kernels' ops on CUDA (and ``meta``)
+    tensors (forward with lse, then the backward kernels), the plain
+    versions on CPU tensors.  Never the plain version on a CUDA tensor: a
+    build or launch error raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk,
@@ -552,9 +690,9 @@ def flash_attention(
                                      softcap=softcap, scale=scale,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk,
                                      q_offset=q_offset)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, not "
-                         f"{dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors (or "
+                         f"meta ones, abstractly), not {dev}")
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap, scale=scale,
                                 q_offset=q_offset)

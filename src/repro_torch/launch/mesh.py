@@ -14,9 +14,25 @@ tensors between the ranks' devices.
 Every rank may sit on one card: the schedules, their collectives and their
 byte counts are the same as on distinct cards, and every copy stays on that
 card.  A list of distinct devices may be given instead.
+
+The production meshes (``make_production_mesh``): (data 16, model 16) and
+(pod 2, data 16, model 16), the reference's.  The reference's dry run
+forces 512 host devices; the port's (``launch/dryrun.py``) asks for
+``abstract=True``: every rank on ``meta``, which holds shapes and no data
+and touches no card, and marked as its own device (``Mesh.abstract``:
+``Mesh.home`` keeps ranks from sharing a tensor, where a plain ``meta``
+device has no index to tell them apart, and a ``torch.device`` index
+stops at 127).  Not ``cuda``: a
+fake CUDA tensor cannot carry autograd on a PyTorch built without CUDA
+(its autograd metadata needs CUDA's device guard, and the process
+aborts), and the dry run traces training steps on such a host too.  The
+kernels' wrappers give ``meta`` tensors the ops' fake implementations,
+as a fake tensor mode gives fake CUDA tensors, so a trace takes the
+card's path.
 """
 from __future__ import annotations
 
+import functools
 import math
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -39,6 +55,7 @@ class Mesh:
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
     devices: tuple[torch.device, ...]
+    abstract: bool = False  # every rank its own device, though all "meta"
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -60,6 +77,16 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.sizes)
 
+    def home(self, rank: int):
+        """What ranks that may share a tensor have in common: their device,
+        or on an abstract mesh the rank itself (no two ranks share)."""
+        return rank if self.abstract else self.devices[rank]
+
+    @property
+    def n_devices(self) -> int:
+        """How many devices the ranks sit on."""
+        return len({self.home(r) for r in range(self.size)})
+
     def coords(self, rank: int) -> tuple[int, ...]:
         """Coordinates of a flattened rank, one per axis."""
         out = []
@@ -80,6 +107,9 @@ class Mesh:
         axes; inside a group, the row-major order of ``axes`` (the index a
         collective over ``axes`` names)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return [list(g) for g in _groups(self.axis_names, self.sizes, axes)]
+
+    def _groups(self, axes: tuple) -> list[list[int]]:
         for a in axes:
             if a not in self.axis_names:
                 raise ValueError(f"no axis {a!r} in {self.axis_names}")
@@ -104,6 +134,13 @@ class Mesh:
                        if a not in ("r", "c"))]
 
 
+@functools.lru_cache(maxsize=256)
+def _groups(names: tuple, sizes: tuple, axes: tuple) -> tuple:
+    """``Mesh.groups`` of a mesh's axes (its devices do not enter)."""
+    mesh = Mesh(names, sizes, (None,) * math.prod(sizes))
+    return tuple(tuple(g) for g in mesh._groups(axes))
+
+
 def _devices(n: int, device) -> tuple[torch.device, ...]:
     """``n`` rank devices from one device spec (every rank on it) or a
     list of ``n`` distinct devices."""
@@ -125,6 +162,23 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
     distinct device per rank."""
     shape = tuple(int(s) for s in shape)
     return Mesh(tuple(axes), shape, _devices(math.prod(shape), device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         abstract: bool = False) -> Mesh:
+    """16 x 16 single pod (256 ranks) or 2 x 16 x 16 two-pod (512 ranks),
+    the reference's shapes and axis names.  ``device`` as in
+    :func:`make_mesh` (default ``cuda``; raises without one); with
+    ``abstract`` every rank on ``meta`` and each its own device (the dry
+    run), and ``device`` must be None."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        if device is not None:
+            raise ValueError("an abstract mesh names no device")
+        return Mesh(axes, shape, (torch.device("meta"),) * math.prod(shape),
+                    abstract=True)
+    return make_mesh(shape, axes, device)
 
 
 def make_spgemm_mesh(

@@ -1,14 +1,30 @@
-"""The training step — the twin of ``repro/launch/steps.py``'s
-``build_train_step`` and ``abstract_state``, on one device or on a mesh
-of ranks.
+"""The steps — the twin of ``repro/launch/steps.py``: the training
+step (``build_train_step``, ``abstract_state``), the serving steps of the
+dry run (``build_prefill_step``, ``build_serve_step``) and the model
+inputs' stand-ins (``batch_sds``), on one device or on a mesh of ranks.
 
 ``StepOptions`` holds the reference's options with its defaults:
 ``remat``, ``fsdp_axis``, ``seq_parallel``, ``loss_chunk``,
 ``head_2p5d``, ``compress_grads``, ``bf16_reduce``, ``microbatch``,
 ``zero1`` and ``aux_coef``; the sharding options act only on a mesh.
-``build_serve_step`` / ``build_prefill_step`` of the dry run are
-ROADMAP.md Queue A item 16 (the port serves through
-``serving/engine.py``).
+Every ``build_*_step`` takes ``(cfg, shape, *, options, device, mesh)``
+(the reference's take ``(cfg, mesh, shape, *, options)``).  The
+reference's return a jitted function and its inputs as
+``jax.ShapeDtypeStruct``s with shardings; the port's serving ones
+return the step and its inputs as trees of ``SDS`` (shape, dtype, spec;
+spec None on one device), which the dry run places as ``meta`` tensors
+(``sds_zeros``).  The port serves requests through ``serving/engine.py``;
+these steps are the reference's single prefill and decode calls.
+
+The serving steps: ``prefill_step(params, cache, batch) -> (logits,
+cache)`` runs ``transformer.prefill`` (the last position's logits (B, 1,
+V), the cache filled in place) and ``serve_step(params, cache, tokens,
+position) -> (logits, cache)`` one ``transformer.decode_step``.  On a mesh
+(the dense family) they run ``parallel/runtime.py``'s ``prefill`` /
+``decode`` with parameters laid out as ``abstract_state``'s (no optimizer)
+and the cache as ``sharding.cache_specs``' (``init_sharded_cache``); the
+logits come back as ``Shards``, each rank's rows over the whole
+vocabulary (``sharding.unshard`` with ``batch_spec`` assembles them).
 
 The one-device step: gradients of ``transformer.loss_fn`` by autograd (in
 the parameters' dtype), or with ``microbatch = k`` the mean over k row
@@ -38,12 +54,18 @@ specs alone.
 from __future__ import annotations
 
 import math
+from collections import namedtuple
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.config import ArchConfig, ShapeConfig, resolve_device
+from repro_torch.config import (
+    ArchConfig,
+    ShapeConfig,
+    input_specs,
+    resolve_device,
+)
 from repro_torch.core import transport as TR
 from repro_torch.models import transformer as T
 from repro_torch.optim import (
@@ -75,6 +97,43 @@ class StepOptions:
 
 
 _MOMENT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# a stand-in for one input: jax.ShapeDtypeStruct with its sharding's spec
+SDS = namedtuple("SDS", "shape dtype spec")
+
+
+def sds_of(shapes, specs=None) -> Any:
+    """A tree of ``sharding.Leaf`` (and its specs) as a tree of ``SDS``."""
+    if specs is None:
+        return tree_map(lambda x: SDS(tuple(x.shape), x.dtype, None), shapes)
+    return tree_map(lambda x, sp: SDS(tuple(x.shape), x.dtype, sp), shapes,
+                    specs)
+
+
+def sds_zeros(mesh, tree, device=None) -> Any:
+    """A tree of ``SDS`` as tensors: on a mesh, ``Shards`` of zeros laid
+    out by each spec (``sharding.zeros``; a 0-d leaf one tensor on rank
+    0's device), else one tensor on ``device``.  On ``meta`` ranks
+    nothing is allocated."""
+    def one(x):
+        if mesh is None:
+            return torch.zeros(x.shape, dtype=x.dtype, device=device)
+        if not x.shape:
+            return torch.zeros((), dtype=x.dtype, device=mesh.devices[0])
+        return SH.zeros(mesh, x.shape, x.spec, x.dtype)
+
+    return tree_map(one, tree)
+
+
+def batch_sds(cfg: ArchConfig, shape: ShapeConfig, mesh=None) -> dict:
+    """The model inputs' ``SDS`` (``config.input_specs``), on a mesh with
+    the batch dim over the batch axes (``sharding.input_specs_sharded``).
+    """
+    specs = (SH.input_specs_sharded(cfg, shape, mesh) if mesh is not None
+             else None)
+    return {name: SDS(x.shape, x.dtype, None if specs is None
+                      else specs[name])
+            for name, x in input_specs(cfg, shape).items()}
 
 
 def abstract_state(cfg: ArchConfig, mesh, opt: AdamWConfig | None,
@@ -408,7 +467,7 @@ def _adamw_sharded(mesh, opt, params, grads, opt_state, p_specs, m_specs,
         keys = []
         for r in range(mesh.size):
             idx = SH.chunk_index(mesh, ms, r)
-            key = f"{li}/{idx}/{mesh.devices[r]}"
+            key = f"{li}/{idx}/{mesh.home(r)}"
             if key not in fp:
                 sub = tuple((i, n) if pe != me else (0, 1)
                             for pe, me, (i, n) in zip(ps, ms, idx))
@@ -430,6 +489,115 @@ def _adamw_sharded(mesh, opt, params, grads, opt_state, p_specs, m_specs,
         out_nu.append(SH.Shards(core["nu"][key] for key in keys))
     return (_tree_of(params, out_p), _tree_of(params, out_mu),
             _tree_of(params, out_nu), core["step"])
+
+
+# ---------------------------------------------------------------------------
+# serving (prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def _serve_abstract(cfg, shape, mesh, options):
+    """(params SDS, cache SDS, batch SDS, params specs, cache specs) of a
+    serving step: parameters as ``abstract_state``'s without optimizer,
+    the cache ``init_cache(global_batch, seq_len)`` by ``cache_specs``."""
+    b = shape.global_batch
+    c_shape = SH.cache_shapes(cfg, b, shape.seq_len)
+    if mesh is None:
+        return (sds_of(SH.param_shapes(cfg)), sds_of(c_shape),
+                batch_sds(cfg, shape), None, None)
+    p_shape, _, p_spec, _ = abstract_state(cfg, mesh, None, options)
+    c_spec = SH.cache_specs(cfg, c_shape, mesh, batch=b)
+    return (sds_of(p_shape, p_spec), sds_of(c_shape, c_spec),
+            batch_sds(cfg, shape, mesh), p_spec, c_spec)
+
+
+def init_sharded_cache(cfg: ArchConfig, mesh, batch: int,
+                       max_len: int) -> Any:
+    """A zero decode cache on the ranks, laid out by ``cache_specs``."""
+    c_shape = SH.cache_shapes(cfg, batch, max_len)
+    c_spec = SH.cache_specs(cfg, c_shape, mesh, batch=batch)
+    return sds_zeros(mesh, sds_of(c_shape, c_spec))
+
+
+def _serving_runtime(cfg, shape, options, dev, mesh, p_spec):
+    check_supported(cfg, mesh)
+    for d in mesh.devices:
+        if d.type != dev.type:
+            raise ValueError(f"a rank on {d}, the step on {dev}")
+    rules = SH.activation_rules(cfg, mesh, batch=shape.global_batch)
+    return DecoderRuntime(cfg, mesh, p_spec, rules,
+                          loss_chunk=options.loss_chunk,
+                          max_len=shape.seq_len)
+
+
+def _rows(mesh, x, shape, width: int) -> SH.Shards:
+    """Whole (B, width) tokens as the ranks' rows, or ``Shards`` as they
+    are."""
+    if isinstance(x, SH.Shards):
+        return x
+    want = (shape.global_batch, width)
+    if tuple(x.shape) != want:
+        raise ValueError(f"tokens {tuple(x.shape)} != {want}")
+    return SH.shard(mesh, x, SH.batch_spec(mesh, *want))
+
+
+def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
+                       options: StepOptions = StepOptions(), device=None,
+                       mesh=None):
+    """Prefill a ``shape.seq_len``-deep cache from a whole prompt (the
+    prefill_* cells).  Returns (``prefill_step(params, cache, batch) ->
+    (logits, cache)``, (params SDS, cache SDS, batch SDS)); ``batch``
+    holds ``tokens`` (B, S) (and pixtral's / whisper's embeddings on one
+    device)."""
+    T.check_supported(cfg)
+    dev = resolve_device(device)
+    p_sds, c_sds, b_sds, p_spec, _ = _serve_abstract(cfg, shape, mesh,
+                                                     options)
+    if mesh is None:
+        def prefill_step(params, cache, batch):
+            return T.prefill(cfg, params, batch["tokens"], cache,
+                             patch_embeds=batch.get("patch_embeds"),
+                             frame_embeds=batch.get("frame_embeds"))
+
+        return prefill_step, (p_sds, c_sds, b_sds)
+    runtime = _serving_runtime(cfg, shape, options, dev, mesh, p_spec)
+
+    def sharded_prefill_step(params, cache, batch):
+        tokens = batch["tokens"]
+        width = tokens[0].shape[1] if isinstance(tokens, SH.Shards) else (
+            tokens.shape[1])
+        logits = runtime.prefill(params, _rows(mesh, tokens, shape, width),
+                                 cache)
+        return SH.Shards(logits), cache
+
+    return sharded_prefill_step, (p_sds, c_sds, b_sds)
+
+
+def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, *,
+                     options: StepOptions = StepOptions(), device=None,
+                     mesh=None):
+    """Decode one token against a ``shape.seq_len``-deep cache (the
+    decode_* cells).  Returns (``serve_step(params, cache, tokens,
+    position) -> (logits, cache)``, (params SDS, cache SDS, batch SDS));
+    ``tokens`` (B, 1), ``position`` the fill level (on a mesh one int for
+    every row)."""
+    T.check_supported(cfg)
+    dev = resolve_device(device)
+    p_sds, c_sds, b_sds, p_spec, _ = _serve_abstract(cfg, shape, mesh,
+                                                     options)
+    if mesh is None:
+        def serve_step(params, cache, tokens, position):
+            return T.decode_step(cfg, params, tokens, cache, position)
+
+        return serve_step, (p_sds, c_sds, b_sds)
+    runtime = _serving_runtime(cfg, shape, options, dev, mesh, p_spec)
+
+    def sharded_serve_step(params, cache, tokens, position):
+        logits = runtime.decode(params, _rows(mesh, tokens, shape, 1), cache,
+                                position)
+        return SH.Shards(logits), cache
+
+    return sharded_serve_step, (p_sds, c_sds, b_sds)
 
 
 def step_bytes(cfg: ArchConfig, mesh, shape: ShapeConfig,

@@ -121,6 +121,44 @@ def chunked_attention(
                               kv_chunk=kv_chunk, q_offset=q_offset)
 
 
+def decode_scores(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k: torch.Tensor,  # (B, Hkv, N, D): the cache's keys from key_offset
+    length,  # int, 0-d or (B,) tensor: number of valid cache positions
+    *,
+    key_offset: int = 0,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step's scores against keys at positions ``key_offset +
+    j``: f32 (B, Hkv, H / Hkv, N), as the reference's f32-accumulated
+    einsum (q and K are cast up, exact for bf16), capped, and ``NEG_INF``
+    outside the valid ``length`` and the window; with the mask that keeps
+    (broadcastable to the scores)."""
+    b, h, _, d = q.shape
+    hkv, n = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    s = torch.matmul(qg, k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(key_offset, key_offset + n, device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    if length.dim() == 0:
+        msk = kpos < length
+        if window is not None:
+            msk &= kpos > length - 1 - window
+    else:
+        # per-slot cache fill levels (continuous-batching refill)
+        msk = kpos[None, :] < length[:, None]  # (B, N)
+        if window is not None:
+            msk &= kpos[None, :] > length[:, None] - 1 - window
+        msk = msk[:, None, None, :]
+    return s.masked_fill(~msk, NEG_INF), msk
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, H, 1, D)
     k_cache: torch.Tensor,  # (B, Hkv, Smax, D)
@@ -133,32 +171,40 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-step decode attention over a (masked) KV cache.
 
-    Scores in f32 as the reference's f32-accumulated einsum (q and K are
-    cast up, exact for bf16); p is rounded to the cache dtype for P.V and
-    the result cast to q's dtype, as there.
+    Scores by ``decode_scores``; p is rounded to the cache dtype for P.V
+    and the result cast to q's dtype, as the reference's.
     """
     b, h, _, d = q.shape
-    hkv, smax = k_cache.shape[1], k_cache.shape[2]
-    g = h // hkv
-    if scale is None:
-        scale = d**-0.5
-    qg = q.reshape(b, hkv, g, d).float()
-    s = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * scale
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    kpos = torch.arange(smax, device=q.device)
-    length = torch.as_tensor(length, device=q.device)
-    if length.dim() == 0:
-        msk = kpos < length
-        if window is not None:
-            msk &= kpos > length - 1 - window
-        s = s.masked_fill(~msk, NEG_INF)
-    else:
-        # per-slot cache fill levels (continuous-batching refill)
-        msk = kpos[None, :] < length[:, None]  # (B, Smax)
-        if window is not None:
-            msk &= kpos[None, :] > length[:, None] - 1 - window
-        s = s.masked_fill(~msk[:, None, None, :], NEG_INF)
+    s, _ = decode_scores(q, k_cache, length, window=window,
+                         softcap=softcap, scale=scale)
     p = torch.softmax(s, dim=-1)
     out = torch.matmul(p.to(v_cache.dtype), v_cache)
     return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def decode_partial(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k: torch.Tensor,  # (B, Hkv, N, D): a chunk of the cache from key_offset
+    v: torch.Tensor,
+    length,
+    *,
+    key_offset: int,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode attention over one chunk of the cache (keys at positions
+    ``key_offset + j``), unnormalised: the scores' max, the sum of their
+    exponentials and P.V (P in the cache's dtype), f32 (B, H, 1, 1), (B,
+    H, 1, 1), (B, H, 1, D).  Chunks combined by the max
+    (``parallel/runtime.py``, the cache's sequence split over ranks) give
+    ``decode_attention`` over the whole cache, up to where the rounding to
+    the cache's dtype falls."""
+    b, h, _, d = q.shape
+    s, keep = decode_scores(q, k, length, key_offset=key_offset,
+                            window=window, softcap=softcap, scale=scale)
+    m = s.amax(-1, keepdim=True)
+    e = torch.where(keep, torch.exp(s - m), 0.0)
+    acc = torch.matmul(e.to(v.dtype), v).float()
+    return (m.reshape(b, h, 1, 1), e.sum(-1).reshape(b, h, 1, 1),
+            acc.reshape(b, h, 1, d))

@@ -94,7 +94,8 @@ def adamw_update(
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+        grads = tree_map(lambda g: g * scale.to(g.device, g.dtype),
+                         grads)
     s32 = step.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                        device=s32.device), s32)

@@ -39,11 +39,13 @@ def _n(mesh, axes) -> int:
 
 def _unshared(xs: list) -> tuple:
     """Outputs of one autograd node must be distinct tensors: a tensor
-    that several ranks of one device share is cloned for all but one."""
+    that several ranks of one device share is cloned for all but one (the
+    collective's delivery, ``transport.collective_scope``)."""
     seen, out = set(), []
-    for x in xs:
-        out.append(x.clone() if id(x) in seen else x)
-        seen.add(id(x))
+    with TR.collective_scope():
+        for x in xs:
+            out.append(x.clone() if id(x) in seen else x)
+            seen.add(id(x))
     return tuple(out)
 
 

@@ -1,6 +1,7 @@
-"""The sharded decoder runtime: the dense family's training loss on a mesh
-of ranks (a port-only module: the reference writes its model once and lets
-GSPMD partition it from ``param_specs`` and ``activation_rules``).
+"""The sharded decoder runtime: the dense family's training loss, prefill
+and decode on a mesh of ranks (a port-only module: the reference writes
+its model once and lets GSPMD partition it from ``param_specs``,
+``activation_rules`` and ``cache_specs``).
 
 One process holds every rank (``launch/mesh.py``).  A parameter is a list
 of per-rank shards placed by ``parallel/sharding.param_specs``; an
@@ -41,6 +42,21 @@ step and serves the embedding and, tied, the head.
 Every rank's loss is its rows' cross-entropy sum over the global token
 count; under Megatron's convention each is seeded with one, and the sum
 over the batch axes is the loss.  Families other than ``dense`` raise.
+
+Serving (``prefill`` / ``decode``, no gradient) runs the same layers,
+gathers and TP collectives on a cache laid out by
+``sharding.cache_specs`` (``kv_layout``): with heads over ``model`` each
+rank writes and reads its local heads' K/V; where the heads do not divide
+``model`` attention runs whole on every model rank and the cache splits
+its sequence over ``model`` (the reference's flash-decoding layout): a
+prefill rank writes its chunk of the positions, and a decode step's
+attention is each rank's partial over its chunk (max, sum of exponentials,
+P.V), combined by a pmax and a psum over ``model``; where the sequence
+does not divide either, each model rank keeps the whole cache.  The last
+position's logits are vocab-parallel and all-gathered over ``model``, so
+each rank ends with its rows' logits over the whole vocabulary (the
+reference's output, rows over the batch axes).  A decode step takes one
+position for every row (an int).
 """
 from __future__ import annotations
 
@@ -83,7 +99,9 @@ class DecoderRuntime:
     ``p_spec`` (``sharding.param_specs``)."""
 
     def __init__(self, cfg, mesh, p_spec, rules, *, remat: str = "none",
-                 loss_chunk: int = 512):
+                 loss_chunk: int = 512, max_len: int | None = None):
+        """``max_len``: the serving cache's length (``prefill`` /
+        ``decode`` need it; the loss does not)."""
         check_supported(cfg, mesh)
         self.cfg, self.mesh, self.p_spec, self.rules = cfg, mesh, p_spec, rules
         self.remat, self.loss_chunk = remat, loss_chunk
@@ -114,6 +132,7 @@ class DecoderRuntime:
             n_kv_heads=cfg.n_kv_heads // (self.m if self.attn_tp else 1))
         self.kinds = T.layer_kinds(cfg)
         self._layer_fn = T._remat_layer(self._layer, remat)
+        self.layout = None if max_len is None else self.kv_layout(max_len)
 
     # ---- layout transitions (the activation table's cut points) --------
     # Each method below names the collective of one cut point; the forward
@@ -196,7 +215,9 @@ class DecoderRuntime:
         with sharding_rules(self.rules):  # the recompute runs outside
             return self._layer_body(kind, p, x, spec, positions)
 
-    def _layer_body(self, kind, p, x, spec, positions):
+    def _layer_body(self, kind, p, x, spec, positions, cache=None):
+        """One layer; with ``cache`` (serving) each rank writes the
+        prompt's K/V into its part of it."""
         cfg = self.cfg
         pa = {k: self._gather(v, spec["attn"][k], self.attn_keep)
               for k, v in p["attn"].items()}
@@ -205,15 +226,24 @@ class DecoderRuntime:
         for r, xr in enumerate(xa):
             w = {k: v[r] for k, v in pa.items()}
             q, k, v = A.qkv_proj(self.cfg_attn, w, xr, positions[r])
+            if cache is not None:
+                self._write_prompt(cache, r, k, v)
             o = A.chunked_attention(q, k, v, causal=True,
                                     window=kind.get("window"),
                                     softcap=cfg.attn_softcap)
             ys.append(A.out_proj(self.cfg_attn, w, o))
-        y = self._run(self.btd_op(self.attn_tp), ys)
-        if cfg.post_norm:
-            y = self._norm(p["post_ln1"], y)
-        x = [a + b for a, b in zip(x, y)]
+        return self._mlp_res(p, spec, self._attn_res(p, x, ys))
 
+    def _attn_res(self, p, x, ys) -> list:
+        """The attention residual from the ranks' out-projections."""
+        y = self._run(self.btd_op(self.attn_tp), ys)
+        if self.cfg.post_norm:
+            y = self._norm(p["post_ln1"], y)
+        return [a + b for a, b in zip(x, y)]
+
+    def _mlp_res(self, p, spec, x) -> list:
+        """The MLP residual (column- then row-parallel)."""
+        cfg = self.cfg
         pm = {k: self._gather(v, spec["mlp"][k], self.mlp_keep)
               for k, v in p["mlp"].items()}
         xm = self._run(self.full_op(self.mlp_tp), self._norm(p["ln2"], x))
@@ -302,6 +332,144 @@ class DecoderRuntime:
         return [t / n_tokens for t in total]
 
 
+
+    # ---- serving ----------------------------------------------------------
+
+    def kv_layout(self, max_len: int) -> str:
+        """Where a rank's K/V cache lives (``sharding.cache_specs``'
+        rule): "heads" over ``model`` when the kv heads divide it (then
+        the attention heads do too), else the "seq"uence over ``model``
+        when it divides, else "whole" on every model rank."""
+        if self.attn_tp:
+            return "heads"
+        return "seq" if max_len % self.m == 0 else "whole"
+
+    def _check_serving(self) -> None:
+        if self.layout is None:
+            raise ValueError("serving needs the runtime's max_len (the "
+                             "cache's length)")
+        if self.seq_split or self.ce_2p5d:
+            raise ValueError("serving runs the reference's serving rules: "
+                             "no sequence parallelism, no 2.5D head")
+
+    def _write_prompt(self, cache, r, k, v) -> None:
+        """Rank ``r``'s part of a prompt's K/V (positions [0, S)) into its
+        cache: its heads, or its chunk of the positions."""
+        ck, cv = cache["k"][r], cache["v"][r]
+        if self.layout != "seq":
+            T._update_kv(ck, cv, k, v, 0)
+            return
+        chunk = ck.shape[2]
+        lo = min(self.mi[r] * chunk, k.shape[2])
+        hi = min(lo + chunk, k.shape[2])
+        ck[:, :, :hi - lo] = k[:, :, lo:hi]
+        cv[:, :, :hi - lo] = v[:, :, lo:hi]
+
+    def _logits(self, params, x) -> list:
+        """Each rank's logits (rows, s, V) of the hidden rows ``x``: the
+        final norm, the vocab-parallel head, the cap, then an all-gather
+        of the vocabulary over ``model``."""
+        cfg = self.cfg
+        emb = params["embed"]
+        head = self._gather(emb.get("out", emb["tok"]), self.head_spec,
+                            self.head_keep)
+        x = self._run(self.full_op(self.head_tp),
+                      self._norm(params["final_norm"], x))
+        logits = [xi @ w.T for xi, w in zip(x, head)]
+        if cfg.final_softcap is not None:
+            cap = cfg.final_softcap
+            logits = [torch.tanh(z / cap) * cap for z in logits]
+        if self.head_tp:
+            logits = C.all_gather(self.mesh, logits, "model", dim=2)
+        return logits
+
+    def _embed_rows(self, params, tokens) -> list:
+        emb = params["embed"]
+        tok = self._gather(emb["tok"], self.p_spec["embed"]["tok"],
+                           self.tok_keep)
+        return self._embed(tok, tokens)
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, cache) -> list:
+        """Run the prompt (per-rank (rows, S) ``tokens``), write its K/V
+        into ``cache`` (the port's cache tree with per-rank tensors at its
+        leaves, laid out by ``cache_specs``) in place, and return every
+        rank's logits of the last position (rows, 1, V)."""
+        self._check_serving()
+        with sharding_rules(self.rules):
+            x = self._embed_rows(params, tokens)
+            s = tokens[0].shape[1]
+            positions = [torch.arange(s, device=t.device) for t in tokens]
+            for kind, p, sp, c in zip(self.kinds, params["blocks"],
+                                      self.p_spec["blocks"],
+                                      cache["blocks"]):
+                x = self._layer_body(kind, p, x, sp, positions, cache=c)
+            return self._logits(params, [xi[:, -1:] for xi in x])
+
+    @torch.no_grad()
+    def decode(self, params, tokens, cache, position: int) -> list:
+        """One token per row (per-rank (rows, 1) ``tokens``) at
+        ``position`` (the fill level, one for every row): writes its K/V
+        into ``cache`` in place and returns every rank's logits (rows, 1,
+        V)."""
+        self._check_serving()
+        position = int(position)
+        with sharding_rules(self.rules):
+            x = self._embed_rows(params, tokens)
+            rope = [torch.tensor([position], device=t.device)
+                    for t in tokens]
+            for kind, p, sp, c in zip(self.kinds, params["blocks"],
+                                      self.p_spec["blocks"],
+                                      cache["blocks"]):
+                x = self._decode_layer(kind, p, x, sp, c, rope, position)
+            return self._logits(params, x)
+
+    def _decode_layer(self, kind, p, x, spec, cache, rope, position):
+        cfg = self.cfg
+        window = kind.get("window")
+        pa = {k: self._gather(v, spec["attn"][k], self.attn_keep)
+              for k, v in p["attn"].items()}
+        xa = self._run(self.full_op(self.attn_tp), self._norm(p["ln1"], x))
+        ws = [{k: v[r] for k, v in pa.items()} for r in range(len(xa))]
+        seq = self.layout == "seq"
+        qs, parts = [], []
+        for r, xr in enumerate(xa):
+            q, k, v = A.qkv_proj(self.cfg_attn, ws[r], xr, rope[r])
+            ck, cv = cache["k"][r], cache["v"][r]
+            if not seq:
+                T._update_kv(ck, cv, k, v, position)
+                qs.append(A.decode_attention(q, ck, cv, position + 1,
+                                             window=window,
+                                             softcap=cfg.attn_softcap))
+                continue
+            chunk = ck.shape[2]
+            c0 = self.mi[r] * chunk
+            if c0 <= position < c0 + chunk:
+                T._update_kv(ck, cv, k, v, position - c0)
+            qs.append(q)
+            parts.append(A.decode_partial(q, ck, cv, position + 1,
+                                          key_offset=c0, window=window,
+                                          softcap=cfg.attn_softcap))
+        if seq:
+            qs = self._combine(qs, parts)
+        ys = [A.out_proj(self.cfg_attn, w, o) for w, o in zip(ws, qs)]
+        return self._mlp_res(p, spec, self._attn_res(p, x, ys))
+
+    def _combine(self, qs, parts) -> list:
+        """The ranks' partial attentions over their chunks of the sequence
+        combined over ``model``: (b, h, 1, d) in q's dtype on every
+        rank."""
+        top = C.pmax(self.mesh, [m for m, _, _ in parts], "model")
+        scaled = [torch.cat([l * torch.exp(m - t), acc * torch.exp(m - t)],
+                            dim=-1)
+                  for (m, l, acc), t in zip(parts, top)]
+        tot = C.psum(self.mesh, scaled, "model")
+        out = []
+        for q, t in zip(qs, tot):
+            b, h, _, d = q.shape
+            o = t[..., 1:] / t[..., :1]
+            out.append(o.reshape(b, h, 1, d).to(q.dtype))
+        return out
 
     # ---- bytes per rank ---------------------------------------------------
 
@@ -402,3 +570,4 @@ def _nbytes(leaf) -> float:
 
 def _entry_size(axes, entry) -> int:
     return math.prod(axes[a] for a in entry_axes(entry))
+

@@ -24,6 +24,12 @@ names (the dimension split over their product, the first name slowest) or
 strips; the port keeps one dict per layer, so ``param_specs`` maps each of
 its paths to the reference's (``ref_path``) and drops that leading entry.
 
+``input_specs_sharded`` gives the dry run's model inputs their specs.
+The reference's ``to_named`` (a spec tree to jax ``NamedSharding``s) has
+no counterpart: the port places a tree on its ranks with ``shard_tree``
+(or, with nothing allocated, ``zeros`` on ``meta`` ranks), as ROADMAP.md
+says of ``compat.py``.
+
 On a mesh of ranks a sharded leaf is a ``Shards``: one tensor per rank,
 indexed by the flattened rank, each the rank's chunk of the full tensor
 under its spec (ranks holding the same chunk share one tensor).  ``shard``
@@ -259,6 +265,19 @@ def param_shapes(cfg) -> Any:
     return _build(fake, lambda _, t: Leaf(tuple(t.shape), t.dtype))
 
 
+def cache_shapes(cfg, batch: int, max_len: int) -> Any:
+    """The decode cache tree of ``cfg`` (``transformer.init_cache``) as
+    ``Leaf(shape, dtype)``, under a fake tensor mode like
+    ``param_shapes``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import transformer as T
+
+    with FakeTensorMode():
+        fake = T.init_cache(cfg, batch, max_len, device="cpu")
+    return _build(fake, lambda _, t: Leaf(tuple(t.shape), t.dtype))
+
+
 # ---------------------------------------------------------------------------
 # batch / activations / cache
 # ---------------------------------------------------------------------------
@@ -356,6 +375,20 @@ def cache_specs(cfg, cache_shape: Any, mesh, *, batch: int) -> Any:
     return _build(cache_shape, rule)
 
 
+def input_specs_sharded(cfg, shape, mesh) -> dict[str, P]:
+    """Specs of the dry run's model inputs (``config.input_specs``): the
+    batch dim over the batch axes when it divides, a scalar replicated."""
+    from repro_torch.config import input_specs
+
+    out = {}
+    for name, leaf in input_specs(cfg, shape).items():
+        if len(leaf.shape) == 0:
+            out[name] = P()
+        else:
+            out[name] = batch_spec(mesh, leaf.shape[0], *leaf.shape[1:])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # placement on a mesh of ranks
 # ---------------------------------------------------------------------------
@@ -404,7 +437,7 @@ def shard(mesh, x: torch.Tensor, spec) -> Shards:
     spec = P(*spec) if len(spec) else P(*([None] * x.dim()))
     out, seen = [], {}
     for r in range(mesh.size):
-        key = (chunk_index(mesh, spec, r), mesh.devices[r])
+        key = (chunk_index(mesh, spec, r), mesh.home(r))
         if key not in seen:
             seen[key] = take(x, key[0]).to(mesh.devices[r],
                                            copy=True).contiguous()
@@ -440,7 +473,7 @@ def zeros(mesh, shape, spec, dtype, *, per_rank: bool = False) -> Shards:
     out, seen = [], {}
     for r in range(mesh.size):
         key = r if per_rank else (chunk_index(mesh, spec, r),
-                                  mesh.devices[r])
+                                  mesh.home(r))
         if key not in seen:
             seen[key] = torch.zeros(loc, dtype=dtype,
                                     device=mesh.devices[r])

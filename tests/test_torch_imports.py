@@ -126,3 +126,22 @@ def test_slice12_modules_stand_alone(module, loaded_by):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert not FORBIDDEN.findall(path.read_text())
     assert loaded_by[module] == []
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.roofline", "repro_torch.roofline.hlo_cost",
+    "repro_torch.launch.dryrun"])
+def test_slice13_modules_stand_alone(module):
+    """The dry run's modules import neither jax nor ``repro`` and load
+    neither (the roofline package's ``__init__`` is a module of its own
+    here, so it is imported in a fresh interpreter too)."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / "src" / module.replace(".", "/") / "__init__.py"
+    assert not FORBIDDEN.findall(path.read_text())
+    proc = subprocess.run([sys.executable, "-c", _LOADED_BY, module],
+                          capture_output=True, text=True, timeout=300,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1])[module] == []
