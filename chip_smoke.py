@@ -121,7 +121,7 @@ Phases, each raising on failure:
     18 (a): tokens in the vocabulary, first tokens the argmax of a
     separate prefill, request 0 and the first refilled request as
     generated alone, neither kernel launched; the kernels a prefill
-    launches (counted under ``torch.profiler`` at 256 and 512 tokens);
+    launches (counted under ``torch.profiler`` at 64 and 128 tokens);
 20. whisper-large-v3 at full width and depth (32 encoder + 32 decoder
     layers, bf16, 1.6 B parameters from seed 0) through the model's entry
     points with frames: 8 requests of 1,500 frame embeddings and a
@@ -210,8 +210,42 @@ Phases, each raising on failure:
     measured step.  (c) ``launch.dryrun``'s cells of olmo-1b (decode_32k,
     prefill_32k, train_4k) on the abstract single-pod mesh, each ``ok``:
     trace_s, the three terms, the dominant one and the memory per device;
-    host work on ``meta`` tensors, run last so that it shares the host
-    with no timed measurement.
+    host work on ``meta`` tensors, after every timed measurement of the
+    dense family;
+27. the MoE and hybrid families on (data 2, model 2) ranks of the card
+    (``parallel/runtime.py``: experts over ``data`` with d_expert over
+    ``model`` (tp) or the experts over ``model`` (ep), the load-balance
+    loss from global sums, mamba's channels over ``model``).  (a)
+    reduced deepseek-moe-16b under tp and ep and reduced jamba (one
+    8-layer pattern), f32: one sharded training step and a prefill + 4
+    decode steps on the card against the same on a CPU mesh, within 1e-4
+    (``train_state_close``; loss, ce, moe_aux, grad norm; logits), bytes
+    per rank equal to ``step_bytes``, flash launches exact; (b) full
+    width through ``launch.train --mesh 2x2 --layers N`` (deepseek 4 of
+    28 layers, 8 x 2,048 tokens; jamba its first 2 layers, attention +
+    MLP then mamba + MoE, 4 x 2,048 tokens; the full depth's AdamW state
+    exceeds the card), 5 steps: finite losses and moe_aux, the last loss
+    below the first, every step's loss within 1e-2 of the one-device
+    step's at the same cut (jamba, whose one-device AdamW state does not
+    fit beside its update: step 1's loss), bytes per
+    rank equal to ``step_bytes``, flash launches 4 ranks x attention
+    layers x steps x (2 forward, 3 backward), the peak against 80 GiB;
+    (c) serving on 2 x 2 ranks (tp, bf16; the tensor-parallel partials
+    summed in f32) against the one-device steps batched as the data
+    ranks batch the rows (deepseek at full depth, jamba cut to 8 layers;
+    8 x 256-token prompts + 16 decode steps on the one-device run's
+    greedy tokens): on the ranks' own expert choices, logits within 3e-2
+    of the largest and at least 0.90 of the greedy tokens equal, or
+    within twice what weights one ulp off move the one-device steps on
+    their own choices where that is more, the prefill's dropped / routed
+    printed; on the one-device run's expert choices (``_Routing``: a
+    near-tied choice flipped by a sum in another order spreads over a
+    capacity-dispatched row), 3e-2 and 0.90, or no farther than the
+    one-device steps' f32 twin (the same weights in f32) where that is
+    farther, and the same dropped choices; the same weights in f32 on
+    those choices against the one-device f32 steps within 1e-4, every
+    greedy token equal; flash launches one per rank and attention layer
+    in every run.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -220,6 +254,7 @@ and prints no result.  Imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -317,6 +352,28 @@ def _time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _timed_call(fn) -> tuple:
+    """(``fn()``, its CUDA-event ms): one call, no warm-up — for a plain
+    version that is no yardstick, whose output the check needs anyway."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _served_alone(engine, prompts: list, outputs: list) -> list:
+    """Every served request against its generation alone: one flag per
+    request."""
+    return [engine.generate([q])[0] == out
+            for q, out in zip(prompts, outputs)]
 
 
 def _close(got, want, tol: float) -> tuple[bool, float]:
@@ -1730,11 +1787,12 @@ def phase_moe_layer(torch, K, S, MoE, get_arch, envelope) -> int:
         return K.block_spgemm_stacks_plain(a.blocks, bank.blocks, stacks,
                                            ni=a.nb_r, nj=e)
 
-    good_k, err_k = _close(kernel(), plain(), TOL["bfloat16"])
+    cp, plain_ms = _timed_call(plain)
+    good_k, err_k = _close(kernel(), cp, TOL["bfloat16"])
+    del cp
     if not good_k:
         raise AssertionError(f"kernel vs plain at the MoE shape: {err_k}")
     ms = _time_ms(kernel, reps=5)
-    plain_ms = _time_ms(plain, reps=2)
     # the library figure: one bmm over the listed A blocks grouped by
     # expert (padded to the largest group) against the expert weights
     counts = mask.sum(0)
@@ -1843,8 +1901,9 @@ def phase_moe_serve(torch, K, FA, T, MoE, serve) -> tuple[int, int]:
     launches, flash_launches = K.launches, FA.launches
     want = 3 * cfg.n_layers * (st["prefill_calls"] + st["decode_steps"])
     dec = st["dispatch"]
-    solo = [engine.generate([q])[0] for q in built[3]]
-    same = [a == b for a, b in zip(st["outputs"], solo)]
+    t_alone = time.perf_counter()
+    same = _served_alone(engine, built[3], st["outputs"])
+    t_alone = time.perf_counter() - t_alone
     print(f"[17] spgemm: {st['tokens_per_s']:.3f} tok/s, prefill s "
           f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
           f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
@@ -1855,7 +1914,7 @@ def phase_moe_serve(torch, K, FA, T, MoE, serve) -> tuple[int, int]:
           f"{cfg.n_layers} x ({st['prefill_calls']} prefill + "
           f"{st['decode_steps']} decode) = {want}), flash launches "
           f"{flash_launches}; served == generated alone: {sum(same)} of "
-          f"{len(same)}", flush=True)
+          f"{len(same)} ({t_alone:.1f} s)", flush=True)
     if not st["ok"] or st["moe"]["dropped"]:
         raise AssertionError("spgemm serving: a request got too few tokens "
                              "or a token outside the vocabulary, or a "
@@ -1905,6 +1964,7 @@ JAMBA_SPGEMM_ARGV = ["--arch", "jamba-v0.1-52b", "--batch", "8",
                      "288", "--queue", "8", "--seed", str(SEED),
                      "--moe-impl", "spgemm"]
 # phase 19: rwkv6-7b at full width and depth, the same traffic as 18 (a)
+RWKV_PROFILE_LENS = (64, 128)
 RWKV_ARGV = ["--arch", "rwkv6-7b", "--batch", "8", "--prompt-len", "2048",
              "--max-new", "32", "--max-len", "2096", "--queue", "12",
              "--seed", str(SEED)]
@@ -2092,11 +2152,12 @@ def _jamba_moe_kernel(torch, K, S, MoE, cfg, p) -> dict:
         return K.block_spgemm_stacks_plain(a.blocks, bank.blocks, stacks,
                                            ni=a.nb_r, nj=e)
 
-    good, err = _close(kernel(), plain(), TOL["bfloat16"])
+    cp, plain_ms = _timed_call(plain)
+    good, err = _close(kernel(), cp, TOL["bfloat16"])
+    del cp
     if not good:
         raise AssertionError(f"kernel vs plain at jamba's MoE shape: {err}")
     ms = _time_ms(kernel, reps=3)
-    plain_ms = _time_ms(plain, reps=1)
     counts = mask.sum(0)
     width = int(counts.max())
     order = torch.argsort((~mask).t().to(torch.int8), dim=1, stable=True)
@@ -2196,8 +2257,9 @@ def phase_jamba(torch, np, K, S, FA, T, MoE, serve, get_arch
     launches, flash_b = K.launches, FA.launches
     want = 3 * n_moe * (st["prefill_calls"] + st["decode_steps"])
     dec = st["dispatch"]
-    solo = [engine.generate([q])[0] for q in built[3]]
-    same = [a == b for a, b in zip(st["outputs"], solo)]
+    t_alone = time.perf_counter()
+    same = _served_alone(engine, built[3], st["outputs"])
+    t_alone = time.perf_counter() - t_alone
     print(f"[18] spgemm: {st['tokens_per_s']:.3f} tok/s, prefill s "
           f"{[round(v, 4) for v in st['prefill_s']]}, decode ms median "
           f"{st['decode_ms_median']:.4f}, peak {st['peak_mem_gib']:.3f} GiB;"
@@ -2207,7 +2269,7 @@ def phase_jamba(torch, np, K, S, FA, T, MoE, serve, get_arch
           f" {launches} (3 x {n_moe} x ({st['prefill_calls']} prefill + "
           f"{st['decode_steps']} decode) = {want}), flash launches "
           f"{flash_b}; served == generated alone: {sum(same)} of "
-          f"{len(same)}", flush=True)
+          f"{len(same)} ({t_alone:.1f} s)", flush=True)
     if not st["ok"] or st["moe"]["dropped"]:
         raise AssertionError("jamba spgemm: a request got too few tokens or"
                              " a token outside the vocabulary, or a choice "
@@ -2277,9 +2339,10 @@ def phase_rwkv(torch, np, K, FA, T, serve) -> None:
             raise AssertionError(f"rwkv6 request {i}: served "
                                  f"{st['outputs'][i]} != alone {solo}")
     # kernels per prefill: every loop runs per token, so the count is
-    # affine in the prompt length; measured at 256 and 512 tokens
+    # affine in the prompt length; measured at 64 and 128 tokens (the
+    # profiler's own host work grows with the kernels it records)
     counts = {}
-    for plen in (256, 512):
+    for plen in RWKV_PROFILE_LENS:
         toks = torch.from_numpy(np.stack([q[:plen] for q in
                                           prompts[:engine.batch]])).to(
             engine.device, torch.long)
@@ -2294,11 +2357,12 @@ def phase_rwkv(torch, np, K, FA, T, serve) -> None:
               f"{1.0 - sum(groups.values()) / wall:.4f}, {n_launches} "
               f"kernels", flush=True)
         del cache
-    per_token = (counts[512] - counts[256]) / 256
+    lo, hi = RWKV_PROFILE_LENS
+    per_token = (counts[hi] - counts[lo]) / (hi - lo)
     per_layer = per_token / cfg.n_layers
     print(f"[19] kernels per prompt token {per_token:.2f} ({per_layer:.2f}"
           f" per layer); a 2,048-token round launches "
-          f"{counts[256] + 7 * (counts[512] - counts[256])} (affine in the "
+          f"{counts[lo] + round(per_token * (2048 - lo))} (affine in the "
           f"length, from the two counts)", flush=True)
     del built, engine, st
     torch.cuda.empty_cache()
@@ -3433,6 +3497,8 @@ SHARD_SERVE = dict(batch=8, prompt=2048, new=32)
 # sharded vs one-device logits in bf16: the reference's bf16 tolerance,
 # relative to the largest logit (the CPU tests' rule)
 SHARD_SERVE_TOL = 3e-2
+SHARD_SERVE_GREEDY = 0.90  # the least share of greedy tokens equal
+SHARD_F32_TOL = 1e-4  # the same comparison with f32 weights and steps
 DRYRUN_CELLS = ("decode_32k", "prefill_32k", "train_4k")
 
 
@@ -3628,6 +3694,549 @@ def phase_dryrun(torch, np, T, FA, get_arch, mesh_mod, card: str,
                 prefill_s=prefill_s, decode_ms=statistics.median(dec_ms))
 
 
+# phase 27: the MoE and hybrid families on 2 x 2 ranks of the card
+FAMILY_CASES = (  # (a): (name, arch, MoE impl, layers), reduced, f32
+    ("deepseek-moe-16b tp", "deepseek-moe-16b", "tp", None),
+    ("deepseek-moe-16b ep", "deepseek-moe-16b", "ep", None),
+    ("jamba-v0.1-52b", "jamba-v0.1-52b", "tp", 8),
+)
+# (b): full width through launch.train --mesh 2x2, depth cut so that the
+# AdamW state fits the card (deepseek's 28 layers: 16.9 B parameters, ~200
+# GB of weights, gradients and f32 moments; jamba's MoE layer alone 2.82 B)
+# (arch, layers, global batch of 2,048-token rows, whether the one-device
+# training step fits the card): deepseek's 2.77 B parameters train on one
+# device (peak 66.31 GiB, measured on one H100), so every sharded step's
+# loss is held to the one-device step's; jamba's 3.67 B would need ~88 GiB
+# (AdamW's new state beside the old), so its sharded step 1 is held to
+# the one-device loss of the same parameters and batch
+FAMILY_TRAIN = (
+    ("deepseek-moe-16b", 4, 8, True),
+    ("jamba-v0.1-52b", 2, 4, False),
+)
+FAMILY_TRAIN_STEPS = 5
+FAMILY_TRAIN_SEQ = 2048
+# AdamW at phase 24's 3e-3 sends the cut deepseek's loss up over five
+# steps on one device as on 2 x 2 ranks (12.14 -> 14.09 and 14.02,
+# measured on one H100): each step moves every weight by ~lr, a seventh
+# of its init scale; 3e-4 is the step the falling-loss check needs
+FAMILY_TRAIN_LR = 3e-4
+# (c): served on 2 x 2 ranks against the one-device steps: 8 x 256-token
+# prompts + 16 decode steps; deepseek at full depth, jamba cut to one
+# 8-layer pattern (its 32 layers' 95.8 GiB of weights exceed the card)
+FAMILY_SERVE = (("deepseek-moe-16b", None), ("jamba-v0.1-52b", 8))
+FAMILY_SERVE_SHAPE = dict(batch=8, prompt=256, new=16)
+
+
+def _one_ulp_(torch, tree, seed: int) -> None:
+    """Every non-zero entry of every leaf moved in place by -1, 0 or +1 in
+    its last bit (one ulp of its magnitude; seeded)."""
+    from repro_torch.optim.tree import leaves
+
+    g = torch.Generator(leaves(tree)[0].device).manual_seed(seed)
+    for t in leaves(tree):
+        kind = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        bits = t.view(kind)
+        step = torch.randint(-1, 2, t.shape, generator=g, device=t.device,
+                             dtype=kind)
+        bits.add_(step * (t != 0).to(kind))
+
+
+def _upcast_(tree):
+    """Every floating leaf of nested dicts / lists in f32, in place (each
+    bf16 leaf freed once its copy exists); returns ``tree``."""
+    for k, v in list(tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            _upcast_(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+    return tree
+
+
+def _agree(got: list, want: list) -> tuple[float, float]:
+    """(max |logits err| / max(1, max |logit|) over the steps, the share
+    of greedy tokens equal) of two runs' per-step logits."""
+    worst, same, total = 0.0, 0, 0
+    for gl, wl in zip(got, want):
+        gl = gl.float().cpu()
+        worst = max(worst, float((gl - wl).abs().max())
+                    / max(1.0, float(wl.abs().max())))
+        same += int((gl[:, -1].argmax(-1) == wl[:, -1].argmax(-1)).sum())
+        total += wl.shape[0]
+    return worst, same / total
+
+
+def _shard_in_place(mesh, SH, params, spec) -> dict:
+    """``params`` (nested dicts / lists) placed on the ranks by ``spec``
+    leaf by leaf, each full leaf freed once its shards exist: the card
+    never holds the one-device weights and the shards together."""
+    if isinstance(params, dict):
+        for k in list(params):
+            params[k] = _shard_in_place(mesh, SH, params[k], spec[k])
+        return params
+    if isinstance(params, list):
+        for i in range(len(params)):
+            params[i] = _shard_in_place(mesh, SH, params[i], spec[i])
+        return params
+    return SH.shard(mesh, params, spec)
+
+
+class _Routing:
+    """The one-device run's expert choices, recorded call by call
+    (``record``; one call per data rank's rows, ``merge``d), and given
+    back to another run, each call its rows (``replay_rows``, one
+    device; ``replay``, the sharded run's ranks): the run takes its own
+    router weights at those choices.  A bf16 sum in another order flips
+    a near-tied choice, and a capacity dispatch spreads the flip over its
+    row; a run on the recorded choices compares the numerics alone, as
+    the decode steps on the recorded greedy tokens do."""
+
+    def __init__(self, torch, MoE, mesh, batch: int):
+        self.torch, self.MoE, self.real = torch, MoE, MoE.router_probs
+        d = mesh.axis_names.index("data")
+        n = mesh.shape["data"]
+        self.groups = [(i * batch // n, (i + 1) * batch // n)
+                       for i in range(n)]  # each data rank's rows
+        self.rows = [self.groups[mesh.coords(r)[d]]
+                     for r in range(mesh.size)]
+        self.steps, self.i = [], 0  # each call's choices, layer by layer
+
+    @contextlib.contextmanager
+    def _with(self, fn):
+        self.MoE.router_probs = fn
+        try:
+            yield
+        finally:
+            self.MoE.router_probs = self.real
+
+    def merge(self, n: int) -> None:
+        """The last ``n`` recorded calls (one per data rank's rows, in
+        order) as one call over all the rows."""
+        parts, self.steps = self.steps[-n:], self.steps[:-n]
+        self.steps.append([self.torch.cat(layer) for layer in zip(*parts)])
+
+    def record(self):
+        """The next one-device call (its layers' choices, in order)."""
+        calls = []
+        self.steps.append(calls)
+
+        def fn(moe, logits):
+            out = self.real(moe, logits)
+            calls.append(out[1])
+            return out
+
+        return self._with(fn)
+
+    def _forced(self, calls, rows):
+        """A router on ``calls``' choices: call i takes ``rows(i)``."""
+        torch = self.torch
+        self.i = 0
+
+        def fn(moe, logits):
+            layer, (lo, hi) = rows(self.i)
+            self.i += 1
+            te = calls[layer][lo:hi]
+            probs = torch.softmax(logits, dim=-1)
+            tw = probs.gather(-1, te)
+            return tw / torch.clamp(tw.sum(-1, keepdim=True), min=1e-9), \
+                te, probs
+
+        return fn
+
+    def replay_rows(self, step: int, lo: int, hi: int):
+        """A one-device call over rows [lo, hi) on the choices of recorded
+        call ``step``."""
+        return self._with(self._forced(self.steps[step],
+                                       lambda i: (i, (lo, hi))))
+
+    def replay(self, step: int, forced: bool = True):
+        """A sharded call on the choices of recorded call ``step`` (or,
+        not ``forced``, on the ranks' own): one router call per rank and
+        MoE layer, in rank order."""
+        size = len(self.rows)
+        fn = self._forced(self.steps[step],
+                          lambda i: (i // size, self.rows[i % size]))
+        return self._with(fn if forced else self.real)
+
+
+def phase_families(torch, np, T, FA, get_arch, mesh_mod, card: str) -> dict:
+    """Phase 27 (see the module docstring): (a) reduced deepseek-moe-16b
+    (tp, ep) and jamba on 2 x 2 ranks of the card against the same steps
+    on a CPU mesh, (b) full-width training through ``launch.train --mesh
+    2x2`` at cut depths, (c) full-width serving on 2 x 2 ranks against the
+    one-device steps.  Returns the flash launch counts."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import transport as TR
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.models import moe as MoE
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding as SH
+
+    fwd_total = bwd_total = 0
+
+    # (a) reduced, f32: the card's ranks against the CPU's
+    opt = AdamWConfig(lr=3e-3)
+    seq, batch = 64, 4
+    shape = ShapeConfig("train", seq, batch, "train")
+    serve_shape = ShapeConfig("serve", 24, batch, "prefill")
+    for name, arch, impl, layers in FAMILY_CASES:
+        cfg = get_arch(arch).reduced()
+        if layers is not None:
+            cfg = train.cut_depth(cfg, layers)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=impl))
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        options = ST.StepOptions(remat="full", loss_chunk=32)
+        p_cpu = T.init_params(cfg, SEED, device="cpu")
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch, seed=SEED))
+        toks = torch.randint(0, cfg.vocab, (batch, 16),
+                             generator=torch.Generator().manual_seed(SEED))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            mesh = _mesh_of(mesh_mod, (2, 2), dev)
+            step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                       device=dev, mesh=mesh)
+            p, s = ST.init_sharded(cfg, mesh, _tree_to(p_cpu, dev), opt,
+                                   options)
+            _, _, p_spec, o_spec = ST.abstract_state(cfg, mesh, opt, options)
+            before = (FA.launches, FA.bwd_launches)
+            TR.reset_bytes()
+            p, s, m = step(p, s, make_global_batch(data, 0, mesh))
+            moved = TR.bytes_moved()
+            launches = (FA.launches - before[0], FA.bwd_launches - before[1])
+            got = (SH.unshard_tree(mesh, p, p_spec),
+                   {"mu": SH.unshard_tree(mesh, s["mu"], o_spec["mu"]),
+                    "nu": SH.unshard_tree(mesh, s["nu"], o_spec["nu"]),
+                    "step": s["step"]})
+            pre, (p_sds, _, _) = ST.build_prefill_step(
+                cfg, serve_shape, device=dev, mesh=mesh)
+            dec, _ = ST.build_serve_step(cfg, serve_shape, device=dev,
+                                         mesh=mesh)
+            sp = SH.shard_tree(mesh, _tree_to(p_cpu, dev), ST.abstract_state(
+                cfg, mesh, None, ST.StepOptions())[2])
+            cache = ST.init_sharded_cache(cfg, mesh, batch, 24)
+            # the CPU run's greedy tokens feed both runs' decode steps
+            nxt = runs["cpu"]["tokens"] if dev == "cuda" else []
+            logits = []
+            with torch.no_grad():
+                lg, cache = pre(sp, cache, {"tokens": toks.to(dev)})
+                for i in range(5):
+                    logits.append(_unshard_logits(torch, SH, mesh, lg, batch,
+                                                  cfg.vocab).float().cpu())
+                    if i == 4:
+                        break
+                    if dev == "cpu":
+                        nxt.append(logits[-1][:, -1].argmax(-1)[:, None])
+                    lg, cache = dec(sp, cache, nxt[i].to(dev), 16 + i)
+            if dev == "cuda":  # training and serving
+                fwd_total += FA.launches - before[0]
+                bwd_total += FA.bwd_launches - before[1]
+            runs[dev] = dict(state=got, metrics=m, moved=moved,
+                             launches=launches, logits=logits, tokens=nxt,
+                             count=ST.step_bytes(cfg, mesh, shape, options,
+                                                 opt))
+            del p, s, sp, cache
+        c, g = runs["cpu"], runs["cuda"]
+        ok, worst = train_state_close(torch, g["state"], c["state"], opt.lr,
+                                      opt.b2)
+        m_err = max(abs(float(g["metrics"][n]) - float(c["metrics"][n]))
+                    for n in ("loss", "ce", "moe_aux", "grad_norm"))
+        l_err = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(g["logits"], c["logits"]))
+        want = (4 * n_attn * 2, 4 * n_attn * FA.BWD_KERNELS)
+        print(f"[27a] reduced {name} f32 ({cfg.n_layers} layers) on 2 x 2 "
+              f"ranks, card vs CPU: one training step (remat full, {batch} "
+              f"x {seq} tokens): loss {float(g['metrics']['loss']):.6f} vs "
+              f"{float(c['metrics']['loss']):.6f}, moe_aux "
+              f"{float(g['metrics']['moe_aux']):.6f}, max |loss, ce, "
+              f"moe_aux, grad_norm err| {m_err:.3e}, max |err| params "
+              f"{worst['params']:.3e} mu {worst['mu']:.3e} nu "
+              f"{worst['nu']:.3e}; bytes per rank {g['moved']:.0f} (CPU "
+              f"{c['moved']:.0f}, step_bytes {g['count']:.0f}); flash "
+              f"launches forward {g['launches'][0]} backward "
+              f"{g['launches'][1]} (want {want[0]}, {want[1]}); prefill of "
+              f"16 tokens + 4 decode steps: max |logits err| / max(1, "
+              f"max |logit|) {l_err:.3e} (tolerance {TRAIN_TOL})",
+              flush=True)
+        if not (ok and m_err <= TRAIN_TOL and l_err <= TRAIN_TOL) or not (
+                g["moved"] == c["moved"] == g["count"]) or (
+                g["launches"] != want):
+            raise AssertionError(f"{name} on 2 x 2 card ranks vs CPU: "
+                                 f"{worst}, {m_err}, {l_err}, bytes "
+                                 f"{g['moved']} / {c['moved']} / "
+                                 f"{g['count']}, launches {g['launches']}")
+        del runs, c, g, p_cpu
+    torch.cuda.empty_cache()
+
+    # (b) full width through launch.train: one device, then 2 x 2 ranks
+    out, seq = {}, FAMILY_TRAIN_SEQ
+    for arch, layers, b, one_trains in FAMILY_TRAIN:
+        cfg = train.cut_depth(get_arch(arch), layers)
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        argv = ["--arch", arch, "--layers", str(layers), "--seq-len",
+                str(seq), "--global-batch", str(b), "--remat", "full",
+                "--lr", str(FAMILY_TRAIN_LR), "--log-every", "1", "--seed",
+                str(SEED)]
+        t0 = time.perf_counter()
+        if one_trains:  # the same steps through launch.train on one device
+            one = train.run([*argv, "--steps", str(FAMILY_TRAIN_STEPS)])
+            one_rc, one_losses = one["rc"], one["losses"]
+            del one
+        else:
+            # step 1's loss: launch.train's parameters and first batch
+            # through ``transformer.loss_fn`` (the step reports the loss
+            # before its update)
+            params = T.init_params(cfg, torch.Generator("cuda").manual_seed(
+                SEED), device="cuda")
+            data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                              global_batch=b, seed=SEED))
+            with torch.no_grad():
+                one_rc, one_losses = 0, [float(T.loss_fn(
+                    cfg, params, make_global_batch(data, 0, "cuda"),
+                    loss_chunk=min(512, seq))[0])]
+            del params
+        torch.cuda.empty_cache()
+        mesh = _mesh_of(mesh_mod, (2, 2))
+        options = ST.StepOptions(remat="full", loss_chunk=min(512, seq))
+        shape = ShapeConfig("train", seq, b, "train")
+        topt = AdamWConfig(lr=FAMILY_TRAIN_LR,
+                           moment_dtype=cfg.opt_state_dtype)
+        count = ST.step_bytes(cfg, mesh, shape, options, topt)
+        torch.cuda.reset_peak_memory_stats()
+        FA.launches = FA.bwd_launches = FA.copies = 0
+        TR.reset_bytes()
+        run = train.run([*argv, "--steps", str(FAMILY_TRAIN_STEPS),
+                         "--mesh", "2x2"])
+        fwd, bwd, copies = FA.launches, FA.bwd_launches, FA.copies
+        moved = TR.bytes_moved() / FAMILY_TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        fwd_total += fwd
+        bwd_total += bwd
+        losses = run["losses"]
+        want = (4 * n_attn * 2 * FAMILY_TRAIN_STEPS,
+                4 * n_attn * FA.BWD_KERNELS * FAMILY_TRAIN_STEPS)
+        step_ms = 1e3 * statistics.median(run["step_s"][1:])
+        diff = max((abs(x - y) for x, y in zip(losses, one_losses)),
+                   default=math.inf)
+        print(f"[27b] {arch} at full width cut to {layers} of "
+              f"{get_arch(arch).n_layers} layers "
+              f"({cfg.param_count() / 1e9:.3f} B parameters, bf16, AdamW "
+              f"f32 moments: the full depth's "
+              f"state exceeds the card) trained through launch.train "
+              f"--mesh 2x2, {FAMILY_TRAIN_STEPS} steps of {b} x {seq} tokens "
+              f"(remat full, lr {FAMILY_TRAIN_LR}): losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; the one-device steps at this cut (the same parameters "
+              f"and batches): " + ", ".join(f"{x:.4f}" for x in one_losses)
+              + f", max |diff| {diff:.3e} (limit 1e-2); moe_aux "
+              + ", ".join(f"{x:.4f}" for x in run["moe_aux"]) + "; "
+              f"flash launches forward {fwd} backward {bwd} (want "
+              f"{want[0]}, {want[1]}), TMA copies {copies}; bytes per rank "
+              f"per step {moved:.0f} (step_bytes {count:.0f})", flush=True)
+        print(f"[27b] on {card}: step ms median (steps 2-"
+              f"{FAMILY_TRAIN_STEPS}) {step_ms:.2f}, first step "
+              f"{1e3 * run['step_s'][0]:.2f} ms; {b * seq / step_ms * 1e3:.1f}"
+              f" tokens/s; peak memory {peak / 2**30:.2f} GiB of 80 GiB; "
+              f"the one-device run and the mesh run took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        n_one = FAMILY_TRAIN_STEPS if one_trains else 1
+        if not (run["rc"] == one_rc == 0 and len(losses) == FAMILY_TRAIN_STEPS
+                and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and all(np.isfinite(run["moe_aux"]))
+                and len(one_losses) == n_one and diff <= 1e-2):
+            raise AssertionError(f"{arch} sharded training: rc {run['rc']}, "
+                                 f"losses {losses}, moe_aux "
+                                 f"{run['moe_aux']}, one device rc {one_rc}, "
+                                 f"losses {one_losses}")
+        if (fwd, bwd) != want or copies or moved != count:
+            raise AssertionError(f"{arch} sharded training: flash {fwd} / "
+                                 f"{bwd} (want {want}), {copies} copies, "
+                                 f"bytes {moved} vs {count}")
+        out[arch] = dict(step_ms=step_ms, peak=peak)
+        del run
+        torch.cuda.empty_cache()
+
+    # (c) serving on 2 x 2 ranks against the one-device steps
+    b, s, new = (FAMILY_SERVE_SHAPE[k] for k in ("batch", "prompt", "new"))
+    depth = s + new
+    shape = ShapeConfig("serve", depth, b, "prefill")
+    for arch, layers in FAMILY_SERVE:
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = train.cut_depth(cfg, layers)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        n_attn = sum(k["mixer"] == "attention" for k in T.layer_kinds(cfg))
+        mesh = _mesh_of(mesh_mod, (2, 2))
+        routing = _Routing(torch, MoE, mesh, b)
+        g = torch.Generator("cuda").manual_seed(SEED + 27)
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+        # the one-device steps batched as the data ranks batch the rows
+        # (rows are independent; a GEMM's kernel, and so its order of
+        # sums, follows its row count)
+        groups = routing.groups
+        nxt = []
+
+        def weights(c):
+            """The seed's bf16 weights, in f32 for ``cfg32`` (exact)."""
+            p = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                              device="cuda")
+            return _upcast_(p) if c is cfg32 else p
+
+        def one_device(c, params, mode: str) -> tuple[list, dict]:
+            """Every step's logits and the prefill's drops of the
+            one-device steps at ``c``: recording the expert choices and
+            greedy tokens ("record"), or on those tokens and on the
+            recorded choices ("forced") or their own ("free")."""
+            pre1, _ = ST.build_prefill_step(c, shape, device="cuda")
+            dec1, _ = ST.build_serve_step(c, shape, device="cuda")
+            caches = [T.init_cache(c, hi - lo, depth, device="cuda")
+                      for lo, hi in groups]
+            MoE.reset_drop_counts()
+            out = []
+            for i in range(new + 1):
+                lg = []
+                for (lo, hi), c1 in zip(groups, caches):
+                    with (routing.record() if mode == "record" else
+                          routing.replay_rows(i, lo, hi) if mode == "forced"
+                          else contextlib.nullcontext()):
+                        lg.append((pre1(params, c1, {"tokens": toks[lo:hi]})
+                                   if i == 0 else dec1(params, c1,
+                                                       nxt[i - 1][lo:hi],
+                                                       s + i - 1))[0])
+                if mode == "record":
+                    routing.merge(len(groups))
+                if i == 0:
+                    drops = MoE.drop_counts()
+                lg = torch.cat(lg)
+                out.append(lg.float().cpu())
+                if mode == "record" and i < new:
+                    nxt.append(lg[:, -1].argmax(-1)[:, None])
+            return out, drops
+
+        with torch.no_grad():
+            params = weights(cfg)
+            FA.launches = 0
+            want, one_drops = one_device(cfg, params, "record")
+            one_launches = FA.launches
+            # the one-device steps' own spread on their own expert choices:
+            # the same run from weights one ulp off, on the same tokens
+            _one_ulp_(torch, params, SEED + 1)
+            ulp, ulp_drops = one_device(cfg, params, "free")
+            spread = _agree(ulp, want)
+            del params, ulp
+            torch.cuda.empty_cache()
+            # what bf16 itself moves them: the same weights in f32 on the
+            # recorded choices and tokens
+            params = weights(cfg32)
+            want32, _ = one_device(cfg32, params, "forced")
+            exact = _agree(want32, want)
+            del params
+            torch.cuda.empty_cache()
+        runs = {}
+        # "forced": the ranks take the one-device run's expert choices (as
+        # the decode steps take its greedy tokens); "free": their own
+        for c, modes in ((cfg, ("forced", "free")), (cfg32, ("forced",))):
+            pre, _ = ST.build_prefill_step(c, shape, device="cuda", mesh=mesh)
+            dec, _ = ST.build_serve_step(c, shape, device="cuda", mesh=mesh)
+            spec = ST.abstract_state(c, mesh, None, ST.StepOptions())[2]
+            sharded = _shard_in_place(mesh, SH, weights(c), spec)
+            for mode in modes:
+                cache = ST.init_sharded_cache(c, mesh, b, depth)
+                with torch.no_grad():
+                    MoE.reset_drop_counts()
+                    FA.launches = FA.copies = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with routing.replay(0, mode == "forced"):
+                        lg, cache = pre(sharded, cache, {"tokens": toks})
+                    torch.cuda.synchronize()
+                    prefill_s = time.perf_counter() - t0
+                    launches, copies = FA.launches, FA.copies
+                    drops = MoE.drop_counts()
+                    got = [_unshard_logits(torch, SH, mesh, lg, b, cfg.vocab)]
+                    dec_ms = []
+                    for i in range(new):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with routing.replay(i + 1, mode == "forced"):
+                            lg, cache = dec(sharded, cache, nxt[i], s + i)
+                        torch.cuda.synchronize()
+                        dec_ms.append(1e3 * (time.perf_counter() - t0))
+                        got.append(_unshard_logits(torch, SH, mesh, lg, b,
+                                                   cfg.vocab))
+                worst, share = _agree(got, want32 if c is cfg32 else want)
+                runs[c.dtype, mode] = dict(
+                    worst=worst, share=share, launches=launches,
+                    copies=copies, drops=drops, prefill_s=prefill_s,
+                    dec_ms=statistics.median(dec_ms))
+                fwd_total += launches
+                del cache, got
+            del sharded
+            torch.cuda.empty_cache()
+        fwd_total += one_launches
+        f, r = runs["bfloat16", "forced"], runs["bfloat16", "free"]
+        x = runs["float32", "forced"]
+        # on the ranks' own choices: phase 26 (a)'s limits, or twice what
+        # weights one ulp off move the one-device steps on their own
+        # choices where that is more (a capacity dispatch is not
+        # continuous: a near-tied choice flipped by a sum in another order
+        # moves its row's dropped tokens)
+        lim_err = max(SHARD_SERVE_TOL, 2 * spread[0])
+        lim_share = min(SHARD_SERVE_GREEDY, 1 - 2 * (1 - spread[1]))
+        # on the recorded choices: phase 26 (a)'s limits, or no farther
+        # from the one-device steps than their f32 twin is where that is
+        # farther (bf16's own rounding); in f32, the f32 tolerance
+        lim_f_err = max(SHARD_SERVE_TOL, exact[0])
+        lim_f_share = min(SHARD_SERVE_GREEDY, exact[1])
+        print(f"[27c] {arch} at full width, {cfg.n_layers} layers (bf16, "
+              f"tp) served on 2 x 2 ranks of the card, {b} prompts x {s} "
+              f"tokens then {new} decode steps on the one-device run's "
+              f"greedy tokens, against the one-device steps: max |logits "
+              f"err| / max(1, max |logit|) {r['worst']:.3e} (limit "
+              f"{lim_err:.3e}: {SHARD_SERVE_TOL} or twice the one-device "
+              f"steps' from weights one ulp off, {spread[0]:.3e}), greedy "
+              f"tokens equal {r['share']:.4f} (limit {lim_share:.4f}: "
+              f"{SHARD_SERVE_GREEDY} or twice the one-ulp run's unequal "
+              f"share, its equal share {spread[1]:.4f}), prefill dropped / "
+              f"routed {r['drops']['dropped']} / {r['drops']['routed']} "
+              f"(one device {one_drops['dropped']} / "
+              f"{one_drops['routed']}, one ulp off "
+              f"{ulp_drops['dropped']}); on the one-device run's expert "
+              f"choices: {f['worst']:.3e} (limit {lim_f_err:.3e}: "
+              f"{SHARD_SERVE_TOL} or the one-device steps' f32 twin's, "
+              f"{exact[0]:.3e}), greedy {f['share']:.4f} (limit "
+              f"{lim_f_share:.4f}: the twin's {exact[1]:.4f}), dropped "
+              f"{f['drops']['dropped']}; in f32 on them, against the "
+              f"one-device f32 steps: {x['worst']:.3e} (limit "
+              f"{SHARD_F32_TOL}), greedy {x['share']:.4f}; flash launches "
+              f"{r['launches']}, {f['launches']} and {x['launches']} (want "
+              f"{4 * n_attn}: one per rank and attention layer), one device "
+              f"{one_launches} (a prefill per data rank's rows), TMA copies "
+              f"{f['copies'] + r['copies'] + x['copies']}", flush=True)
+        print(f"[27c] on {card}: sharded prefill {r['prefill_s']:.3f} s, "
+              f"decode {r['dec_ms']:.2f} ms a step (median of {new})",
+              flush=True)
+        if (r["worst"] > lim_err or r["share"] < lim_share
+                or f["worst"] > lim_f_err or f["share"] < lim_f_share
+                or x["worst"] > SHARD_F32_TOL or x["share"] < 1.0
+                or f["drops"] != one_drops or x["drops"] != one_drops
+                or any(v["launches"] != 4 * n_attn or v["copies"]
+                       for v in runs.values())
+                or one_launches != len(groups) * n_attn):
+            raise AssertionError(f"{arch} sharded serving: {runs}, one "
+                                 f"device launches {one_launches}, drops "
+                                 f"{one_drops}, one-ulp spread {spread}, "
+                                 f"f32 twin {exact}")
+        del want, want32, nxt, routing
+        torch.cuda.empty_cache()
+    return dict(fwd_launches=fwd_total, bwd_launches=bwd_total, train=out)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3719,6 +4328,8 @@ def main() -> int:
                            get_arch, mesh_mod, smi, trained["losses"][0])
     served_2x2 = _timed(26, phase_dryrun, torch, np, T, FA, get_arch,
                         mesh_mod, smi, trained, sharded_train)
+    families = _timed(27, phase_families, torch, np, T, FA, get_arch,
+                      mesh_mod, smi)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -3738,18 +4349,19 @@ def main() -> int:
         launches=(served["flash_launches"] + serve_flash + jamba_flash
                   + whisper_flash + pixtral_flash + trained["fwd_launches"]
                   + sharded_train["fwd_launches"]
-                  + served_2x2["fwd_launches"]),
+                  + served_2x2["fwd_launches"] + families["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
         bwd_launches=trained["bwd_launches"]
-        + sharded_train["bwd_launches"], bwd_ms=fb["bwd_ms"],
+        + sharded_train["bwd_launches"] + families["bwd_launches"],
+        bwd_ms=fb["bwd_ms"],
         bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
         bwd_library_ms=fb["bwd_library_ms"],
         bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
         bwd_dq_ms=fb["bwd_dq_ms"],
     )]
-    print(f"[27] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[28] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -3772,7 +4384,9 @@ def main() -> int:
           f"{served_2x2['sharded_launches']} + {served_2x2['one_launches']} "
           f"(phase 26's olmo-1b prefill on 2 x 2 ranks and on one device: "
           f"{served_2x2['prefill_s']:.3f} s, decode "
-          f"{served_2x2['decode_ms']:.2f} ms a step); phase "
+          f"{served_2x2['decode_ms']:.2f} ms a step) + "
+          f"{families['fwd_launches']} (phase 27's MoE and hybrid families "
+          f"on 2 x 2 ranks, backward {families['bwd_launches']}); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

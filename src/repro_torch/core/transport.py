@@ -467,6 +467,50 @@ def all_to_all(mesh, xs: list, axes, split_dim: int, concat_dim: int) -> list:
     return out
 
 
+def deal_foreign(n: int, parts: int, inverse: bool = False) -> int:
+    """The most chunks any rank of ``deal``'s group of ``n`` receives from
+    another rank (``inverse``: of the deal back)."""
+    if inverse:
+        return max(sum((i * parts + a) % n != i for a in range(parts))
+                   for i in range(n))
+    return max(sum((j + q * n) // parts != j for q in range(parts))
+               for j in range(n))
+
+
+@_collective
+def deal(mesh, xs: list, axes, dim: int, parts: int,
+         inverse: bool = False) -> list:
+    """Every rank of a group splits its tensor into ``parts`` equal chunks
+    along ``dim``; the group's chunks, numbered f = rank x parts + chunk in
+    group order, are dealt round it: chunk f to rank f mod n, which
+    concatenates its chunks along ``dim`` in the order of f.  ``inverse``
+    deals them back.  With ``parts`` = n it is ``all_to_all``; with 2 it
+    brings each rank its contiguous share of both halves of a tensor whose
+    halves (mamba's x and z) the ranks hold contiguously in turn.  Costs
+    the most any rank receives from another (``deal_foreign`` chunks)."""
+    groups = mesh.groups(axes)
+    n = len(groups[0])
+    if xs[0].shape[dim] % parts:
+        raise ValueError(f"dimension {dim} of size {xs[0].shape[dim]} does "
+                         f"not split into {parts}")
+    out = [None] * mesh.size
+    for g in groups:
+        chunks = [xs[r].chunk(parts, dim=dim) for r in g]
+        for j, r in enumerate(g):
+            if inverse:  # rank j's chunk a came from flat f = j parts + a
+                src = [((j * parts + a) % n, (j * parts + a) // n)
+                       for a in range(parts)]
+            else:
+                src = [((j + q * n) // parts, (j + q * n) % parts)
+                       for q in range(parts)]
+            dev = mesh.devices[r]
+            out[r] = torch.cat([chunks[i][c].to(dev) for i, c in src],
+                               dim=dim)
+    _count(deal_foreign(n, parts, inverse) * _nbytes(xs[0]) / parts,
+           "all-to-all")
+    return out
+
+
 @_collective
 def pmax(mesh, xs: list, axes) -> list:
     """``lax.pmax`` over ``axes`` (priced as a psum)."""

@@ -20,11 +20,13 @@ The serving steps: ``prefill_step(params, cache, batch) -> (logits,
 cache)`` runs ``transformer.prefill`` (the last position's logits (B, 1,
 V), the cache filled in place) and ``serve_step(params, cache, tokens,
 position) -> (logits, cache)`` one ``transformer.decode_step``.  On a mesh
-(the dense family) they run ``parallel/runtime.py``'s ``prefill`` /
-``decode`` with parameters laid out as ``abstract_state``'s (no optimizer)
-and the cache as ``sharding.cache_specs``' (``init_sharded_cache``); the
-logits come back as ``Shards``, each rank's rows over the whole
-vocabulary (``sharding.unshard`` with ``batch_spec`` assembles them).
+(the dense, MoE and hybrid families) they run ``parallel/runtime.py``'s
+``prefill`` / ``decode`` with parameters laid out as ``abstract_state``'s
+(no optimizer) and the cache as ``sharding.cache_specs``'
+(``init_sharded_cache``); the logits come back as ``Shards``, each
+rank's rows over the whole vocabulary (``sharding.unshard`` with
+``batch_spec`` assembles them).  A bf16 model's tensor-parallel partials
+are summed in f32 and rounded once (the serving rules' ``reduce_dtype``).
 
 The one-device step: gradients of ``transformer.loss_fn`` by autograd (in
 the parameters' dtype), or with ``microbatch = k`` the mean over k row
@@ -33,14 +35,17 @@ and aux averaged the same way); with ``compress_grads`` the bf16 payload
 and its f32 residual (``opt_state["efb"]``), cast back to f32; then one
 AdamW update.  Metrics: ``loss``, ``ce``, ``moe_aux``, ``grad_norm``.
 
-The sharded step (``mesh=``, the dense family): parameters, moments and
-residuals are trees of ``sharding.Shards`` laid out by ``abstract_state``'s
-specs — TP over ``model``, FSDP over ``fsdp_axis``, the batch over
-``(pod, data)`` — and the loss is ``parallel/runtime.py``'s.  After each
+The sharded step (``mesh=``, the dense, MoE and hybrid families):
+parameters, moments and residuals are trees of ``sharding.Shards`` laid
+out by ``abstract_state``'s specs — TP over ``model``, FSDP over
+``fsdp_axis``, the batch over ``(pod, data)`` — and the loss is
+``parallel/runtime.py``'s.  After each
 microbatch's backward every gradient is reduced into the moment layout:
 psum-scattered over the axes the moments shard and the parameters do not
 (ZeRO-1), psummed over the batch axes its FSDP gather did not already sum;
-with k microbatches the f32 accumulators live in that layout.  Under
+with k microbatches the f32 accumulators live in that layout.  The step
+donates its parameters and optimizer state (the reference's jit donates
+them): the updates are written into the shards it was given.  Under
 ``compress_grads`` the accumulated gradient is compressed per rank with
 its own residual (parameter layout) and that reduction runs on the bf16
 payload (``optim.compressed_allreduce``).  The clipping norm counts each
@@ -48,8 +53,12 @@ distinct shard once (``optim.sharded_global_norm``); AdamW updates each
 distinct moment shard once, and ZeRO-1's updated shards are all-gathered
 back to the parameters' layout.  Each rank splits its own rows into the
 k microbatches (the reference slices the global batch first; the sum is
-the same).  ``step_bytes`` counts the bytes per rank a step moves from the
-specs alone.
+the same for the cross-entropy; the MoE load-balance loss is a statistic
+of each microbatch's rows, so under ``microbatch`` > 1 with MoE layers the
+two steps average it over other row sets).  Metrics as the one-device
+step's: ``ce`` summed over the batch axes, ``moe_aux`` whole on every
+rank, ``loss = ce + aux_coef * moe_aux``.  ``step_bytes`` counts the bytes
+per rank a step moves from the specs alone.
 """
 from __future__ import annotations
 
@@ -367,14 +376,15 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
                 for s in leaves(params)]
         it = iter(live)
         tree = tree_map(lambda _: next(it), params)
-        losses = runtime.local_losses(tree, tokens, targets, n_tokens)
+        losses, ce, aux = runtime.local_losses(
+            tree, tokens, targets, n_tokens, aux_coef=options.aux_coef)
         flat = [t for s in live for t in s]
         got = iter(torch.autograd.grad(
             losses, flat, grad_outputs=[torch.ones_like(x) for x in losses],
             allow_unused=True))
         grads = [[g if g is not None else torch.zeros_like(t)
                   for t, g in zip(s, got)] for s in live]
-        return [x.detach() for x in losses], grads
+        return [x.detach() for x in ce], aux[0].detach(), grads
 
     def train_step(params, opt_state, batch):
         parts = {}
@@ -388,11 +398,12 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
             if any(t.device.type != dev.type for t in x):
                 raise ValueError(f"{name} off {dev}")
             parts[name] = x
-        acc, loss = None, None
+        acc, loss, aux = None, None, 0.0
         for i in range(k):
             mb = {n: [t[i * rows:(i + 1) * rows] for t in x]
                   for n, x in parts.items()}
-            l_i, g_i = micro_grads(params, mb["tokens"], mb["targets"])
+            l_i, a_i, g_i = micro_grads(params, mb["tokens"], mb["targets"])
+            aux = aux + a_i / k
             if not options.compress_grads:
                 g_i = [sync(g, plan) for g, plan in zip(g_i, plans)]
             if k > 1:
@@ -415,8 +426,10 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
         if residual is not None:
             opt_state["efb"] = residual
         ce = TR.psum(mesh, loss, batch_axes)[0].to(dev)
-        metrics = {"ce": ce, "moe_aux": torch.zeros((), device=dev),
-                   "loss": ce, "grad_norm": gn.to(dev)}
+        aux = aux.to(dev)
+        metrics = {"ce": ce, "moe_aux": aux,
+                   "loss": ce + options.aux_coef * aux,
+                   "grad_norm": gn.to(dev)}
         return new_p, opt_state, metrics
 
     return train_step
@@ -458,8 +471,10 @@ def _compressed_sync(mesh, acc, efb, plans, p_specs, m_specs):
 def _adamw_sharded(mesh, opt, params, grads, opt_state, p_specs, m_specs,
                    gn):
     """AdamW on every distinct moment-layout shard once (clipped by the
-    global norm ``gn``); ZeRO-1's shards all-gathered back to the
-    parameters' layout.  Returns (params, mu, nu, step)."""
+    global norm ``gn``), written into the shards given (the step donates
+    its parameters and moments, as the reference's jit does); ZeRO-1's
+    shards all-gathered back to the parameters' layout.  Returns (params,
+    mu, nu, step)."""
     fp, fg, fmu, fnu, owners = {}, {}, {}, {}, []
     for li, (p, g, mu, nu, ps, ms) in enumerate(zip(
             leaves(params), grads, leaves(opt_state["mu"]),
@@ -477,7 +492,7 @@ def _adamw_sharded(mesh, opt, params, grads, opt_state, p_specs, m_specs,
         owners.append(keys)
     new_p, core, _ = adamw_update(
         opt, fp, fg, {"mu": fmu, "nu": fnu, "step": opt_state["step"]},
-        grad_norm=gn)
+        grad_norm=gn, donate=True)
     out_p, out_mu, out_nu = [], [], []
     for keys, ps, ms in zip(owners, p_specs, m_specs):
         pl = [new_p[key] for key in keys]
@@ -524,7 +539,12 @@ def _serving_runtime(cfg, shape, options, dev, mesh, p_spec):
     for d in mesh.devices:
         if d.type != dev.type:
             raise ValueError(f"a rank on {d}, the step on {dev}")
-    rules = SH.activation_rules(cfg, mesh, batch=shape.global_batch)
+    # the tensor-parallel partials summed in f32 and rounded once, as one
+    # device rounds each product once: bf16 partials flip near-tied MoE
+    # choices, and a capacity dispatch spreads a flip over its row
+    wide = None if T.model_dtype(cfg) == torch.float32 else torch.float32
+    rules = SH.activation_rules(cfg, mesh, batch=shape.global_batch,
+                                reduce_dtype=wide)
     return DecoderRuntime(cfg, mesh, p_spec, rules,
                           loss_chunk=options.loss_chunk,
                           max_len=shape.seq_len)

@@ -21,10 +21,14 @@ Parameters are drawn on the device from ``--seed``
 optimizer is AdamW at ``--lr`` with the arch's moment dtype.  ``--mesh
 DxM`` / ``PxDxM`` (any size but 1) trains on a mesh of (pod,) data and
 model ranks that all sit on the one device (``launch.steps``'s sharded
-step, dense family): the full tree is drawn once from the seed and then
+step: the dense, MoE and hybrid families): the full tree is drawn once
+from the seed and then
 sharded, so a sharded run starts from a ``1x1`` run's parameters;
 ``--fsdp-axis``, ``--seq-parallel``, ``--head-2p5d``, ``--bf16-reduce``,
-``--zero1`` and ``--microbatch`` set the step's options.
+``--zero1`` and ``--microbatch`` set the step's options.  ``--layers N``
+trains the arch's first N layers (``cut_depth``: a cut of the depth that
+keeps the widths, for a card that cannot hold the AdamW state of all of
+them).
 
 ``run(argv)`` returns what a caller measures: the losses, grad norms and
 wall seconds of every step run, and the exit code; ``main`` returns the
@@ -91,6 +95,25 @@ def parse_mesh(spec: str, device) -> Mesh:
     raise ValueError(f"mesh spec {spec!r}: want DxM or PxDxM")
 
 
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` cut to its first ``n_layers`` layers: a whole number of
+    layer patterns, or a hybrid's first attention layer and the mamba
+    layers that follow it (jamba's first two: attention + MLP, then mamba
+    + MoE), the pattern then ending at the cut."""
+    import dataclasses
+
+    if n_layers % cfg.layer_pattern_period == 0:
+        return dataclasses.replace(cfg, n_layers=n_layers)
+    cut = dataclasses.replace(cfg, n_layers=n_layers,
+                              attn_layer_period=n_layers)
+    if (cfg.mixer != "mamba_hybrid" or n_layers >= cfg.attn_layer_period
+            or n_layers % cut.layer_pattern_period):
+        raise ValueError(f"{cfg.name}: no cut to {n_layers} layers (a "
+                         f"multiple of its {cfg.layer_pattern_period}-layer "
+                         f"pattern, or a hybrid's first layers)")
+    return cut
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="olmo-1b")
@@ -116,17 +139,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--bf16-reduce", action="store_true")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the arch's first N layers (cut_depth)")
     return ap
 
 
 def run(argv=None) -> dict:
     """Train as ``main`` does; returns {"rc", "start_step", "losses",
-    "grad_norms", "step_s"} (one entry per step run)."""
+    "grad_norms", "moe_aux", "step_s"} (one entry per step run)."""
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     mesh = parse_mesh(args.mesh, dev)
     sharded = mesh.size > 1
     shape = ShapeConfig("train", args.seq_len, args.global_batch, "train")
@@ -174,7 +201,7 @@ def run(argv=None) -> dict:
 
     prev_handler = signal.signal(signal.SIGTERM, _on_term)
     out = {"rc": 0, "start_step": start_step, "losses": [], "grad_norms": [],
-           "step_s": []}
+           "moe_aux": [], "step_s": []}
     try:
         watchdog = StragglerWatchdog()
         t_start = time.time()
@@ -186,6 +213,7 @@ def run(argv=None) -> dict:
             dt = time.time() - t0
             out["losses"].append(loss)
             out["grad_norms"].append(float(metrics["grad_norm"]))
+            out["moe_aux"].append(float(metrics["moe_aux"]))
             out["step_s"].append(dt)
             if not np.isfinite(loss):
                 print(f"[train] step {step}: NON-FINITE LOSS {loss}",

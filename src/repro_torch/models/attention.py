@@ -25,7 +25,7 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.layers import _normal, apply_rope
-from repro_torch.parallel.ctx import tp_reduce_dtype
+from repro_torch.parallel.ctx import tp_matmul
 
 NEG_INF = FA.NEG_INF
 
@@ -90,9 +90,7 @@ def out_proj(cfg: ArchConfig, p: dict, attn: torch.Tensor) -> torch.Tensor:
     comes out in the rules' reduce dtype (the partials a tensor-parallel
     psum then sums), as the reference's ``preferred_element_type``."""
     b, h, s, hd = attn.shape
-    y = attn.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"]
-    dt = tp_reduce_dtype()
-    return y if dt is None else y.to(dt)
+    return tp_matmul(attn.transpose(1, 2).reshape(b, s, h * hd), p["wo"])
 
 
 def chunked_attention(

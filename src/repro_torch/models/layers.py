@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
-from repro_torch.parallel.ctx import tp_reduce_dtype
+from repro_torch.parallel.ctx import tp_matmul
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -137,9 +137,7 @@ def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    y = h @ p["w_out"]
-    dt = tp_reduce_dtype()
-    return y if dt is None else y.to(dt)
+    return tp_matmul(h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------

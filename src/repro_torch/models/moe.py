@@ -101,30 +101,29 @@ def _gate(cfg: ArchConfig, x_gate: torch.Tensor | None,
 
 def _expert_ffn(cfg: ArchConfig, p, xb: torch.Tensor) -> torch.Tensor:
     """Batched per-expert FFN: xb (..., E, C, d) -> (..., E, C, d)."""
-    from repro_torch.parallel.ctx import tp_reduce_dtype
+    from repro_torch.parallel.ctx import tp_bmm
 
     h = torch.einsum("...ecd,edf->...ecf", xb, p["w_in"])
     g = (torch.einsum("...ecd,edf->...ecf", xb, p["w_gate"])
          if cfg.mlp in ("swiglu", "geglu") else None)
-    h = _gate(cfg, g, h)
-    dt = tp_reduce_dtype()
-    if dt is None:
-        return torch.einsum("...ecf,efd->...ecd", h, p["w_out"])
-    return torch.einsum("...ecf,efd->...ecd", h.float(),
-                        p["w_out"].float()).to(dt)
+    return tp_bmm(_gate(cfg, g, h), p["w_out"])
 
 
 def _one_expert_ffn(cfg: ArchConfig, p_e, x: torch.Tensor) -> torch.Tensor:
     """Single expert on all tokens: x (..., d), p_e un-stacked weights."""
+    from repro_torch.parallel.ctx import tp_matmul
+
     h = x @ p_e["w_in"]
     g = x @ p_e["w_gate"] if cfg.mlp in ("swiglu", "geglu") else None
-    return _gate(cfg, g, h) @ p_e["w_out"]
+    return tp_matmul(_gate(cfg, g, h), p_e["w_out"])
 
 
 def _shared_ffn(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.parallel.ctx import tp_matmul
+
     h = x @ p["shared_in"]
     g = x @ p["shared_gate"] if cfg.mlp in ("swiglu", "geglu") else None
-    return _gate(cfg, g, h) @ p["shared_out"]
+    return tp_matmul(_gate(cfg, g, h), p["shared_out"])
 
 
 def router_probs(moe: MoEConfig, logits32: torch.Tensor):
@@ -140,10 +139,33 @@ def router_probs(moe: MoEConfig, logits32: torch.Tensor):
 def load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-style auxiliary loss: E * sum_e f_e * P_e (1.0 == balanced)."""
-    pe = probs.reshape(-1, n_experts).mean(0)
-    counts = torch.bincount(top_e.reshape(-1), minlength=n_experts).float()
-    fe = counts / torch.clamp(counts.sum(), min=1.0)
-    return n_experts * torch.sum(fe * pe)
+    return balance_loss(balance_stats(probs, top_e, n_experts),
+                        probs.numel() // n_experts)
+
+
+def balance_stats(probs: torch.Tensor, top_e: torch.Tensor,
+                  n_experts: int) -> torch.Tensor:
+    """(2, E) f32: the router probabilities summed over the tokens and the
+    choices of each expert counted — the two sums ``load_balance_loss``
+    takes over its batch, here summable over ranks (the sharded runtime
+    adds every rank's before it forms the loss: the loss is not linear in
+    them)."""
+    pe = probs.reshape(-1, n_experts).sum(0)
+    flat = top_e.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.float32,
+                         device=probs.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=probs.device))
+    return torch.stack([pe, counts])
+
+
+def balance_loss(stats: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """``load_balance_loss`` from a batch's ``balance_stats`` (..., 2, E)
+    over ``n_tokens`` tokens, summed over the leading dims (layers)."""
+    n_experts = stats.shape[-1]
+    counts = stats[..., 1, :]
+    fe = counts / torch.clamp(counts.sum(-1, keepdim=True), min=1.0)
+    return n_experts * torch.sum(fe * (stats[..., 0, :] / n_tokens))
 
 
 # ---------------------------------------------------------------------------
@@ -172,22 +194,39 @@ class DispatchSpec:
 
 _DISPATCH_SPEC: DispatchSpec | None = None
 
-# routed (token, choice) pairs and the dropped ones, summed over every
-# apply_moe call since the last reset_drop_counts() (dropped stays a device
-# tensor, so counting adds no host sync)
+# routed (token, choice) pairs and the dropped ones, over every apply_moe
+# call since the last reset_drop_counts(): the dropped counts stay device
+# tensors, kept until asked for (no host sync, no op per call), summed
+# now and then into one
 _routed = 0
-_dropped: torch.Tensor | int = 0
+_dropped: list = []
+_FOLD = 4096
 
 
 def reset_drop_counts() -> None:
     global _routed, _dropped
-    _routed, _dropped = 0, 0
+    _routed, _dropped = 0, []
+
+
+def count_drops(routed: int, dropped) -> None:
+    """Add one call's routed choices and dropped ones (a device tensor) to
+    the running totals (``apply_moe`` and the sharded runtime); a trace's
+    stand-in (a ``meta`` or fake tensor) counts nothing."""
+    global _routed, _dropped
+    if isinstance(dropped, torch.Tensor) and (
+            type(dropped) is not torch.Tensor
+            or dropped.device.type == "meta"):
+        return
+    _routed += routed
+    _dropped.append(dropped)
+    if len(_dropped) >= _FOLD:
+        _dropped = [sum(_dropped)]
 
 
 def drop_counts() -> dict:
     """{"dropped", "routed"} summed since the last ``reset_drop_counts``
     (one host sync)."""
-    return {"dropped": int(_dropped), "routed": _routed}
+    return {"dropped": int(sum(_dropped, 0)), "routed": _routed}
 
 
 @contextlib.contextmanager
@@ -257,25 +296,34 @@ def _dispatch_indices(top_e: torch.Tensor, n_experts: int, capacity: int):
     (Switch dispatch without the (T, E, C) one-hot)."""
     lead, (t, k) = top_e.shape[:-2], top_e.shape[-2:]
     flat = top_e.reshape(lead + (t * k,))
-    onehot = F.one_hot(flat, n_experts).to(torch.int32)
+    # one_hot by a scatter: ``F.one_hot`` checks the ids' range on the
+    # host (a device sync per call on a card)
+    onehot = torch.zeros(lead + (t * k, n_experts), dtype=torch.int32,
+                         device=top_e.device).scatter_(-1, flat[..., None], 1)
     pos = torch.cumsum(onehot, dim=-2) - 1
     slot = torch.gather(pos, -1, flat[..., None])[..., 0]
     keep = slot < capacity
     return slot.reshape(top_e.shape), keep.reshape(top_e.shape)
 
 
-def _apply_capacity(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e, *,
-                    ep: bool):
-    """Capacity scatter dispatch. x (B, S, d); B is the data-sharded dim."""
+def moe_capacity(cfg: ArchConfig, seq: int) -> int:
+    """Expert slots per batch row for ``seq`` tokens: S K f / E, at least
+    one (the reference's ``_apply_capacity``)."""
     moe = cfg.moe
     e, _ = moe_dims(cfg)
+    return max(int(seq * moe.top_k * moe.capacity_factor / e), 1)
+
+
+def capacity_dispatch(cfg: ArchConfig, x: torch.Tensor, top_e):
+    """The capacity dispatch of x (B, S, d): (the (B, E, C, d) buffer,
+    slots (B, S, K), keep mask (B, S, K)).  Every choice is scattered at
+    its clipped slot; a dropped one adds zeros there (``keep`` masks it
+    out of the combine), a kept one lands alone in its slot."""
+    e, _ = moe_dims(cfg)
     b, s, d = x.shape
-    k = moe.top_k
-    capacity = max(int(s * k * moe.capacity_factor / e), 1)
+    k = cfg.moe.top_k
+    capacity = moe_capacity(cfg, s)
     slot, keep = _dispatch_indices(top_e, e, capacity)  # (B, S, K)
-    # scatter every choice into the (B, E, C, d) buffer at its clipped
-    # slot; a dropped choice adds zeros there (`keep` masks it out of the
-    # combine), a kept one lands alone in its slot
     bi = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     es = top_e.reshape(b, s * k)
     ss = torch.clamp(slot, max=capacity - 1).reshape(b, s * k)
@@ -283,6 +331,25 @@ def _apply_capacity(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e, *,
     xe = xe * keep.reshape(b, s * k, 1).to(x.dtype)
     buf = torch.zeros((b, e, capacity, d), dtype=x.dtype, device=x.device)
     buf.index_put_((bi, es, ss), xe, accumulate=True)
+    return buf, slot, keep
+
+
+def capacity_combine(yb: torch.Tensor, top_w, top_e, slot, keep):
+    """Each token's K expert outputs gathered from yb (B, E, C, d) and
+    summed with its kept router weights: (y (B, S, d), dropped)."""
+    b = yb.shape[0]
+    sr = torch.clamp(slot, max=yb.shape[2] - 1)
+    bidx = torch.arange(b, device=yb.device)[:, None, None]
+    y = yb[bidx, top_e, sr]  # (B, S, K, d)
+    w = (top_w * keep.to(top_w.dtype)).to(y.dtype)
+    dropped = (~keep).sum().to(torch.int32)
+    return (y * w[..., None]).sum(-2), dropped
+
+
+def _apply_capacity(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e, *,
+                    ep: bool):
+    """Capacity scatter dispatch. x (B, S, d); B is the data-sharded dim."""
+    buf, slot, keep = capacity_dispatch(cfg, x, top_e)
     if ep:
         from repro_torch.parallel.ctx import shard_act
 
@@ -292,12 +359,7 @@ def _apply_capacity(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e, *,
         from repro_torch.parallel.ctx import shard_act
 
         yb = shard_act(yb, "moe_combine")
-    sr = torch.clamp(slot, max=capacity - 1)
-    bidx = torch.arange(b, device=x.device)[:, None, None]
-    y = yb[bidx, top_e, sr]  # (B, S, K, d)
-    w = (top_w * keep.to(top_w.dtype)).to(y.dtype)
-    dropped = (~keep).sum().to(torch.int32)
-    return (y * w[..., None]).sum(-2), dropped
+    return capacity_combine(yb, top_w, top_e, slot, keep)
 
 
 # bank norms per weight tensor: id -> (weak ref, version, norms).  Only the
@@ -474,9 +536,7 @@ def apply_moe(cfg: ArchConfig, p, x: torch.Tensor, *,
 
     if moe.n_shared:
         y = y + _shared_ffn(cfg, p, x)
-    global _routed, _dropped
-    _routed += top_e.numel()
-    _dropped = _dropped + dropped
+    count_drops(top_e.numel(), dropped)
     if collect_stats:
         stats = {"dropped": dropped,
                  "routed": torch.tensor(top_e.numel(), dtype=torch.int32,

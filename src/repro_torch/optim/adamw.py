@@ -7,7 +7,9 @@ The math is the reference's: update math in f32, moments stored in
 weight decay applies to every leaf; clipping scales the grads by
 ``min(1, clip / max(gn, 1e-9))`` cast to each grad's dtype.  Updates run
 under ``torch.no_grad`` and return new tensors (the reference returns new
-arrays).
+arrays), or with ``donate`` write them into the parameters and moments
+given (the reference's train step donates them to its jit), so a step
+holds one copy of its state.
 """
 from __future__ import annotations
 
@@ -84,18 +86,24 @@ def adamw_update(
     lr_scale: float | torch.Tensor = 1.0,
     *,
     grad_norm: torch.Tensor | None = None,
+    donate: bool = False,
 ) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
     """One update.  Returns (params, state, {"grad_norm"}).  ``grad_norm``
     is the norm to clip by when the trees hold only part of the gradient
     (a sharded step's shards: ``sharded_global_norm``); by default the
-    trees' own ``global_norm``."""
+    trees' own ``global_norm``.  ``donate``: the new values are written
+    into ``params`` and the moments, leaf by leaf, and those are
+    returned."""
     step = state["step"] + 1
     gn = global_norm(grads) if grad_norm is None else grad_norm
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.device, g.dtype),
-                         grads)
+        if not donate:  # the whole tree scaled first; donated, leaf by leaf
+            grads = tree_map(lambda g: g * scale.to(g.device, g.dtype),
+                             grads)
+            scale = None
     s32 = step.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                        device=s32.device), s32)
@@ -105,6 +113,8 @@ def adamw_update(
     mdt = _DTYPES[cfg.moment_dtype]
 
     def upd(p, g, mu, nu):
+        if scale is not None:
+            g = g * scale.to(g.device, g.dtype)
         g32 = g.float()
         mu32 = mu.float() * cfg.b1 + g32 * (1 - cfg.b1)
         nu32 = nu.float() * cfg.b2 + torch.square(g32) * (1 - cfg.b2)
@@ -114,7 +124,12 @@ def adamw_update(
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
-        return p_new.to(p.dtype), mu32.to(mdt), nu32.to(mdt)
+        out = p_new.to(p.dtype), mu32.to(mdt), nu32.to(mdt)
+        if not donate:
+            return out
+        for dst, src in zip((p, mu, nu), out):
+            dst.copy_(src)
+        return p, mu, nu
 
     out = tree_map(upd, params, grads, state["mu"], state["nu"])
     pick = lambda i: tree_map(lambda o: o[i], out)

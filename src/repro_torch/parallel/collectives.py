@@ -20,7 +20,9 @@ same conventions:
   all-gather;
 * ``split``         — each rank's chunk along ``dim``; backward an
   all-gather (a replicated value entering a sequence-split region);
-* ``all_to_all``    — backward the reverse all-to-all.
+* ``all_to_all``    — backward the reverse all-to-all;
+* ``deal``          — the group's chunks dealt round it (``transport.deal``:
+  mamba's x / z halves to each rank's channels); backward the deal back.
 
 The convention is Megatron's: a value replicated over an axis carries the
 whole gradient on every rank, so every rank's loss is seeded with one.
@@ -122,6 +124,19 @@ class _Split(torch.autograd.Function):
             ctx.mesh, [g.contiguous() for g in gs], ctx.axes, ctx.dim)))
 
 
+class _Deal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, parts, *xs):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.parts = mesh, axes, dim, parts
+        return tuple(TR.deal(mesh, list(xs), axes, dim, parts))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, None, *TR.deal(
+            ctx.mesh, [g.contiguous() for g in gs], ctx.axes, ctx.dim,
+            ctx.parts, inverse=True))
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axes, split_dim, concat_dim, *xs):
@@ -174,6 +189,12 @@ def all_to_all(mesh, xs, axes, split_dim: int, concat_dim: int) -> list:
     if _n(mesh, axes) == 1:
         return list(xs)
     return list(_AllToAll.apply(mesh, axes, split_dim, concat_dim, *xs))
+
+
+def deal(mesh, xs, axes, dim: int, parts: int) -> list:
+    if _n(mesh, axes) == 1:
+        return list(xs)
+    return list(_Deal.apply(mesh, axes, dim, parts, *xs))
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
-"""The sharded decoder runtime: the dense family's training loss, prefill
-and decode on a mesh of ranks (a port-only module: the reference writes
-its model once and lets GSPMD partition it from ``param_specs``,
-``activation_rules`` and ``cache_specs``).
+"""The sharded decoder runtime: the training loss, prefill and decode of
+the dense, MoE and hybrid families on a mesh of ranks (a port-only module:
+the reference writes its model once and lets GSPMD partition it from
+``param_specs``, ``activation_rules`` and ``cache_specs``).
 
 One process holds every rank (``launch/mesh.py``).  A parameter is a list
 of per-rank shards placed by ``parallel/sharding.param_specs``; an
@@ -33,6 +33,40 @@ name at the reference's cut points:
   the LM-head contraction is ``matmul_2p5d``'s partial products reduced
   by one psum-scatter over ``pod`` back to each rank's own rows.
 
+MoE layers (``models/moe.py``): the router is replicated over ``model``
+and runs on every model rank's rows (under ``seq_parallel`` on its own
+positions, its weight's gradient then summed over ``model`` like a norm's,
+and the choices all-gathered over the sequence).  ``tp`` / ``dense``:
+the expert banks gathered over their FSDP axis, each rank keeps its
+``model`` chunk of ``d_expert`` (``w_in`` / ``w_gate`` column-, ``w_out``
+row-parallel), so the expert outputs and the combine are partial and take
+the ``btd`` reduction; the tokens and the combine weights enter through
+``btd_full``'s copy (their gradients, partial, summed over ``model``
+once), the router's input does not (its gradient is whole on every
+rank).  Capacity is per batch row, so sharding the batch drops what one
+device drops.  ``ep``: the dispatch buffer, replicated over ``model``, is
+split over its experts (``moe_dispatch``), each rank runs its experts
+whole, and the outputs are all-gathered back (``moe_combine``), so the
+routed part is whole on every rank.  The shared experts are a dense MLP
+under the same rules.  The load-balance loss is not linear in its
+sums, so every layer's router-probability and expert-count sums
+(``moe.balance_stats``) are psummed over the batch axes (and ``model``
+under ``seq_parallel``) and the loss is formed from the global sums.
+``spgemm`` stays on one device (ROADMAP.md item 15c.2).
+
+Mamba layers (``models/mamba.py``): ``in_proj`` column-parallel, the
+per-channel weights (``conv_*``, ``dt_*``, ``a_log``, ``d_skip``) and the
+scan on each rank's channels, ``x_proj`` row-parallel (its dt / B / C
+projection psummed over ``model`` before the split, and its gradient
+summed back: each rank consumes it for its own channels), ``out_proj``
+row-parallel with the ``btd`` reduction.  ``in_proj``'s column shard is
+not the rank's slices of x and z: its (d, 2 d_inner) columns split
+contiguously, so on ``model`` 2 rank 0 holds all of x and rank 1 all of
+z; a deal over ``model`` (``collectives.deal``, an all-to-all at ``model``
+2) brings each rank its x chunk and the matching z chunk.  The serving
+states (the ssm state and the conv tail) split their channels over
+``model``.
+
 FSDP: each layer's weight shards are all-gathered over their FSDP axes
 inside the (remat'd) layer function, so no gathered weight outlives its
 layer under ``remat`` full / dots; the gathers' backward psum-scatters
@@ -41,7 +75,9 @@ step and serves the embedding and, tied, the head.
 
 Every rank's loss is its rows' cross-entropy sum over the global token
 count; under Megatron's convention each is seeded with one, and the sum
-over the batch axes is the loss.  Families other than ``dense`` raise.
+over the batch axes is the loss; the MoE load-balance term, formed from
+global sums, is whole on every rank and counted once.  The ssm, audio and
+vlm families raise naming their ROADMAP.md item.
 
 Serving (``prefill`` / ``decode``, no gradient) runs the same layers,
 gathers and TP collectives on a cache laid out by
@@ -67,18 +103,20 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from repro_torch.core.transport import deal_foreign
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MoE
 from repro_torch.models import transformer as T
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.ctx import sharding_rules
+from repro_torch.parallel.ctx import sharding_rules, tp_matmul, wider
 from repro_torch.parallel.matmul_2p5d import matmul_2p5d
-from repro_torch.parallel.sharding import entry_axes
+from repro_torch.parallel.sharding import batch_axes, entry_axes
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe", "hybrid")
 # the ROADMAP.md Queue A items that add the other families' sharded steps
-NEXT_ITEM = {"moe": "15c", "hybrid": "15d", "ssm": "15e", "audio": "15f",
-             "vlm": "15g"}
+NEXT_ITEM = {"ssm": "15e", "audio": "15f", "vlm": "15g"}
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
 
 
@@ -87,8 +125,13 @@ def check_supported(cfg, mesh) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: a sharded step for the {cfg.family!r} family is "
-            f"ROADMAP.md Queue A item {NEXT_ITEM.get(cfg.family, '15c')}; "
+            f"ROADMAP.md Queue A item {NEXT_ITEM.get(cfg.family, '15e')}; "
             f"the sharded runtime runs {FAMILIES}")
+    if cfg.moe is not None and cfg.moe.impl == "spgemm":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE impl 'spgemm' on a mesh is ROADMAP.md Queue A "
+            f"item 15c.2 (it runs on one device); the sharded runtime runs "
+            f"tp, ep and dense")
     if tuple(mesh.axis_names) not in MESH_AXES:
         raise ValueError(f"mesh axes {mesh.axis_names}: one of {MESH_AXES}")
 
@@ -119,8 +162,6 @@ class DecoderRuntime:
         self.head_spec = emb.get("out", emb["tok"])
         self.embed_tp = emb["tok"][0] == "model"
         self.head_tp = self.head_spec[0] == "model"
-        blk = p_spec["blocks"][0]
-        self.mlp_tp = "model" in blk["mlp"]["w_in"]
         # the spec entries a weight keeps when gathered to its compute
         # layout: heads that do not divide ``model`` gather it too
         self.attn_keep = ("model",) if self.attn_tp else ()
@@ -131,6 +172,13 @@ class DecoderRuntime:
             n_heads=cfg.n_heads // (self.m if self.attn_tp else 1),
             n_kv_heads=cfg.n_kv_heads // (self.m if self.attn_tp else 1))
         self.kinds = T.layer_kinds(cfg)
+        self.dtype = T.model_dtype(cfg)
+        self.n_moe = sum(bool(k["moe"]) for k in self.kinds)
+        # the MoE load-balance sums run over the rows and, under
+        # seq_parallel, the positions
+        ba = batch_axes(mesh)
+        self.aux_axes = ((ba if isinstance(ba, tuple) else (ba,))
+                         + (("model",) if self.seq_split else ()))
         self._layer_fn = T._remat_layer(self._layer, remat)
         self.layout = None if max_len is None else self.kv_layout(max_len)
 
@@ -171,6 +219,29 @@ class DecoderRuntime:
                  else "sum") for dim, entry in enumerate(spec)
                 if entry is not None and entry not in keep]
 
+    @staticmethod
+    def moe_plan(spec) -> dict:
+        """How an MoE layer with weight specs ``spec`` runs: ``routed``
+        (the routed experts' output is partial over ``model``: tp / dense
+        with d_expert split), ``split`` (ep with the experts split over
+        ``model``), ``shared`` (the shared experts' output is partial)."""
+        w_in = spec["w_in"]
+        split = w_in[0] == "model"
+        return {"routed": not split and w_in[-1] == "model", "split": split,
+                "shared": "shared_in" in spec
+                and spec["shared_in"][-1] == "model"}
+
+    @staticmethod
+    def mamba_tp(spec) -> bool:
+        """Whether a mamba layer runs on its channels over ``model`` (its
+        weights then stay as the specs split them); otherwise whole on
+        every model rank."""
+        tp = spec["in_proj"][1] == "model"
+        if tp != (spec["conv_b"][0] == "model"):
+            raise ValueError("mamba: in_proj and the per-channel weights "
+                             "must split over model alike")
+        return tp
+
     def _run(self, op, xs, axes="model", dim=1) -> list:
         if op is None:
             return list(xs)
@@ -210,14 +281,23 @@ class DecoderRuntime:
         return self._run(self.btd_op(self.embed_tp), out)
 
     def _layer(self, cfg, kind, p, x, spec, positions):
-        """One attention + MLP layer over every rank (``cfg`` is unused:
-        the signature is ``transformer._remat_layer``'s)."""
+        """One layer over every rank (``cfg`` is unused: the signature is
+        ``transformer._remat_layer``'s): (x, the MoE layer's per-rank
+        ``balance_stats`` or None)."""
         with sharding_rules(self.rules):  # the recompute runs outside
             return self._layer_body(kind, p, x, spec, positions)
 
     def _layer_body(self, kind, p, x, spec, positions, cache=None):
-        """One layer; with ``cache`` (serving) each rank writes the
-        prompt's K/V into its part of it."""
+        """One layer: its mixer's residual, then its MLP's or MoE's; with
+        ``cache`` (serving) each rank writes the prompt's K/V or its
+        channels' recurrent states into its part of it."""
+        if kind["mixer"] == "mamba":
+            x = self._mamba_res(p, spec, x, cache)
+        else:
+            x = self._attn_layer(kind, p, spec, x, positions, cache)
+        return self._ffn_res(kind, p, spec, x)
+
+    def _attn_layer(self, kind, p, spec, x, positions, cache=None):
         cfg = self.cfg
         pa = {k: self._gather(v, spec["attn"][k], self.attn_keep)
               for k, v in p["attn"].items()}
@@ -232,26 +312,174 @@ class DecoderRuntime:
                                     window=kind.get("window"),
                                     softcap=cfg.attn_softcap)
             ys.append(A.out_proj(self.cfg_attn, w, o))
-        return self._mlp_res(p, spec, self._attn_res(p, x, ys))
+        return self._attn_res(p, x, ys)
 
     def _attn_res(self, p, x, ys) -> list:
         """The attention residual from the ranks' out-projections."""
-        y = self._run(self.btd_op(self.attn_tp), ys)
+        y = self._reduced(self.btd_op(self.attn_tp), ys)
         if self.cfg.post_norm:
             y = self._norm(p["post_ln1"], y)
         return [a + b for a, b in zip(x, y)]
 
+    def _ffn_res(self, kind, p, spec, x):
+        """The second residual: (x, the MoE layer's stats or None)."""
+        if kind["moe"]:
+            return self._moe_res(p, spec, x)
+        return self._mlp_res(p, spec, x), None
+
+    def _out(self, ys) -> list:
+        """Outputs that take a ``btd`` reduction, in the rules' reduce
+        dtype when they set one (``ctx.tp_matmul``'s)."""
+        dt = self.rules.reduce_dtype
+        return list(ys) if dt is None else [y.to(dt) for y in ys]
+
+    def _reduced(self, op, ys) -> list:
+        """The ``btd`` reduction ``op`` of the ranks' outputs, back in the
+        model dtype where the rules sum wider partials (serving's f32)."""
+        y = self._run(op, self._out(ys))
+        dt = self.rules.reduce_dtype
+        if dt is not None and wider(dt, self.dtype):
+            y = [t.to(self.dtype) for t in y]
+        return y
+
     def _mlp_res(self, p, spec, x) -> list:
         """The MLP residual (column- then row-parallel)."""
         cfg = self.cfg
+        tp = "model" in spec["mlp"]["w_in"]
         pm = {k: self._gather(v, spec["mlp"][k], self.mlp_keep)
               for k, v in p["mlp"].items()}
-        xm = self._run(self.full_op(self.mlp_tp), self._norm(p["ln2"], x))
+        xm = self._run(self.full_op(tp), self._norm(p["ln2"], x))
         ys = [L.apply_mlp(cfg, {k: v[r] for k, v in pm.items()}, xr)
               for r, xr in enumerate(xm)]
-        y = self._run(self.btd_op(self.mlp_tp), ys)
+        y = self._reduced(self.btd_op(tp), ys)
         if cfg.post_norm:
             y = self._norm(p["post_ln2"], y)
+        return [a + b for a, b in zip(x, y)]
+
+    def _moe_res(self, p, spec, x):
+        """The MoE residual (``moe_plan``): (x, every rank's
+        ``balance_stats`` of its rows (and positions))."""
+        cfg, mesh, moe = self.cfg, self.mesh, self.cfg.moe
+        sp = spec["moe"]
+        plan = self.moe_plan(sp)
+        e, _ = MoE.moe_dims(cfg)
+        pm = {k: self._gather(v, sp[k], self.mlp_keep)
+              for k, v in p["moe"].items()}
+        router = self._run(self.norm_op(), pm.pop("router"))
+        ws = [{k: v[r] for k, v in pm.items()} for r in range(mesh.size)]
+        xn = self._norm(p["ln2"], x)
+        top_w, top_e, stats = [], [], []
+        for xr, wr in zip(xn, router):
+            tw, te, probs = MoE.router_probs(moe, xr.float() @ wr)
+            stats.append(MoE.balance_stats(probs, te, e))
+            top_w.append(tw.to(xr.dtype))
+            top_e.append(te)
+        xs = self._run(self.full_op(plan["routed"]), xn)
+        top_w = self._run(self.full_op(plan["routed"]), top_w)
+        if self.seq_split:  # every position's choices, for the dispatch
+            top_e = C.all_gather(mesh, top_e, "model", dim=1, grad="slice")
+        # with wider partial sums (serving) the experts' outputs are summed
+        # before the combine, which then rounds as one device's does
+        first = (plan["routed"] and moe.impl != "dense"
+                 and self.rules.reduce_dtype is not None
+                 and wider(self.rules.reduce_dtype, self.dtype))
+        if moe.impl == "dense":  # every choice kept
+            routed = [MoE._apply_dense(cfg, w, xr, tw, te) for w, xr, tw, te
+                      in zip(ws, xs, top_w, top_e)]
+            for r, te in enumerate(top_e):
+                if self.mi[r] == 0:
+                    MoE.count_drops(te.numel(), 0)
+        else:
+            routed = self._capacity(plan, ws, xs, top_w, top_e, first)
+        parts = {plan["routed"] and not first: routed}
+        if moe.n_shared:
+            xsh = (xs if plan["shared"] == plan["routed"] else
+                   self._run(self.full_op(plan["shared"]), xn))
+            shared = [MoE._shared_ffn(cfg, w, xr) for w, xr in zip(ws, xsh)]
+            tp = plan["shared"]
+            parts[tp] = ([a + b for a, b in zip(parts[tp], shared)]
+                         if tp in parts else shared)
+        y = None
+        for tp, ys in parts.items():
+            ys = self._reduced(self.btd_op(tp), ys)
+            y = ys if y is None else [a + b for a, b in zip(y, ys)]
+        if cfg.post_norm:
+            y = self._norm(p["post_ln2"], y)
+        return [a + b for a, b in zip(x, y)], stats
+
+    def _capacity(self, plan, ws, xs, top_w, top_e, first=False) -> list:
+        """The tp / ep capacity dispatch on every rank's rows: under ep
+        the buffer's experts split over ``model`` (``moe_dispatch``) and
+        their outputs gathered back (``moe_combine``); with ``first`` the
+        experts' partial outputs summed over ``model`` before the
+        combine."""
+        cfg, mesh = self.cfg, self.mesh
+        disp = [MoE.capacity_dispatch(cfg, xr, te)
+                for xr, te in zip(xs, top_e)]
+        bufs = [b for b, _, _ in disp]
+        if plan["split"]:
+            bufs = C.split(mesh, bufs, "model", dim=1)
+        ybs = [MoE._expert_ffn(cfg, w, b) for w, b in zip(ws, bufs)]
+        if first:
+            ybs = self._reduced("psum", ybs)
+        if plan["split"]:
+            ybs = C.all_gather(mesh, ybs, "model", dim=1, grad="slice")
+        out = []
+        for r, (yb, tw, te, (_, slot, keep)) in enumerate(zip(
+                ybs, top_w, top_e, disp)):
+            y, dropped = MoE.capacity_combine(yb, tw, te, slot, keep)
+            if self.mi[r] == 0:  # each row's choices counted once
+                MoE.count_drops(te.numel(), dropped)
+            out.append(y)
+        return out
+
+    def _mamba_res(self, p, spec, x, cache=None, decode: bool = False):
+        """The mamba residual (``mamba_tp``); with ``cache`` each rank
+        starts from and writes back its channels' conv tail and ssm
+        state, else they start at zero (training)."""
+        cfg, mesh = self.cfg, self.mesh
+        sp = spec["mamba"]
+        tp = self.mamba_tp(sp)
+        keep = ("model",) if tp else ()
+        pm = {k: self._gather(v, sp[k], keep) for k, v in p["mamba"].items()}
+        ws = [{k: v[r] for k, v in pm.items()} for r in range(mesh.size)]
+        xm = self._run(self.full_op(tp), self._norm(p["ln1"], x))
+        xz = [(xr[:, 0] if decode else xr) @ w["in_proj"]
+              for xr, w in zip(xm, ws)]
+        if tp:  # each rank's x chunk and the matching z chunk
+            xz = C.deal(mesh, xz, "model", dim=-1, parts=2)
+        _, n, dc, _ = MB.mamba_dims(cfg)
+        xcs, zs, convs = [], [], []
+        for r, (t, w) in enumerate(zip(xz, ws)):
+            xi, z = t.chunk(2, dim=-1)
+            conv = (cache["conv"][r] if cache is not None else torch.zeros(
+                (xi.shape[0], dc - 1, xi.shape[-1]), dtype=xi.dtype,
+                device=xi.device))
+            xc, conv = (MB.decode_conv if decode else MB.conv_in)(
+                cfg, w, xi, conv)
+            xcs.append(xc)
+            zs.append(z)
+            convs.append(conv)
+        proj = [(tp_matmul if tp else torch.matmul)(xc, w["x_proj"])
+                for xc, w in zip(xcs, ws)]
+        if tp:  # the dt / B / C projection whole, its gradient summed
+            proj = C.copy(mesh, C.psum(mesh, self._out(proj), "model"),
+                          "model")
+        ys = []
+        for r, (xc, z, w, pr) in enumerate(zip(xcs, zs, ws, proj)):
+            h = (cache["ssm"][r] if cache is not None else torch.zeros(
+                (xc.shape[0], xc.shape[-1], n), dtype=torch.float32,
+                device=xc.device))
+            y, h = (MB.decode_scan if decode else MB.scan)(
+                cfg, w, xc, h, proj=pr.float())
+            if cache is not None:
+                cache["conv"][r].copy_(convs[r])
+                cache["ssm"][r].copy_(h)
+            y = tp_matmul(y.to(z.dtype) * F.silu(z), w["out_proj"])
+            ys.append(y[:, None] if decode else y)
+        y = self._reduced(self.btd_op(tp), ys)
+        if cfg.post_norm:
+            y = self._norm(p["post_ln1"], y)
         return [a + b for a, b in zip(x, y)]
 
     def _ce_chunk(self, xs, ws, ts) -> list:
@@ -288,14 +516,20 @@ class DecoderRuntime:
         return [torch.sum(m + torch.log(s[0]) - s[1])
                 for m, s in zip(top, tot)]
 
-    def local_losses(self, params, tokens, targets, n_tokens: int) -> list:
-        """Every rank's share of the mean cross-entropy: its rows' sum over
-        ``n_tokens`` (the global batch's).  ``params``: the port's tree
-        with a list of per-rank tensors at every leaf; ``tokens`` /
-        ``targets``: per-rank (rows, S) lists.  Runs under the rules (and
-        each layer installs them again for its recompute)."""
+    def local_losses(self, params, tokens, targets, n_tokens: int, *,
+                     aux_coef: float = 0.01) -> tuple[list, list, list]:
+        """(losses, ce, aux), one per rank: ``ce`` the rank's share of the
+        mean cross-entropy (its rows' sum over ``n_tokens``, the global
+        batch's), ``aux`` the MoE load-balance loss of the global batch
+        (whole on every rank), and the loss to seed, ``ce + aux_coef *
+        aux`` (the sum of ``ce`` over the batch axes plus ``aux_coef *
+        aux`` once is the loss).  ``params``: the port's tree with a list
+        of per-rank tensors at every leaf; ``tokens`` / ``targets``:
+        per-rank (rows, S) lists.  Runs under the rules (and each layer
+        installs them again for its recompute)."""
         with sharding_rules(self.rules):
-            return self._local_losses(params, tokens, targets, n_tokens)
+            ce, aux = self._local_losses(params, tokens, targets, n_tokens)
+        return [c + aux_coef * a for c, a in zip(ce, aux)], ce, aux
 
     def _local_losses(self, params, tokens, targets, n_tokens):
         cfg, mesh, spec = self.cfg, self.mesh, self.p_spec
@@ -306,10 +540,13 @@ class DecoderRuntime:
         positions = [torch.arange(s, device=t.device) for t in tokens]
         # a recompute reruns the whole layer, its last reduction too, so
         # the collectives a step runs do not hang on what autograd saves
+        stats = []
         with set_checkpoint_early_stop(False):
             for kind, p, sp in zip(self.kinds, params["blocks"],
                                    spec["blocks"]):
-                x = self._layer_fn(cfg, kind, p, x, sp, positions)
+                x, st = self._layer_fn(cfg, kind, p, x, sp, positions)
+                if st is not None:
+                    stats.append(st)
         x = self._run(self.full_op(self.head_tp),
                       self._norm(params["final_norm"], x))
         head = tok if "out" not in emb else self._gather(
@@ -329,7 +566,18 @@ class DecoderRuntime:
                               use_reentrant=False)
             total = sums if total is None else [a + b for a, b in
                                                 zip(total, sums)]
-        return [t / n_tokens for t in total]
+        return [t / n_tokens for t in total], self._aux(stats, n_tokens)
+
+    def _aux(self, stats, n_tokens: int) -> list:
+        """Every rank's MoE load-balance loss summed over the layers, from
+        the layers' stats summed over ``aux_axes`` (whole on every rank;
+        zero without MoE layers)."""
+        if not stats:
+            return [torch.zeros((), dtype=torch.float32, device=d)
+                    for d in self.mesh.devices]
+        tot = C.psum(self.mesh, [torch.stack(s) for s in zip(*stats)],
+                     self.aux_axes)
+        return [MoE.balance_loss(t, n_tokens) for t in tot]
 
 
 
@@ -403,7 +651,8 @@ class DecoderRuntime:
             for kind, p, sp, c in zip(self.kinds, params["blocks"],
                                       self.p_spec["blocks"],
                                       cache["blocks"]):
-                x = self._layer_body(kind, p, x, sp, positions, cache=c)
+                x, _ = self._layer_body(kind, p, x, sp, positions,
+                                        cache=c)
             return self._logits(params, [xi[:, -1:] for xi in x])
 
     @torch.no_grad()
@@ -425,6 +674,13 @@ class DecoderRuntime:
             return self._logits(params, x)
 
     def _decode_layer(self, kind, p, x, spec, cache, rope, position):
+        if kind["mixer"] == "mamba":
+            x = self._mamba_res(p, spec, x, cache, decode=True)
+        else:
+            x = self._attn_decode(kind, p, spec, x, cache, rope, position)
+        return self._ffn_res(kind, p, spec, x)[0]
+
+    def _attn_decode(self, kind, p, spec, x, cache, rope, position):
         cfg = self.cfg
         window = kind.get("window")
         pa = {k: self._gather(v, spec["attn"][k], self.attn_keep)
@@ -453,7 +709,7 @@ class DecoderRuntime:
         if seq:
             qs = self._combine(qs, parts)
         ys = [A.out_proj(self.cfg_attn, w, o) for w, o in zip(ws, qs)]
-        return self._mlp_res(p, spec, self._attn_res(p, x, ys))
+        return self._attn_res(p, x, ys)
 
     def _combine(self, qs, parts) -> list:
         """The ranks' partial attentions over their chunks of the sequence
@@ -514,19 +770,32 @@ class DecoderRuntime:
             gathers(shapes["embed"]["tok"], spec["embed"]["tok"],
                     self.tok_keep),
             op(self.btd_op(self.embed_tp), act * e)])
+        def residual(tp, keep, p, sp):
+            """A sub-layer's weight gathers, input and output."""
+            return [gathers(leaf, sp[k], keep) for k, leaf in p.items()] + [
+                op(self.full_op(tp), act * e), op(self.btd_op(tp), act * er)]
+
         layers = []
-        for p, sp in zip(shapes["blocks"], spec["blocks"]):
-            layers += [gathers(leaf, sp["attn"][k], self.attn_keep)
-                       for k, leaf in p["attn"].items()]
-            layers += [gathers(leaf, sp["mlp"][k], self.mlp_keep)
-                       for k, leaf in p["mlp"].items()]
-            for tp in (self.attn_tp, self.mlp_tp):
-                layers += [op(self.full_op(tp), act * e),
-                           op(self.btd_op(tp), act * er)]
+        for kind, p, sp in zip(self.kinds, shapes["blocks"], spec["blocks"]):
+            if kind["mixer"] == "mamba":
+                layers += self._mamba_bytes(p["mamba"], sp["mamba"],
+                                            residual, rows * seq, er)
+            else:
+                layers += residual(self.attn_tp, self.attn_keep, p["attn"],
+                                   sp["attn"])
+            if kind["moe"]:
+                layers += self._moe_bytes(p["moe"], sp["moe"], gathers, op,
+                                          rows, seq, e, er)
+            else:
+                layers += residual("model" in sp["mlp"]["w_in"],
+                                   self.mlp_keep, p["mlp"], sp["mlp"])
             layers += norms(p, ("ln1", "ln2", "post_ln1", "post_ln2"))
         f, b = total(layers)
         fwd += f * (2 if self.remat in ("full", "dots") else 1)
         bwd += b
+        if self.n_moe:  # the load-balance sums, outside the layers
+            n = math.prod(axes[a] for a in self.aux_axes)
+            fwd += 2 * (n - 1) / n * self.n_moe * 2 * cfg.moe.n_experts * 4
         head = norms(shapes, ("final_norm",))
         head.append(op(self.full_op(self.head_tp), act * e))
         if "out" in shapes["embed"]:
@@ -548,6 +817,46 @@ class DecoderRuntime:
         if self.head_tp:
             ce_f += 2 * rep * rows * chunk * 4 * 3  # the max, sumexp, gold
         return fwd + bwd + seq // chunk * (2 * ce_f + ce_b)
+
+    def _mamba_bytes(self, p, sp, residual, tokens: int, er: int) -> list:
+        """A mamba layer's (forward, backward) bytes: ``residual``'s, and
+        on its channels the deal of in_proj's product and the x_proj
+        projection's psum (whose gradient is psummed back)."""
+        tp = self.mamba_tp(sp)
+        parts = residual(tp, ("model",) if tp else (), p, sp)
+        if tp:
+            m = self.m
+            di, n, _, dtr = MB.mamba_dims(self.cfg)
+            chunk = tokens * di // m * _itemsize(T.model_dtype(self.cfg))
+            proj = 2 * (m - 1) / m * tokens * (dtr + 2 * n) * er
+            parts += [(deal_foreign(m, 2) * chunk,
+                       deal_foreign(m, 2, inverse=True) * chunk),
+                      (proj, proj)]
+        return parts
+
+    def _moe_bytes(self, p, sp, gathers, op, rows: int, seq: int, e: int,
+                   er: int) -> list:
+        """An MoE layer's (forward, backward) bytes (``_moe_res``)."""
+        cfg, moe = self.cfg, self.cfg.moe
+        plan = self.moe_plan(sp)
+        act = rows * seq * cfg.d_model
+        choices = rows * seq * moe.top_k
+        parts = [gathers(leaf, sp[k], self.mlp_keep) for k, leaf in p.items()]
+        parts += [op(self.norm_op(), _nbytes(p["router"])),
+                  op(self.full_op(plan["routed"]), act * e),
+                  op(self.full_op(plan["routed"]), choices * e)]
+        if self.seq_split:  # the choices' expert ids (int64)
+            parts.append(op("gather_slice", choices * 8))
+        if moe.impl != "dense" and plan["split"]:
+            buf = (rows * moe.n_experts * MoE.moe_capacity(cfg, seq)
+                   * cfg.d_model)
+            parts += [op("split", buf * e), op("gather_slice", buf * er)]
+        outs = {plan["routed"]}
+        if moe.n_shared:
+            if plan["shared"] != plan["routed"]:
+                parts.append(op(self.full_op(plan["shared"]), act * e))
+            outs.add(plan["shared"])
+        return parts + [op(self.btd_op(tp), act * er) for tp in outs]
 
 
 # (forward, backward) bytes per rank of each cut point's collective over

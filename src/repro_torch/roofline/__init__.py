@@ -10,7 +10,8 @@ v5e target.  The port's come from a trace of the step's aten ops
     collective term  = collective wire bytes per device / NVLINK_BW
 
 where a per-device count is the trace's total over the ranks divided by
-the mesh's size (the ranks of the dense family do equal work) and the wire
+the mesh's size (the ranks do equal work: every shape is static, an MoE
+capacity buffer's too) and the wire
 bytes are ``core/transport``'s bytes per destination rank.  The
 constants are the H100 SXM's data-sheet values, not measurements: 989e12
 FLOP/s (bf16 dense, tensor cores), 3.35e12 bytes/s of HBM3, and NVLink's

@@ -20,6 +20,13 @@ so nothing is computed and nothing is allocated.  Over one call it counts:
   while a collective runs (``transport.in_collective``) are the wire's
   work: they add no FLOPs or HBM bytes;
 * the top ops by FLOPs and by bytes (op and output shape);
+* the ops of an eager body: a custom op whose implementation is PyTorch
+  code, not a kernel (mamba's chunk of the selective scan,
+  ``models/mamba.py``, one op so that a trace of thousands of chunks on
+  hundreds of ranks stays quick), counts the ops of its body — traced
+  once per input shape in a nested tracer, its FLOPs, bytes and op count
+  added at every call, its temporaries added to the live bytes for the
+  call's length — as if the body had run op by op;
 * the peak of live bytes per device: the call's arguments, plus every
   buffer an op allocates, alive while a tensor the trace saw still views
   it or autograd's graph holds it for the backward (a saved-tensors
@@ -33,7 +40,7 @@ An op belongs to the device of its first output (or input), which splits
 the counts by rank where each rank has its own device (a fake tensor mode
 keeps ``meta:r``; a plain ``meta`` tensor drops the index, and the dry
 run's abstract ranks, ``launch/mesh.py``, trace as plain ``meta`` tensors
-for speed).  The ranks of a dense-family mesh do equal work, so the cost
+for speed).  The ranks of a mesh do equal work, so the cost
 per device is the total over the ranks divided by the mesh's size
 (``roofline.analyze``), and the memory per device the total live bytes
 over the number of devices the ranks sit on (``trace(devices=)``): exact
@@ -67,8 +74,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core import transport as TR
+from repro_torch.models import mamba as _MB
 
 aten = torch.ops.aten
+
+# custom ops whose implementation is an eager body (``_MB._chunk_op``):
+# the tracer counts the body's ops
+BODIES = {
+    torch.ops.repro_torch.mamba_chunk.default: _MB._chunk_body,
+    torch.ops.repro_torch.mamba_chunk_bwd.default: _MB._chunk_back_body,
+}
 
 # queries of a tensor's metadata: no kernel, no bytes
 _QUERIES = {
@@ -269,6 +284,7 @@ class CostTracer(TorchDispatchMode):
         self._backward_seen = False
         self._held = {}  # storage id -> [holders, bytes]
         self._metas = {}  # _meta_key -> the outputs' metadata, or False
+        self._bodies = {}  # an eager body's input metadata -> its counts
 
     def _run(self, func, args, kwargs):
         """``func`` on its arguments.  On ``meta`` tensors an op seen before
@@ -298,6 +314,10 @@ class CostTracer(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
+        body = None if TR.in_collective() else self._body(func, args, kwargs)
+        if body is not None:
+            self._peaks[self._phase()] = max(self._peaks[self._phase()],
+                                             self._live + body.peak_bytes)
         out = self._run(func, args, kwargs)
         self._hold(func, out)
         if TR.in_collective():
@@ -305,11 +325,21 @@ class CostTracer(TorchDispatchMode):
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         first = (outs or ins or [None])[0]
         dev = "none" if first is None else str(first.device)
-        self.rep.n_ops += 1
         name = f"{func} {tuple(first.shape) if first is not None else ()}"
+        if body is not None:
+            self.rep.n_ops += body.n_ops
+            self._flops[dev] += body.flops
+            self._top_f[name] += body.flops
+            self._bytes[dev] += body.hbm_bytes
+            self._top_m[name] += body.hbm_bytes
+            return out
+        self.rep.n_ops += 1
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None:
-            fl = float(fn(*args, **kwargs, out_val=out))
+            # a ``.dtype`` overload's out_dtype is no shape (``bmm_flop``
+            # would take it for its out_shape)
+            fa = args[:2] if func._overloadname == "dtype" else args
+            fl = float(fn(*fa, **kwargs, out_val=out))
             self._flops[dev] += fl
             self._top_f[name] += fl
         if _is_view(func) or func in _NO_MEM_OPS:
@@ -321,6 +351,24 @@ class CostTracer(TorchDispatchMode):
         if "flash_attention" in func.name():
             self.rep.flash_bytes += nb
         return out
+
+    def _body(self, func, args, kwargs) -> CostReport | None:
+        """The counts of ``func``'s eager body on inputs of these shapes
+        (``BODIES``; traced the first time, with ``peak_bytes`` its live
+        bytes above its inputs), or None for any other op."""
+        fn = BODIES.get(func)
+        if fn is None:
+            return None
+        key = (func, tuple((tuple(t.shape), t.dtype, t.device.type)
+                           for t in _tensors((args, kwargs))))
+        hit = self._bodies.get(key)
+        if hit is None:
+            sub = CostTracer()
+            with torch.no_grad(), sub:
+                fn(*args, **kwargs)
+            hit = self._bodies[key] = sub.report()
+            hit.peak_bytes = max(sub._peaks.values(), default=0.0)
+        return hit
 
     def _hold(self, func, out) -> None:
         """Track the buffers an op allocates (and every tensor that views

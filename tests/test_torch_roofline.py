@@ -313,6 +313,102 @@ def test_fake_trace_counts_the_real_cpu_step(arch, dims, names):
     assert fake.n_ops == real.n_ops
 
 
+def _family_cfg(name):
+    """Reduced MoE and hybrid configs: deepseek under tp or ep, llama4, and
+    jamba cut to its first two layers (attention + MLP, then mamba +
+    MoE)."""
+    from repro_torch.launch.train import cut_depth
+
+    if name == "jamba":
+        return cut_depth(get_arch("jamba-v0.1-52b").reduced(), 2)
+    if name == "llama4":
+        return get_arch("llama4-maverick-400b-a17b").reduced()
+    cfg = get_arch("deepseek-moe-16b").reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl=name.split("-")[1]))
+
+
+@pytest.mark.parametrize("dims,names", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("name", ["deepseek-tp", "deepseek-ep", "llama4",
+                                  "jamba"])
+def test_moe_and_hybrid_traces_count_the_real_cpu_step(name, dims, names):
+    """The MoE and hybrid families' sharded training step: the fake trace
+    counts what the real one counts (FLOPs, HBM bytes, ops, wire bytes),
+    its FLOPs are ``FlopCounterMode``'s over the real step — mamba's chunk
+    ops counted through their eager bodies (``hlo_cost.BODIES``) and
+    their FLOP formulas — and its wire bytes ``step_bytes``."""
+    cfg = _family_cfg(name)
+    mesh = M.make_mesh(dims, names, "cpu")
+    shape = ShapeConfig("t", 32, 4, "train")
+    opt = AdamWConfig(lr=3e-3)
+    options = ST.StepOptions(remat="full", loss_chunk=16)
+    params = T.init_params(cfg, 0, device="cpu")
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=4, seed=0))
+    step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                               device="cpu", mesh=mesh)
+    batch = make_global_batch(data, 0, mesh)
+    TR.reset_bytes()
+    with FlopCounterMode(display=False) as fc:
+        step(*ST.init_sharded(cfg, mesh, params, opt, options), batch)
+    moved = TR.bytes_moved()
+    _, real = HC.trace(step, *ST.init_sharded(cfg, mesh, params, opt,
+                                              options), batch)
+    p, s = ST.init_sharded(cfg, mesh, params, opt, options)
+    with FakeTensorMode() as fm:
+        _, fake = HC.trace(step, _fake(fm, p), _fake(fm, s), _fake(fm, batch))
+    count = ST.step_bytes(cfg, mesh, shape, options, opt)
+    assert fake.flops == real.flops == fc.get_total_flops() > 0
+    assert fake.hbm_bytes == real.hbm_bytes > 0
+    assert fake.n_ops == real.n_ops
+    assert fake.collective_wire_bytes == real.collective_wire_bytes == \
+        moved == count
+
+
+def test_mamba_chunk_op_counts_its_body():
+    """A traced mamba chunk counts its eager body's ops, FLOPs and bytes
+    (traced once per shape): the same as the body traced op by op."""
+    from repro_torch.models import mamba as MB
+
+    gen = torch.Generator().manual_seed(0)
+    t, b, di, n = 8, 2, 16, 4
+    args = [torch.randn(sh, generator=gen) for sh in (
+        (t, b, di), (t, b, n), (t, b, n), (t, b, di), (di, n), (di,),
+        (b, di, n))]
+    args[0] = args[0].abs()
+    _, via_op = HC.trace(lambda *a: MB._chunk_op(*a), *args)
+    _, body = HC.trace(lambda *a: MB._chunk_body(*a), *args)
+    assert via_op.flops == body.flops > 0
+    assert via_op.hbm_bytes == body.hbm_bytes > 0
+    assert via_op.n_ops == body.n_ops
+    with FlopCounterMode(display=False) as fc:
+        MB._chunk_op(*args)
+    assert fc.get_total_flops() == body.flops
+
+
+@pytest.mark.parametrize("shape", [
+    ShapeConfig("t", 64, 4, "train"), ShapeConfig("p", 64, 4, "prefill"),
+    ShapeConfig("d", 64, 4, "decode")], ids=lambda s: s.kind)
+@pytest.mark.parametrize("name", ["deepseek-ep", "llama4", "jamba"])
+def test_moe_and_hybrid_extrapolation_equals_a_direct_trace(name, shape):
+    """On abstract ranks the depth extension holds for the new families:
+    traces of one and two layer patterns extended to four equal a direct
+    four-pattern trace (counts exactly, the peak within PEAK_TOL)."""
+    cfg = _family_cfg(name)
+    mesh = M.Mesh(*MESHES[0][::-1], (torch.device("meta"),) * 4,
+                  abstract=True)
+    options = ST.StepOptions(remat="full", loss_chunk=32)
+    p = cfg.layer_pattern_period
+    one, two, four = (DR.trace_step(cfg, shape, mesh, options, k * p)
+                      for k in (1, 2, 4))
+    got = HC.extrapolate(one, two, p, 2 * p, 4 * p)
+    for attr in ("flops", "hbm_bytes", "collective_wire_bytes",
+                 "argument_bytes", "n_ops"):
+        assert getattr(got, attr) == getattr(four, attr), attr
+    assert got.flops > 0
+    assert abs(got.peak_bytes - four.peak_bytes) <= PEAK_TOL * four.peak_bytes
+
+
 def _meta_mesh(dims, names, distinct=True):
     n = math.prod(dims)
     return M.Mesh(names, dims, tuple(torch.device("meta", r if distinct
@@ -492,12 +588,42 @@ def test_run_cell_record_keys_and_skips():
         jget_arch("olmo_1b"), JC.SHAPES["long_500k"])[1]
 
 
+@pytest.mark.parametrize("arch,shape_id", [
+    ("deepseek_moe_16b", "train_4k"), ("deepseek_moe_16b", "decode_32k"),
+    ("llama4_maverick_400b_a17b", "prefill_32k"),
+    ("jamba_v0_1_52b", "train_4k"), ("jamba_v0_1_52b", "long_500k")])
+def test_moe_and_hybrid_cells_are_ok(arch, shape_id):
+    """``run_cell`` records the MoE and hybrid cells ``ok`` (reduced, on a
+    2 x 2 mesh of abstract ranks): the three terms, the memory, the
+    active-parameter MODEL_FLOPS; jamba is sub-quadratic, so its
+    long_500k cell runs; deepseek's cells under ``--moe-impl ep`` too.
+    Reduced jamba scans in chunks of 4,096 tokens here (8 would trace 512
+    chunks a layer for train_4k's sequence)."""
+    cfg = get_arch(arch).reduced()
+    if cfg.mamba is not None:
+        cfg = dataclasses.replace(cfg, mamba=dataclasses.replace(
+            cfg.mamba, chunk=4096))
+    mesh = M.Mesh(("data", "model"), (2, 2), (torch.device("meta"),) * 4,
+                  abstract=True)
+    for impl in (None, "ep") if arch.startswith("deepseek") else (None,):
+        rec = DR.run_cell(arch, shape_id, "single",
+                          ST.StepOptions(loss_chunk=1024), cfg=cfg, mesh=mesh,
+                          verbose=False, moe_impl=impl)
+        assert rec["ok"] and not rec.get("skipped"), rec
+        rl = rec["roofline"]
+        assert rl["flops_per_device"] > 0 and rl["memory"]["peak_bytes"] > 0
+        assert rec["params_active"] < rec["params_total"]
+        assert rl["model_flops_total"] == RL.model_flops(
+            cfg, C.SHAPES[shape_id])
+
+
 def test_unported_families_fail_naming_their_item(tmp_path, capsys):
     mesh = _meta_mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="15c"):
+    with pytest.raises(NotImplementedError, match="15c.2"):
         DR.run_cell("deepseek_moe_16b", "decode_32k", "single",
                     ST.StepOptions(), cfg=get_arch("deepseek-moe-16b")
-                    .reduced(), mesh=mesh, verbose=False)
+                    .reduced(), mesh=mesh, verbose=False,
+                    moe_impl="spgemm")
     argv = sys.argv
     sys.argv = ["dryrun", "--arch", "rwkv6-7b", "--shape", "prefill_32k",
                 "--mesh", "single", "--out", str(tmp_path)]
@@ -511,3 +637,16 @@ def test_unported_families_fail_naming_their_item(tmp_path, capsys):
                      .read_text())
     assert not rec["ok"] and "NotImplementedError" in rec["error"]
     assert "15e" in rec["error"]
+    sys.argv = ["dryrun", "--arch", "whisper-large-v3", "pixtral-12b",
+                "--shape", "decode_32k", "--mesh", "single", "--out",
+                str(tmp_path)]
+    try:
+        with pytest.raises(SystemExit) as exit_:
+            DR.main()
+    finally:
+        sys.argv = argv
+    assert exit_.value.code == 1
+    for arch, item in (("whisper_large_v3", "15f"), ("pixtral_12b", "15g")):
+        rec = json.loads((tmp_path / f"{arch}__decode_32k__single.json")
+                         .read_text())
+        assert not rec["ok"] and item in rec["error"], arch

@@ -60,7 +60,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import ShapeConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.configs import get_arch
 from repro_torch.core import transport as TR
 from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
@@ -86,6 +86,8 @@ def _one_thread():
 
 
 def _cfg(arch):
+    if isinstance(arch, ArchConfig):
+        return arch
     if arch == "qwen-replicated-heads":
         # 3 heads on a model axis of 2: attention runs whole on each model
         # rank, its column-sharded weights gathered first (qwen1.5-4b's 20
@@ -302,7 +304,11 @@ def _one_ulp(params, seed):
         -1, 2, w.shape, generator=gen).to(w.dtype)), params)
 
 
-def _run_case(arch, dims, opts, monkeypatch, emulate=True):
+def _run_case(arch, dims, opts, monkeypatch, emulate=True,
+              noisy_share=2e-2):
+    """Three sharded steps against the oracle (the module docstring's
+    rules); at most ``noisy_share`` of the parameter entries may take the
+    noise rule."""
     cfg, mesh = _cfg(arch), _mesh(dims)
     shape = ShapeConfig("train", SEQ, BATCH, "train")
     opt = AdamWConfig(lr=LR)
@@ -342,7 +348,7 @@ def _run_case(arch, dims, opts, monkeypatch, emulate=True):
         # of their largest entry and its grad norm by up to 3e-3; such a
         # run is held to twice the oracle's own spread, leaf by leaf
         chaotic = options.bf16_reduce and i > 0
-        for name in ("loss", "ce", "grad_norm"):
+        for name in ("loss", "ce", "moe_aux", "grad_norm"):
             w = float(m1[name])
             floor = max(abs(float(m[name]) - w) for m in mu_)
             lim = TOL * max(1.0, abs(w))
@@ -386,7 +392,7 @@ def _run_case(arch, dims, opts, monkeypatch, emulate=True):
                     else int(mask.sum()) for name, mask in off.items()}
             assert not any(left.values()), (i, left)
     n_noisy = sum(int(m.sum()) for m in noisy)
-    assert n_noisy <= 2e-2 * sum(m.numel() for m in noisy)
+    assert n_noisy <= noisy_share * sum(m.numel() for m in noisy)
 
 
 @pytest.mark.parametrize("arch,dims,opts", CASES, ids=[_id(c) for c in CASES])
@@ -458,11 +464,16 @@ def test_shards_are_the_specs_chunks():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", "15d"), ("deepseek-moe-16b", "15c"),
+    ("jamba-v0.1-52b", "15c.2"), ("deepseek-moe-16b", "15c.2"),
     ("rwkv6-7b", "15e"), ("whisper-large-v3", "15f"),
     ("pixtral-12b", "15g")])
 def test_non_dense_family_raises(arch, item):
+    """The families the sharded runtime does not run, and MoE's spgemm
+    impl on a mesh, raise naming their ROADMAP.md item."""
     cfg = get_arch(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="spgemm"))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ST.build_train_step(cfg, ShapeConfig("train", SEQ, BATCH, "train"),
                             device="cpu", mesh=_mesh((2, 2)))

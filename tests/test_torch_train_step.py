@@ -202,10 +202,9 @@ def test_train_main_learns_and_logs(capsys):
 @pytest.mark.parametrize("mesh", ["2x2", "1x2", "2x1x1"])
 def test_train_mesh_larger_than_one_device_raises(mesh):
     """A mesh larger than one device runs the sharded step, which raises
-    for a family it does not run yet (jamba's hybrid: Queue A item
-    15d)."""
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        train.main([*REDUCED, "--arch", "jamba-v0.1-52b", "--steps", "1",
+    for a family it does not run yet (rwkv6's ssm: Queue A item 15e)."""
+    with pytest.raises(NotImplementedError, match="item 15e"):
+        train.main([*REDUCED, "--arch", "rwkv6-7b", "--steps", "1",
                     "--mesh", mesh])
 
 
