@@ -210,8 +210,9 @@ Phases, each raising on failure:
     measured step.  (c) ``launch.dryrun``'s cells of olmo-1b (decode_32k,
     prefill_32k, train_4k) on the abstract single-pod mesh, each ``ok``:
     trace_s, the three terms, the dominant one and the memory per device;
-    host work on ``meta`` tensors, after every timed measurement of the
-    dense family;
+    host work on ``meta`` tensors in a process of its own, started before
+    phase 17 so that it overlaps the device-bound spgemm serving of phases
+    17 and 18 (its one core beside the run's), read here;
 27. the MoE and hybrid families on (data 2, model 2) ranks of the card
     (``parallel/runtime.py``: experts over ``data`` with d_expert over
     ``model`` (tp) or the experts over ``model`` (ep), the load-balance
@@ -245,7 +246,33 @@ Phases, each raising on failure:
     farther, and the same dropped choices; the same weights in f32 on
     those choices against the one-device f32 steps within 1e-4, every
     greedy token equal; flash launches one per rank and attention layer
-    in every run.
+    in every run;
+28. the ssm, audio and vlm families on (data 2, model 2) ranks of the
+    card (rwkv6's channels and heads over ``model``; whisper's encoder on
+    each rank's frames and cross-attention under the ``xattn`` rules;
+    pixtral's patches placed after the vocab-parallel embedding's
+    reduction).  (a) reduced rwkv6-7b, whisper-large-v3 (with frames) and
+    pixtral-12b (with patches), f32: one sharded training step and a
+    prefill + 4 decode steps on the card against the same on a CPU mesh,
+    within 1e-4, bytes per rank equal to ``step_bytes``, flash launches
+    exact; (b) full width, three sharded steps each (rwkv6 4 of 32 layers,
+    8 x 1,024 tokens; whisper at full depth, 8 x (1,500 frames + 448
+    tokens); pixtral 4 of 40 layers, 8 x (256 patches + 1,792 tokens)):
+    finite losses, step 1's within 1e-2 of the one-device loss, bytes per
+    rank equal to ``step_bytes``, flash launches 4 ranks x attention calls
+    x steps x (2 forward, 3 backward), step ms, tokens/s, the peak; (c)
+    serving at full width and depth (bf16, f32 partial sums; rwkv6 8 x 256
+    + 16, whisper 8 x (1,500 frames + 32) + 32, pixtral 8 x (256 patches
+    + 768 tokens) + 16) against the one-device steps on their greedy
+    tokens: logits within 3e-2 of the largest and at least 0.90 of the
+    greedy tokens equal; where that misses (bf16's own rounding: rwkv6's
+    recurrence carries it through 32 layers and 256 tokens), each bf16
+    path is held to the one-device steps' f32 twin (the same weights in
+    f32): the ranks within 3e-2 / 0.90 of it or twice the one-device
+    steps' own distance from it, and the same weights in f32 on the ranks
+    within 1e-4 of the twin, or twice what weights one ulp off move the
+    twin where that is more; flash launches one per rank and attention
+    call, prefill s and decode ms.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -254,9 +281,11 @@ and prints no result.  Imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -855,13 +884,14 @@ def _profile_window(torch, fn, group=_kernel_group,
                     ) -> tuple[float, dict, int, list]:
     """(wall ms, device ms by kernel group, kernel launches, top kernels)
     of ``fn`` under torch.profiler; one stream, so kernel times add up to
-    the busy time."""
+    the busy time.  Only the device is recorded: the host ops' events
+    (several for every kernel) would cost the profiler host work and add
+    nothing here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3506,13 +3536,41 @@ def _unshard_logits(torch, SH, mesh, shards, batch, vocab):
     return SH.unshard(mesh, shards, SH.batch_spec(mesh, batch, 1, vocab))
 
 
+# the dry run's cells of phase 26 (c), traced in a process of their own
+# (host work on ``meta`` tensors; no card): one cell's record per line
+DRYRUN_SCRIPT = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun as DR
+t0 = time.perf_counter()
+for shape_id in sys.argv[1:]:
+    rec = DR.run_cell("olmo_1b", shape_id, "single", DR.parse_options([]),
+                      verbose=False)
+    print(json.dumps(rec), flush=True)
+print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def start_dryrun_cells() -> subprocess.Popen:
+    """Phase 26 (c)'s cells started in a process beside the run (its one
+    core of host work overlaps the device-bound phases 17 and 18 instead
+    of adding a minute to the command); ``phase_dryrun`` reads them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT,
+                             *DRYRUN_CELLS], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, text=True)
+
+
 def phase_dryrun(torch, np, T, FA, get_arch, mesh_mod, card: str,
-                 trained: dict, sharded_train: dict) -> dict:
+                 trained: dict, sharded_train: dict,
+                 cells: subprocess.Popen | None = None) -> dict:
     """Phase 26 (see the module docstring): (a) sharded serving of olmo-1b
     on 2 x 2 ranks against the one-device steps, (b) the dry run's tracer
     against the card on phase 24's and phase 25's steps, (c) the dry run's
-    cells of olmo-1b on the single-pod mesh.  Returns (a)'s flash
-    launches."""
+    cells of olmo-1b on the single-pod mesh (``cells``: the process
+    ``start_dryrun_cells`` started, else started here).  Returns (a)'s
+    flash launches."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import roofline as RL
@@ -3665,12 +3723,20 @@ def phase_dryrun(torch, np, T, FA, get_arch, mesh_mod, card: str,
         torch.cuda.empty_cache()
 
     # (c) the dry run's olmo-1b cells on the abstract single-pod mesh: host
-    # work on ``meta`` tensors, after every timed measurement of the run
+    # work on ``meta`` tensors, in a process of its own
     t0 = time.perf_counter()
-    for shape_id in DRYRUN_CELLS:
-        rec = DR.run_cell("olmo_1b", shape_id, "single",
-                          DR.parse_options([]), verbose=False)
-        if not rec.get("ok"):
+    if cells is None:
+        cells = start_dryrun_cells()
+    try:
+        out, _ = cells.communicate(timeout=600)
+    finally:
+        cells.kill()
+    recs = [json.loads(line) for line in out.splitlines() if line.strip()]
+    if cells.returncode or len(recs) != len(DRYRUN_CELLS) + 1:
+        raise AssertionError(f"the dry run's process: rc {cells.returncode}"
+                             f", {len(recs)} records")
+    for shape_id, rec in zip(DRYRUN_CELLS, recs):
+        if not rec.get("ok") or rec.get("shape") != shape_id:
             raise AssertionError(f"dry run olmo-1b {shape_id}: {rec}")
         rl = rec["roofline"]
         mem = rl["memory"]
@@ -3687,8 +3753,9 @@ def phase_dryrun(torch, np, T, FA, get_arch, mesh_mod, card: str,
               f"{mem['argument_bytes'] / 2**30:.3f} GiB, temporaries "
               f"{mem['temp_bytes'] / 2**30:.3f} GiB, peak "
               f"{mem['peak_bytes'] / 2**30:.3f} GiB of 80", flush=True)
-    print(f"[26c] the three cells took {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[26c] the three cells took {recs[-1]['seconds']:.1f} s in their "
+          f"own process; phase 26 waited {time.perf_counter() - t0:.1f} s "
+          f"for them", flush=True)
     return dict(fwd_launches=launches + one_launches,
                 sharded_launches=launches, one_launches=one_launches,
                 prefill_s=prefill_s, decode_ms=statistics.median(dec_ms))
@@ -4237,6 +4304,392 @@ def phase_families(torch, np, T, FA, get_arch, mesh_mod, card: str) -> dict:
     return dict(fwd_launches=fwd_total, bwd_launches=bwd_total, train=out)
 
 
+# phase 28: the ssm, audio and vlm families on 2 x 2 ranks of the card.
+# (a) reduced, f32, the card's ranks against a CPU mesh's
+FAMILY2_CASES = ("rwkv6-7b", "whisper-large-v3", "pixtral-12b")
+# (b) full width, three sharded training steps each: (arch, layers, rows,
+# tokens a row).  rwkv6 at 4 of 32 layers (1.41 B parameters, ~17 GB of
+# bf16 weights, bf16 gradients and f32 moments), whisper at full depth
+# (32 + 32 layers, 1.55 B; 1,500 frames a row), pixtral at 4 of 40 layers
+# (2.43 B, ~29 GB; 256 patches in front of 1,792 tokens)
+FAMILY2_TRAIN = (("rwkv6-7b", 4, 8, 1024), ("whisper-large-v3", None, 8,
+                                             448),
+                 ("pixtral-12b", 4, 8, 2048))
+FAMILY2_TRAIN_STEPS = 3
+FAMILY2_TRAIN_LR = 3e-4
+# (c) served at full width and depth: (arch, rows, prompt tokens, new
+# tokens); whisper's prompt after 1,500 frames, pixtral's 1,024 tokens
+# the first 256 of which are patches
+FAMILY2_SERVE = (("rwkv6-7b", 8, 256, 16), ("whisper-large-v3", 8, 32, 32),
+                 ("pixtral-12b", 8, 1024, 16))
+
+
+def phase_families2(torch, np, T, FA, get_arch, mesh_mod, card: str) -> dict:
+    """Phase 28 (see the module docstring): the ssm (rwkv6-7b), audio
+    (whisper-large-v3, frames through the encoder) and vlm (pixtral-12b,
+    patches in front) families on 2 x 2 ranks of the card: (a) reduced
+    against a CPU mesh, (b) full-width training against the one-device
+    loss, (c) full-width serving against the one-device steps.  Returns
+    the flash launch counts."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import transport as TR
+    from repro_torch.data import DataConfig, SyntheticLMData, make_global_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding as SH
+
+    fwd_total = bwd_total = 0
+
+    def embeds(cfg, rows, seed, dev, dtype=None):
+        """The arch's stub frontend input (frames / patches) on ``dev``."""
+        return {k: v.to(dev) for k, v in _stub_embeds(
+            torch, np, cfg, rows, seed, dtype).items()}
+
+    # (a) reduced, f32: the card's ranks against the CPU's
+    opt = AdamWConfig(lr=3e-3)
+    seq, batch = 64, 4
+    shape = ShapeConfig("train", seq, batch, "train")
+    serve_shape = ShapeConfig("serve", 24, batch, "prefill")
+    for arch in FAMILY2_CASES:
+        cfg = get_arch(arch).reduced()
+        n_attn = _flash_per_prefill(T, cfg)
+        options = ST.StepOptions(remat="full", loss_chunk=32)
+        p_cpu = T.init_params(cfg, SEED, device="cpu")
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch, seed=SEED))
+        toks = torch.randint(0, cfg.vocab, (batch, 16),
+                             generator=torch.Generator().manual_seed(SEED))
+        extra = embeds(cfg, batch, SEED, "cpu", torch.float32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            mesh = _mesh_of(mesh_mod, (2, 2), dev)
+            step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                                       device=dev, mesh=mesh)
+            p, s = ST.init_sharded(cfg, mesh, _tree_to(p_cpu, dev), opt,
+                                   options)
+            _, _, p_spec, o_spec = ST.abstract_state(cfg, mesh, opt, options)
+            ins = {k: v.to(dev) for k, v in extra.items()}
+            before = (FA.launches, FA.bwd_launches)
+            TR.reset_bytes()
+            p, s, m = step(p, s, dict(make_global_batch(data, 0, mesh),
+                                      **ins))
+            moved = TR.bytes_moved()
+            launches = (FA.launches - before[0], FA.bwd_launches - before[1])
+            got = (SH.unshard_tree(mesh, p, p_spec),
+                   {"mu": SH.unshard_tree(mesh, s["mu"], o_spec["mu"]),
+                    "nu": SH.unshard_tree(mesh, s["nu"], o_spec["nu"]),
+                    "step": s["step"]})
+            pre, _ = ST.build_prefill_step(cfg, serve_shape, device=dev,
+                                           mesh=mesh)
+            dec, _ = ST.build_serve_step(cfg, serve_shape, device=dev,
+                                         mesh=mesh)
+            sp = SH.shard_tree(mesh, _tree_to(p_cpu, dev), ST.abstract_state(
+                cfg, mesh, None, ST.StepOptions())[2])
+            cache = ST.init_sharded_cache(cfg, mesh, batch, 24)
+            # the CPU run's greedy tokens feed both runs' decode steps
+            nxt = runs["cpu"]["tokens"] if dev == "cuda" else []
+            logits = []
+            serve_before = FA.launches
+            with torch.no_grad():
+                lg, cache = pre(sp, cache, dict(tokens=toks.to(dev), **ins))
+                for i in range(5):
+                    logits.append(_unshard_logits(torch, SH, mesh, lg, batch,
+                                                  cfg.vocab).float().cpu())
+                    if i == 4:
+                        break
+                    if dev == "cpu":
+                        nxt.append(logits[-1][:, -1].argmax(-1)[:, None])
+                    lg, cache = dec(sp, cache, nxt[i].to(dev), 16 + i)
+            serve_launches = FA.launches - serve_before
+            if dev == "cuda":
+                fwd_total += FA.launches - before[0]
+                bwd_total += FA.bwd_launches - before[1]
+            runs[dev] = dict(state=got, metrics=m, moved=moved,
+                             launches=launches, logits=logits, tokens=nxt,
+                             serve_launches=serve_launches,
+                             count=ST.step_bytes(cfg, mesh, shape, options,
+                                                 opt))
+            del p, s, sp, cache
+        c, g = runs["cpu"], runs["cuda"]
+        ok, worst = train_state_close(torch, g["state"], c["state"], opt.lr,
+                                      opt.b2)
+        m_err = max(abs(float(g["metrics"][n]) - float(c["metrics"][n]))
+                    for n in ("loss", "ce", "grad_norm"))
+        l_err = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(g["logits"], c["logits"]))
+        want = (4 * n_attn * 2, 4 * n_attn * FA.BWD_KERNELS)
+        print(f"[28a] reduced {arch} f32 ({cfg.n_layers} layers"
+              + (f", {cfg.encoder.n_layers} encoder layers, "
+                 f"{cfg.encoder.n_frames} frames" if cfg.encoder else "")
+              + (f", {cfg.n_patches} patches" if cfg.frontend == "vision"
+                 else "") + f") on 2 x 2 ranks, card vs CPU: one training "
+              f"step (remat full, {batch} x {seq} tokens): loss "
+              f"{float(g['metrics']['loss']):.6f} vs "
+              f"{float(c['metrics']['loss']):.6f}, max |loss, ce, "
+              f"grad_norm err| {m_err:.3e}, max |err| params "
+              f"{worst['params']:.3e} mu {worst['mu']:.3e} nu "
+              f"{worst['nu']:.3e}; bytes per rank {g['moved']:.0f} (CPU "
+              f"{c['moved']:.0f}, step_bytes {g['count']:.0f}); flash "
+              f"launches forward {g['launches'][0]} backward "
+              f"{g['launches'][1]} (want {want[0]}, {want[1]}); prefill of "
+              f"16 tokens + 4 decode steps: max |logits err| / max(1, "
+              f"max |logit|) {l_err:.3e} (tolerance {TRAIN_TOL}), flash "
+              f"launches {g['serve_launches']} (want {4 * n_attn})",
+              flush=True)
+        if not (ok and m_err <= TRAIN_TOL and l_err <= TRAIN_TOL) or not (
+                g["moved"] == c["moved"] == g["count"]) or (
+                g["launches"] != want) or g["serve_launches"] != 4 * n_attn:
+            raise AssertionError(f"{arch} on 2 x 2 card ranks vs CPU: "
+                                 f"{worst}, {m_err}, {l_err}, bytes "
+                                 f"{g['moved']} / {c['moved']} / "
+                                 f"{g['count']}, launches {g['launches']}, "
+                                 f"{g['serve_launches']}")
+        del runs, c, g, p_cpu
+    torch.cuda.empty_cache()
+
+    # (b) full width: the one-device loss of step 1, then three sharded
+    # steps on 2 x 2 ranks
+    for arch, layers, rows, seq in FAMILY2_TRAIN:
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = train.cut_depth(cfg, layers)
+        n_attn = _flash_per_prefill(T, cfg)
+        shape = ShapeConfig("train", seq, rows, "train")
+        topt = AdamWConfig(lr=FAMILY2_TRAIN_LR,
+                           moment_dtype=cfg.opt_state_dtype)
+        options = ST.StepOptions(remat="full", loss_chunk=min(512, seq))
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=rows, seed=SEED))
+        batches = [dict(make_global_batch(data, i, "cuda"),
+                        **embeds(cfg, rows, SEED + i, "cuda"))
+                   for i in range(FAMILY2_TRAIN_STEPS)]
+
+        def weights():
+            return T.init_params(cfg, torch.Generator("cuda").manual_seed(
+                SEED), device="cuda")
+
+        t0 = time.perf_counter()
+        params = weights()
+        # the loss the one-device step reports at step 1 (before its
+        # update): the same parameters and batch through ``loss_fn``
+        with torch.no_grad():
+            one_loss = float(T.loss_fn(cfg, params, batches[0],
+                                       loss_chunk=options.loss_chunk)[0])
+        mesh = _mesh_of(mesh_mod, (2, 2))
+        step = ST.build_train_step(cfg, shape, opt=topt, options=options,
+                                   device="cuda", mesh=mesh)
+        p, s = ST.init_sharded(cfg, mesh, params, topt, options)
+        del params
+        torch.cuda.empty_cache()
+        count = ST.step_bytes(cfg, mesh, shape, options, topt)
+        torch.cuda.reset_peak_memory_stats()
+        FA.launches = FA.bwd_launches = FA.copies = 0
+        losses, step_s, moved = [], [], []
+        for b in batches:
+            TR.reset_bytes()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            p, s, m = step(p, s, b)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - ts)
+            moved.append(TR.bytes_moved())
+        fwd, bwd, copies = FA.launches, FA.bwd_launches, FA.copies
+        peak = torch.cuda.max_memory_allocated()
+        fwd_total += fwd
+        bwd_total += bwd
+        want = (4 * n_attn * 2 * FAMILY2_TRAIN_STEPS,
+                4 * n_attn * FA.BWD_KERNELS * FAMILY2_TRAIN_STEPS)
+        step_ms = 1e3 * statistics.median(step_s[1:])
+        tokens = rows * seq
+        diff = abs(losses[0] - one_loss)
+        print(f"[28b] {arch} at full width"
+              + (f", {cfg.n_layers} of {get_arch(arch).n_layers} layers"
+                 if layers else f", {cfg.n_layers} layers")
+              + f" ({cfg.param_count() / 1e9:.3f} B parameters, bf16, AdamW"
+              f" f32 moments), {FAMILY2_TRAIN_STEPS} sharded steps on 2 x 2"
+              f" ranks of {rows} x {seq} tokens"
+              + (f" after {cfg.encoder.n_frames} frames" if cfg.encoder
+                 else "")
+              + (f" ({cfg.n_patches} of them patches)"
+                 if cfg.frontend == "vision" else "")
+              + f" (remat full, lr {FAMILY2_TRAIN_LR}): losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; the one-device loss at step 1 {one_loss:.4f}, |diff| "
+              f"{diff:.3e} (limit 1e-2); flash launches forward {fwd} "
+              f"backward {bwd} (want {want[0]}, {want[1]}), TMA copies "
+              f"{copies}; bytes per rank per step "
+              + ", ".join(f"{x:.0f}" for x in moved)
+              + f" (step_bytes {count:.0f})", flush=True)
+        print(f"[28b] on {card}: step ms median (steps 2-"
+              f"{FAMILY2_TRAIN_STEPS}) {step_ms:.2f}, first step "
+              f"{1e3 * step_s[0]:.2f} ms; {tokens / step_ms * 1e3:.1f} "
+              f"tokens/s; peak memory {peak / 2**30:.2f} GiB of 80 GiB; "
+              f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+        if not (all(np.isfinite(losses)) and diff <= 1e-2):
+            raise AssertionError(f"{arch} sharded training: losses "
+                                 f"{losses}, one device {one_loss}")
+        if (fwd, bwd) != want or copies or any(x != count for x in moved):
+            raise AssertionError(f"{arch} sharded training: flash {fwd} / "
+                                 f"{bwd} (want {want}), {copies} copies, "
+                                 f"bytes {moved} vs {count}")
+        del p, s, step, batches
+        torch.cuda.empty_cache()
+
+    # (c) serving at full width and depth against the one-device steps:
+    # bf16 (the ranks' partial sums in f32), and the same weights in f32
+    for arch, rows, s_len, new in FAMILY2_SERVE:
+        cfg = get_arch(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        depth = s_len + new
+        shape = ShapeConfig("serve", depth, rows, "prefill")
+        n_attn = _flash_per_prefill(T, cfg)
+        g = torch.Generator("cuda").manual_seed(SEED + 28)
+        toks = torch.randint(0, cfg.vocab, (rows, s_len), generator=g,
+                             device="cuda")
+        ins = dict(tokens=toks, **embeds(cfg, rows, SEED + 28, "cuda"))
+        nxt = []  # the one-device bf16 run's greedy tokens feed every run
+
+        def weights(c):
+            """The seed's bf16 weights, in f32 for ``cfg32`` (exact)."""
+            p = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                              device="cuda")
+            return _upcast_(p) if c is cfg32 else p
+
+        def inputs(c):
+            return ins if c is cfg else {k: v.float() if v.is_floating_point()
+                                         else v for k, v in ins.items()}
+
+        def one_device(c, params) -> list:
+            pre1, _ = ST.build_prefill_step(c, shape, device="cuda")
+            dec1, _ = ST.build_serve_step(c, shape, device="cuda")
+            cache = T.init_cache(c, rows, depth, device="cuda")
+            lg, cache = pre1(params, cache, inputs(c))
+            out = []
+            for i in range(new + 1):
+                out.append(lg.float().cpu())
+                if i == new:
+                    break
+                if len(nxt) == i:
+                    nxt.append(lg[:, -1].argmax(-1)[:, None])
+                lg, cache = dec1(params, cache, nxt[i], s_len + i)
+            return out
+
+        def ranks(c, params) -> tuple[list, dict]:
+            """Every step's logits on 2 x 2 ranks (the weights sharded in
+            place), the prefill s, decode ms, flash launches, copies."""
+            mesh = _mesh_of(mesh_mod, (2, 2))
+            pre, _ = ST.build_prefill_step(c, shape, device="cuda",
+                                           mesh=mesh)
+            dec, _ = ST.build_serve_step(c, shape, device="cuda", mesh=mesh)
+            spec = ST.abstract_state(c, mesh, None, ST.StepOptions())[2]
+            sharded = _shard_in_place(mesh, SH, params, spec)
+            torch.cuda.empty_cache()
+            cache = ST.init_sharded_cache(c, mesh, rows, depth)
+            FA.launches = FA.copies = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = pre(sharded, cache, inputs(c))
+            torch.cuda.synchronize()
+            run = dict(prefill_s=time.perf_counter() - t0,
+                       launches=FA.launches, copies=FA.copies)
+            got = [_unshard_logits(torch, SH, mesh, lg, rows, cfg.vocab)]
+            dec_ms = []
+            for i in range(new):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = dec(sharded, cache, nxt[i], s_len + i)
+                torch.cuda.synchronize()
+                dec_ms.append(1e3 * (time.perf_counter() - t0))
+                got.append(_unshard_logits(torch, SH, mesh, lg, rows,
+                                           cfg.vocab))
+            run["decode_ms"] = statistics.median(dec_ms)
+            return got, run
+
+        with torch.no_grad():
+            FA.launches = 0
+            want = one_device(cfg, weights(cfg))
+            one_launches = FA.launches
+            torch.cuda.empty_cache()
+            got, run = ranks(cfg, weights(cfg))
+            torch.cuda.empty_cache()
+        fwd_total += one_launches + run["launches"]
+        worst, share = _agree(got, want)
+        ok = worst <= SHARD_SERVE_TOL and share >= SHARD_SERVE_GREEDY
+        print(f"[28c] {arch} at full width and depth (bf16, f32 partial "
+              f"sums) served on 2 x 2 ranks of the card, {rows} prompts x "
+              f"{s_len} tokens"
+              + (f" after {cfg.encoder.n_frames} frames" if cfg.encoder
+                 else "")
+              + (f" ({cfg.n_patches} of them patches)"
+                 if cfg.frontend == "vision" else "")
+              + f" then {new} decode steps on the one-device run's greedy "
+              f"tokens, against the one-device steps: max |logits err| / "
+              f"max(1, max |logit|) {worst:.3e} (limit {SHARD_SERVE_TOL}), "
+              f"greedy tokens equal {share:.4f} (limit "
+              f"{SHARD_SERVE_GREEDY}); flash launches {run['launches']} "
+              f"(want {4 * n_attn}: one per rank and attention call), one "
+              f"device {one_launches} (want {n_attn}), TMA copies "
+              f"{run['copies']}", flush=True)
+        print(f"[28c] on {card}: sharded prefill {run['prefill_s']:.3f} s, "
+              f"decode {run['decode_ms']:.2f} ms a step (median of {new})",
+              flush=True)
+        if (run["launches"] != 4 * n_attn or one_launches != n_attn
+                or run["copies"]):
+            raise AssertionError(f"{arch} sharded serving: {run}, one "
+                                 f"device launches {one_launches}")
+        if not ok:
+            # what bf16 itself moves the one-device steps: the same
+            # weights in f32 (the twin); and the ranks in f32 against the
+            # twin, beside what weights one ulp off move the twin
+            with torch.no_grad():
+                params = weights(cfg32)
+                want32 = one_device(cfg32, params)
+                got32, run32 = ranks(cfg32, params)
+                del params
+                params = weights(cfg32)
+                _one_ulp_(torch, params, SEED + 1)
+                ulp32 = one_device(cfg32, params)
+                del params
+                torch.cuda.empty_cache()
+            fwd_total += run32["launches"] + 2 * n_attn
+            # bf16's error of each path: its distance from the twin
+            exact, mine = _agree(want, want32), _agree(got, want32)
+            x32, spread = _agree(got32, want32), _agree(ulp32, want32)
+            lim_err = max(SHARD_SERVE_TOL, 2 * exact[0])
+            lim_share = min(SHARD_SERVE_GREEDY, 1 - 2 * (1 - exact[1]))
+            lim32 = max(SHARD_F32_TOL, 2 * spread[0])
+            lim32_share = min(1.0, 1 - 2 * (1 - spread[1]))
+            print(f"[28c] {arch}: over {SHARD_SERVE_TOL} / "
+                  f"{SHARD_SERVE_GREEDY}, so each bf16 path is held to the "
+                  f"one-device steps' f32 twin (the same weights in f32): "
+                  f"the ranks {mine[0]:.3e} / greedy {mine[1]:.4f} from it "
+                  f"(limit {lim_err:.3e} / {lim_share:.4f}: "
+                  f"{SHARD_SERVE_TOL} / {SHARD_SERVE_GREEDY} or twice the "
+                  f"one-device steps' own bf16 error, {exact[0]:.3e} / "
+                  f"greedy {exact[1]:.4f}); the ranks in f32 against the "
+                  f"twin {x32[0]:.3e} / greedy {x32[1]:.4f} (limit "
+                  f"{lim32:.3e} / {lim32_share:.4f}: {SHARD_F32_TOL} or "
+                  f"twice what weights one ulp off move the twin, "
+                  f"{spread[0]:.3e} / {spread[1]:.4f}); in f32 on {card}: "
+                  f"prefill {run32['prefill_s']:.3f} s, decode "
+                  f"{run32['decode_ms']:.2f} ms, flash launches "
+                  f"{run32['launches']}", flush=True)
+            if not (mine[0] <= lim_err and mine[1] >= lim_share
+                    and x32[0] <= lim32 and x32[1] >= lim32_share
+                    and run32["launches"] == 4 * n_attn
+                    and not run32["copies"]):
+                raise AssertionError(f"{arch} sharded serving: {mine} "
+                                     f"(one device {exact}), f32 {x32} "
+                                     f"(one ulp {spread}), {run32}")
+            del want32, got32, ulp32
+        del want, got, nxt
+        torch.cuda.empty_cache()
+    return dict(fwd_launches=fwd_total, bwd_launches=bwd_total)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4311,6 +4764,8 @@ def main() -> int:
     tensor = _timed(15, phase_tensor, torch, K, S, plan, TN)
     moe_launches = _timed(16, phase_moe_layer, torch, K, S, MoE, get_arch,
                           envelope)
+    cells = start_dryrun_cells()  # phase 26 (c), beside phases 17 and 18
+    atexit.register(cells.kill)  # a phase that fails leaves it no orphan
     serve_launches, serve_flash = _timed(17, phase_moe_serve, torch, K, FA,
                                          T, MoE, serve)
     jamba_launches, jamba_flash, jamba_kernel = _timed(
@@ -4327,9 +4782,11 @@ def main() -> int:
     sharded_train = _timed(25, phase_sharded_train, torch, np, T, FA,
                            get_arch, mesh_mod, smi, trained["losses"][0])
     served_2x2 = _timed(26, phase_dryrun, torch, np, T, FA, get_arch,
-                        mesh_mod, smi, trained, sharded_train)
+                        mesh_mod, smi, trained, sharded_train, cells)
     families = _timed(27, phase_families, torch, np, T, FA, get_arch,
                       mesh_mod, smi)
+    families2 = _timed(28, phase_families2, torch, np, T, FA, get_arch,
+                       mesh_mod, smi)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -4349,19 +4806,21 @@ def main() -> int:
         launches=(served["flash_launches"] + serve_flash + jamba_flash
                   + whisper_flash + pixtral_flash + trained["fwd_launches"]
                   + sharded_train["fwd_launches"]
-                  + served_2x2["fwd_launches"] + families["fwd_launches"]),
+                  + served_2x2["fwd_launches"] + families["fwd_launches"]
+                  + families2["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
         bwd_launches=trained["bwd_launches"]
-        + sharded_train["bwd_launches"] + families["bwd_launches"],
+        + sharded_train["bwd_launches"] + families["bwd_launches"]
+        + families2["bwd_launches"],
         bwd_ms=fb["bwd_ms"],
         bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
         bwd_library_ms=fb["bwd_library_ms"],
         bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
         bwd_dq_ms=fb["bwd_dq_ms"],
     )]
-    print(f"[28] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[29] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
@@ -4386,7 +4845,10 @@ def main() -> int:
           f"{served_2x2['prefill_s']:.3f} s, decode "
           f"{served_2x2['decode_ms']:.2f} ms a step) + "
           f"{families['fwd_launches']} (phase 27's MoE and hybrid families "
-          f"on 2 x 2 ranks, backward {families['bwd_launches']}); phase "
+          f"on 2 x 2 ranks, backward {families['bwd_launches']}) + "
+          f"{families2['fwd_launches']} (phase 28's ssm, audio and vlm "
+          f"families on 2 x 2 ranks and the one-device serving steps, "
+          f"backward {families2['bwd_launches']}); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

@@ -24,8 +24,12 @@ traced peak less the arguments) and the peak, beside the card's 80 GiB.
 Records go to ``artifacts/dryrun_torch/`` (the reference's to
 ``artifacts/dryrun/``); re-runs skip complete cells unless ``--force``.
 A cell that ``shape_applicable`` rejects is skipped with its reason; a
-family the sharded runtime does not run records ``ok: false`` with the
-``NotImplementedError`` naming its ROADMAP.md item, and the run exits 1.
+cell that fails (MoE's ``spgemm`` impl on a mesh raises
+``NotImplementedError`` naming its ROADMAP.md item) records ``ok: false``
+with the error, and the run exits 1.  Every family traces: whisper's
+cells carry its frames through the full-depth encoder in both traces
+(exact: the encoder's counts cancel in the depth extension), rwkv6's
+and mamba's recurrences one op a chunk.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells

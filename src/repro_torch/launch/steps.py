@@ -20,10 +20,12 @@ The serving steps: ``prefill_step(params, cache, batch) -> (logits,
 cache)`` runs ``transformer.prefill`` (the last position's logits (B, 1,
 V), the cache filled in place) and ``serve_step(params, cache, tokens,
 position) -> (logits, cache)`` one ``transformer.decode_step``.  On a mesh
-(the dense, MoE and hybrid families) they run ``parallel/runtime.py``'s
+they run ``parallel/runtime.py``'s
 ``prefill`` / ``decode`` with parameters laid out as ``abstract_state``'s
 (no optimizer) and the cache as ``sharding.cache_specs``'
-(``init_sharded_cache``); the logits come back as ``Shards``, each
+(``init_sharded_cache``), whisper's frames and pixtral's patches rows
+over the batch axes as ``input_specs_sharded`` places them; the logits
+come back as ``Shards``, each
 rank's rows over the whole vocabulary (``sharding.unshard`` with
 ``batch_spec`` assembles them).  A bf16 model's tensor-parallel partials
 are summed in f32 and rounded once (the serving rules' ``reduce_dtype``).
@@ -35,11 +37,11 @@ and aux averaged the same way); with ``compress_grads`` the bf16 payload
 and its f32 residual (``opt_state["efb"]``), cast back to f32; then one
 AdamW update.  Metrics: ``loss``, ``ce``, ``moe_aux``, ``grad_norm``.
 
-The sharded step (``mesh=``, the dense, MoE and hybrid families):
-parameters, moments and residuals are trees of ``sharding.Shards`` laid
-out by ``abstract_state``'s specs — TP over ``model``, FSDP over
-``fsdp_axis``, the batch over ``(pod, data)`` — and the loss is
-``parallel/runtime.py``'s.  After each
+The sharded step (``mesh=``, every family): parameters, moments and
+residuals are trees of ``sharding.Shards`` laid out by
+``abstract_state``'s specs — TP over ``model``, FSDP over ``fsdp_axis``,
+the batch (tokens, targets, whisper's frames, pixtral's patches) over
+``(pod, data)`` — and the loss is ``parallel/runtime.py``'s.  After each
 microbatch's backward every gradient is reduced into the moment layout:
 psum-scattered over the axes the moments shard and the parameters do not
 (ZeRO-1), psummed over the batch axes its FSDP gather did not already sum;
@@ -371,13 +373,14 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
                 g = TR.psum(mesh, g, axes)
         return g
 
-    def micro_grads(params, tokens, targets):
+    def micro_grads(params, tokens, targets, embeds):
         live = [[t.detach().requires_grad_() for t in s]
                 for s in leaves(params)]
         it = iter(live)
         tree = tree_map(lambda _: next(it), params)
         losses, ce, aux = runtime.local_losses(
-            tree, tokens, targets, n_tokens, aux_coef=options.aux_coef)
+            tree, tokens, targets, n_tokens, aux_coef=options.aux_coef,
+            **embeds)
         flat = [t for s in live for t in s]
         got = iter(torch.autograd.grad(
             losses, flat, grad_outputs=[torch.ones_like(x) for x in losses],
@@ -388,13 +391,18 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
 
     def train_step(params, opt_state, batch):
         parts = {}
-        for name in ("tokens", "targets"):
+        for name in ("tokens", "targets", *EMBEDS):
+            if batch.get(name) is None:
+                continue
             x = batch[name]
             if not isinstance(x, SH.Shards):
-                if tuple(x.shape) != (shape.global_batch, shape.seq_len):
+                if name in EMBEDS:
+                    x = _embed_rows(mesh, x, shape)
+                elif tuple(x.shape) != (shape.global_batch, shape.seq_len):
                     raise ValueError(f"{name} {tuple(x.shape)} != "
                                      f"{(shape.global_batch, shape.seq_len)}")
-                x = SH.shard(mesh, x, batch_spec)
+                else:
+                    x = SH.shard(mesh, x, batch_spec)
             if any(t.device.type != dev.type for t in x):
                 raise ValueError(f"{name} off {dev}")
             parts[name] = x
@@ -402,7 +410,8 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
         for i in range(k):
             mb = {n: [t[i * rows:(i + 1) * rows] for t in x]
                   for n, x in parts.items()}
-            l_i, a_i, g_i = micro_grads(params, mb["tokens"], mb["targets"])
+            l_i, a_i, g_i = micro_grads(params, mb.pop("tokens"),
+                                        mb.pop("targets"), mb)
             aux = aux + a_i / k
             if not options.compress_grads:
                 g_i = [sync(g, plan) for g, plan in zip(g_i, plans)]
@@ -433,6 +442,21 @@ def _sharded_step(cfg, shape, opt, options, dev, mesh):
         return new_p, opt_state, metrics
 
     return train_step
+
+
+# the model inputs beside the tokens: whisper's frames, pixtral's patches
+EMBEDS = ("frame_embeds", "patch_embeds")
+
+
+def _embed_rows(mesh, x, shape) -> SH.Shards:
+    """Whole (B, n, d) embeddings as the ranks' rows, or ``Shards`` as
+    they are."""
+    if isinstance(x, SH.Shards):
+        return x
+    if x.shape[0] != shape.global_batch:
+        raise ValueError(f"embeddings {tuple(x.shape)}: batch "
+                         f"{shape.global_batch}")
+    return SH.shard(mesh, x, SH.batch_spec(mesh, *x.shape))
 
 
 def _tree_of(like, flat_lists) -> Any:
@@ -567,8 +591,8 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
     """Prefill a ``shape.seq_len``-deep cache from a whole prompt (the
     prefill_* cells).  Returns (``prefill_step(params, cache, batch) ->
     (logits, cache)``, (params SDS, cache SDS, batch SDS)); ``batch``
-    holds ``tokens`` (B, S) (and pixtral's / whisper's embeddings on one
-    device)."""
+    holds ``tokens`` (B, S) and pixtral's / whisper's embeddings (on a
+    mesh whole or as ``Shards`` of the ranks' rows)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     p_sds, c_sds, b_sds, p_spec, _ = _serve_abstract(cfg, shape, mesh,
@@ -586,8 +610,10 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
         tokens = batch["tokens"]
         width = tokens[0].shape[1] if isinstance(tokens, SH.Shards) else (
             tokens.shape[1])
+        embeds = {n: _embed_rows(mesh, batch[n], shape) for n in EMBEDS
+                  if batch.get(n) is not None}
         logits = runtime.prefill(params, _rows(mesh, tokens, shape, width),
-                                 cache)
+                                 cache, **embeds)
         return SH.Shards(logits), cache
 
     return sharded_prefill_step, (p_sds, c_sds, b_sds)
@@ -622,9 +648,11 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, *,
 
 def step_bytes(cfg: ArchConfig, mesh, shape: ShapeConfig,
                options: StepOptions = StepOptions(),
-               opt: AdamWConfig | None = None) -> float:
+               opt: AdamWConfig | None = None, *,
+               frames: bool = True) -> float:
     """Bytes per rank one sharded step moves, counted from the specs and
-    shapes alone: each microbatch's forward and backward
+    shapes alone (whisper's with frames through its encoder, unless not
+    ``frames``): each microbatch's forward and backward
     (``DecoderRuntime.loss_bytes``) and its gradient reduction into the moment
     layout (a psum-scatter (n - 1) times its output, a psum 2 (n - 1) / n
     of its input), or under ``compress_grads`` one bf16 psum of each
@@ -643,7 +671,7 @@ def step_bytes(cfg: ArchConfig, mesh, shape: ShapeConfig,
                              loss_chunk=options.loss_chunk)
     total = k * runtime.loss_bytes(p_shape,
                                    rows=shape.global_batch // n_batch // k,
-                                   seq=shape.seq_len)
+                                   seq=shape.seq_len, frames=frames)
 
     def size(entry):
         return math.prod(axes[a] for a in SH.entry_axes(entry))

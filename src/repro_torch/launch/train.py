@@ -21,7 +21,7 @@ Parameters are drawn on the device from ``--seed``
 optimizer is AdamW at ``--lr`` with the arch's moment dtype.  ``--mesh
 DxM`` / ``PxDxM`` (any size but 1) trains on a mesh of (pod,) data and
 model ranks that all sit on the one device (``launch.steps``'s sharded
-step: the dense, MoE and hybrid families): the full tree is drawn once
+step, every family): the full tree is drawn once
 from the seed and then
 sharded, so a sharded run starts from a ``1x1`` run's parameters;
 ``--fsdp-axis``, ``--seq-parallel``, ``--head-2p5d``, ``--bf16-reduce``,

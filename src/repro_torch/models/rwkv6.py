@@ -18,17 +18,34 @@ The state update is a rank-1, non-diagonal recurrence, so the reference
 runs a step scan token by token (inside chunks that only bound its
 memory); the port runs the same loop over the tokens in the same order,
 with the state in f32 — not a chunked "linear attention" form, which sums
-in another order.  There is no Pallas kernel here in the reference and
-none in the port (a wkv kernel is ROADMAP follow-up work).  Decode carries
-(last token, state): O(1) per token.
+in another order.  Each chunk of ``rwkv.chunk`` tokens is one op,
+``repro_torch::rwkv_wkv_chunk`` (an autograd Function, as mamba's chunk
+is): its forward saves only the chunk's inputs and its entry state, and
+its backward (``repro_torch::rwkv_wkv_chunk_bwd``) recomputes the chunk's
+states and runs the recurrence in reverse, so a training step holds no
+per-token (B, h, hd, hd) state.  Autograd through the token loop keeps
+two such tensors a token (8.6 GB a layer for 4 x 2,048 tokens at 32
+heads).  There is no Pallas kernel here in the reference and none in the
+port (a wkv kernel is ROADMAP follow-up work).  Decode carries (last
+token, state): O(1) per token.
+
+The head count is read from the weights' widths, so the sharded runtime
+(``parallel/runtime.py``) runs these functions on a rank's heads: its
+column shards of ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``decay_w2``, its
+slices of ``decay_base`` / ``bonus_u`` / ``ln_x_w`` and its row shard of
+``wo``; the row-parallel products (``wo``, ``cv``) go through
+``ctx.tp_matmul``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.config import ArchConfig, RWKVConfig
 from repro_torch.models.layers import _normal
+from repro_torch.models.mamba import _body_flops, _through_op
+from repro_torch.parallel.ctx import tp_matmul
 
 
 def rwkv_dims(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -89,8 +106,9 @@ def init_rwkv_state(cfg: ArchConfig, batch: int, dtype, *, device) -> dict:
 
 
 def _group_norm(x: torch.Tensor, h: int, hd: int, gain) -> torch.Tensor:
-    """Per-head LayerNorm of the time-mix output (RWKV's ln_x), in f32
-    with the population variance, cast back."""
+    """Per-head LayerNorm of the time-mix output (RWKV's ln_x; ``h``
+    heads of ``hd``, -1: as many as x's width holds), in f32 with the
+    population variance, cast back."""
     xs = x.reshape(x.shape[:-1] + (h, hd)).float()
     mu = xs.mean(-1, keepdim=True)
     var = xs.var(-1, keepdim=True, correction=0)
@@ -110,12 +128,12 @@ def _time_mix_projections(cfg: ArchConfig, p, x: torch.Tensor,
     r, k, v (..., h, hd) in the model dtype, g (..., d), and the decay w
     (..., h, hd) in f32.
     """
-    h, hd, _ = rwkv_dims(cfg)
+    _, hd, _ = rwkv_dims(cfg)
     mu = p["mu_rkvg"]
     xr, xk, xv, xg = (_shift_mix(x, x_prev, mu[i]) for i in range(4))
     xw = _shift_mix(x, x_prev, p["mu_w"])
 
-    shp = x.shape[:-1] + (h, hd)
+    shp = x.shape[:-1] + (-1, hd)
     r = (xr @ p["wr"]).reshape(shp)
     k = (xk @ p["wk"]).reshape(shp)
     v = (xv @ p["wv"]).reshape(shp)
@@ -141,12 +159,129 @@ def _scaled(r, k, v, hd: int):
     return (r.float() * hd**-0.5, k.float() * hd**-0.5, v.float())
 
 
+def _wkv_chunk_body(r, k, v, w, u, s0):
+    """One chunk of the recurrence, token by token in order: r, k, v, w
+    (T, B, h, hd) f32 token-major, the bonus u (h, hd) and the entry state
+    s0 (B, h, hd, hd).  Returns (the outputs (T, B, h, hd), the last
+    state).  ``_wkv_step``'s arithmetic, its outer products k^T v made for
+    the whole chunk at once (the same products), so a token launches
+    three kernels, not four."""
+    u_col = u[None, :, :, None]
+    kv = k[..., :, None] * v[..., None, :]  # (T, B, h, hd, hd)
+    st, outs = s0, []
+    for r_t, kv_t, w_t in zip(r.unsqueeze(-2).unbind(0), kv.unbind(0),
+                              w.unsqueeze(-1).unbind(0)):
+        outs.append(torch.matmul(r_t, torch.addcmul(st, u_col, kv_t)))
+        st = torch.addcmul(kv_t, w_t, st)
+    return torch.stack(outs, 0).squeeze(-2), st
+
+
+def _wkv_chunk_back_body(r, k, v, w, u, s0, gy, gs):
+    """The chunk's gradients from gy (T, B, h, hd) and gs (the last
+    state's): the states S_0 .. S_{T-1} recomputed, then H_t = dL/dS_t in
+    reverse token order, H_{t-1} = r_t^T gy_t + diag(w_t) H_t from H_T =
+    gs.  Returns (dr, dk, dv, dw, du, ds0)."""
+    kv = k[..., :, None] * v[..., None, :]  # (T, B, h, hd, hd)
+    prev = torch.empty_like(kv)  # S_{t-1}, the state each token reads
+    st = s0
+    for t in range(kv.shape[0]):
+        prev[t] = st
+        st = torch.addcmul(kv[t], w[t][..., None], st)
+    dm = r[..., :, None] * gy[..., None, :]  # dL/dM_t, M_t = S + diag(u) kv
+    big = torch.empty_like(kv)  # H_t, the gradient of the state after t
+    acc = gs
+    for t in range(kv.shape[0] - 1, -1, -1):
+        big[t] = acc
+        acc = torch.addcmul(dm[t], w[t][..., None], acc)
+    u_col = u[:, :, None]
+    dr = torch.einsum("tbhij,tbhj->tbhi", torch.addcmul(prev, u_col, kv), gy)
+    dw = (big * prev).sum(-1)
+    del prev
+    du = (kv * dm).sum((0, 1, 4))
+    del kv
+    dkv = torch.addcmul(big, u_col, dm)
+    del big, dm
+    dk = torch.einsum("tbhij,tbhj->tbhi", dkv, v)
+    dv = torch.einsum("tbhij,tbhi->tbhj", dkv, k)
+    return dr, dk, dv, dw, du, acc
+
+
+@torch.library.custom_op("repro_torch::rwkv_wkv_chunk", mutates_args=())
+def _wkv_chunk_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_wkv_chunk_body`` as one op."""
+    return _wkv_chunk_body(r, k, v, w, u, s0)
+
+
+@_wkv_chunk_op.register_fake
+def _(r, k, v, w, u, s0):
+    return torch.empty_like(r), torch.empty_like(s0)
+
+
+@torch.library.custom_op("repro_torch::rwkv_wkv_chunk_bwd", mutates_args=())
+def _wkv_chunk_back_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                       gy: torch.Tensor, gs: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_wkv_chunk_back_body`` as one op."""
+    return _wkv_chunk_back_body(r, k, v, w, u, s0, gy, gs)
+
+
+@_wkv_chunk_back_op.register_fake
+def _(r, k, v, w, u, s0, gy, gs):
+    return tuple(torch.empty_like(t) for t in (r, k, v, w, u, s0))
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv_wkv_chunk)
+def _(*shapes, out_shape=None, **kw):
+    return _body_flops(_wkv_chunk_body, tuple(map(tuple, shapes)))
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv_wkv_chunk_bwd)
+def _(*shapes, out_shape=None, **kw):
+    return _body_flops(_wkv_chunk_back_body, tuple(map(tuple, shapes)))
+
+
+class _WkvChunk(torch.autograd.Function):
+    """A chunk of the recurrence with a gradient: it saves its inputs and
+    entry state only, and its backward recomputes the chunk's states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        run = _wkv_chunk_op if _through_op(r) else _wkv_chunk_body
+        return run(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        saved = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(saved[0])
+        if gs is None:
+            gs = torch.zeros_like(saved[5])
+        run = _wkv_chunk_back_op if _through_op(gy) else _wkv_chunk_back_body
+        return run(*saved, gy.contiguous(), gs.contiguous())
+
+
+def rwkv_wkv_chunk(r, k, v, w, u, s0):
+    """``_wkv_chunk_body`` through ``_WkvChunk`` when a gradient is to be
+    taken, else through its op or straight to it (``mamba._through_op``).
+    """
+    ins = (r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _WkvChunk.apply(*ins)
+    return (_wkv_chunk_op if _through_op(r) else _wkv_chunk_body)(*ins)
+
+
 def apply_rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
     """Time mix over a sequence. x (B, S, d) -> (y, new state); ``state``
-    is not modified."""
+    is not modified.  The recurrence runs one ``rwkv_wkv_chunk`` a chunk
+    on token-major (S, B, h, hd) f32 operands."""
     r_cfg = cfg.rwkv or RWKVConfig()
-    h, hd, _ = rwkv_dims(cfg)
-    b, s, d = x.shape
+    _, hd, _ = rwkv_dims(cfg)
+    b, s, _ = x.shape
     chunk = min(r_cfg.chunk, s)
     if s % chunk:
         raise ValueError(f"rwkv6 prefill: sequence length {s} is longer "
@@ -157,30 +292,33 @@ def apply_rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
     r, k, v, g, w = _time_mix_projections(cfg, p, x, x_prev)
     del x_prev
     rf, kf, vf = _scaled(r, k, v, hd)
-    # token-major and shaped for broadcasting once, then one view per
-    # token: the loop below launches four kernels a token and little else
-    rows = (rf.transpose(0, 1).unsqueeze(-2).contiguous().unbind(0),
-            kf.transpose(0, 1).unsqueeze(-1).contiguous().unbind(0),
-            vf.transpose(0, 1).unsqueeze(-2).contiguous().unbind(0),
-            w.transpose(0, 1).unsqueeze(-1).contiguous().unbind(0))
+    tm = [t.transpose(0, 1).contiguous() for t in (rf, kf, vf, w)]
     del r, k, v, w, rf, kf, vf
-    u_col = p["bonus_u"][None, :, :, None]
     st = state["wkv"]
     outs = []
-    for r_t, k_t, v_t, w_t in zip(*rows):
-        st, o = _wkv_step(st, r_t, k_t, v_t, w_t, u_col)
+    for c0 in range(0, s, chunk):
+        o, st = rwkv_wkv_chunk(*(t[c0:c0 + chunk] for t in tm),
+                               p["bonus_u"], st)
         outs.append(o)
-    y = torch.stack(outs, 1).reshape(b, s, d)
-    y = _group_norm(y.to(x.dtype), h, hd, p["ln_x_w"]) * g
-    return y @ p["wo"], dict(state, shift_t=x[:, -1], wkv=st)
+    y = torch.cat(outs, 0).transpose(0, 1).reshape(b, s, -1)
+    y = _group_norm(y.to(x.dtype), -1, hd, p["ln_x_w"]) * g
+    return tp_matmul(y, p["wo"]), dict(state, shift_t=x[:, -1], wkv=st)
 
 
-def _channel_mix(p, x, x_prev):
+def channel_parts(p, x, x_prev):
+    """The channel mix's gate sigmoid(xr cr) and value relu(xk ck)^2 cv
+    (a partial sum over ``model`` on a rank: ``cv`` is row-parallel), whose
+    product is the output."""
     mu = p["mu_c"]
     xk = _shift_mix(x, x_prev, mu[0])
     xr = _shift_mix(x, x_prev, mu[1])
     kk = torch.square(F.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (kk @ p["cv"])
+    return torch.sigmoid(xr @ p["cr"]), tp_matmul(kk, p["cv"])
+
+
+def _channel_mix(p, x, x_prev):
+    gate, value = channel_parts(p, x, x_prev)
+    return gate * value
 
 
 def apply_rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
@@ -192,7 +330,7 @@ def apply_rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
 
 def decode_rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
     """Single-token time mix: x (B, 1, d) -> (y (B, 1, d), new state)."""
-    h, hd, _ = rwkv_dims(cfg)
+    _, hd, _ = rwkv_dims(cfg)
     xt = x[:, 0]
     r, k, v, g, w = _time_mix_projections(cfg, p, xt,
                                           state["shift_t"].to(x.dtype))
@@ -201,8 +339,9 @@ def decode_rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, state):
                            vf[..., None, :], w[..., :, None],
                            p["bonus_u"][None, :, :, None])
     y = out.reshape(xt.shape[0], -1)
-    y = _group_norm(y.to(x.dtype), h, hd, p["ln_x_w"]) * g
-    return (y @ p["wo"])[:, None], dict(state, shift_t=xt, wkv=s_new)
+    y = _group_norm(y.to(x.dtype), -1, hd, p["ln_x_w"]) * g
+    return tp_matmul(y, p["wo"])[:, None], dict(state, shift_t=xt,
+                                                 wkv=s_new)
 
 
 def decode_rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor, state):

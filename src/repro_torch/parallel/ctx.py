@@ -29,8 +29,7 @@ _STATE = threading.local()
 _NO_GSPMD = ("one tensor cannot be resharded under sharding rules: sharded "
              "activations are per-rank lists, laid out by parallel/runtime.py "
              "(whose MoE layers run these cut points themselves, on every "
-             "rank's buffer; the families it does not run are ROADMAP.md "
-             "Queue A item 15e-15g)")
+             "rank's buffer)")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """The sharded decoder runtime: the training loss, prefill and decode of
-the dense, MoE and hybrid families on a mesh of ranks (a port-only module:
-the reference writes its model once and lets GSPMD partition it from
-``param_specs``, ``activation_rules`` and ``cache_specs``).
+every family (dense, MoE, hybrid, ssm, audio, vlm) on a mesh of ranks (a
+port-only module: the reference writes its model once and lets GSPMD
+partition it from ``param_specs``, ``activation_rules`` and
+``cache_specs``).
 
 One process holds every rank (``launch/mesh.py``).  A parameter is a list
 of per-rank shards placed by ``parallel/sharding.param_specs``; an
@@ -67,6 +68,45 @@ z; a deal over ``model`` (``collectives.deal``, an all-to-all at ``model``
 states (the ssm state and the conv tail) split their channels over
 ``model``.
 
+rwkv6 layers (``models/rwkv6.py``, the ssm family): the time mix's
+``wr`` / ``wk`` / ``wv`` / ``wg`` and ``decay_w2`` column-parallel, so a
+rank holds d / m channels, whole heads (4 of 64 at ``model`` 16), and runs
+the recurrence and the per-head group norm on them; ``wo`` row-parallel
+with the ``btd`` reduction.  ``decay_w1`` is whole on every model rank
+and each uses it for its own columns of ``decay_w2``, so its gradient is
+summed over ``model`` (a copy); so are the interpolation factors'
+(``mu_*``, which act on the whole input).  ``decay_base``, ``bonus_u``
+and ``ln_x_w`` match no rule: replicated, each rank takes its channels'
+slice (a split, whose backward all-gathers the slices' gradients).  The
+channel mix's ``ck`` is column- and ``cv`` row-parallel, so ``kk @ cv``
+is a partial sum of full width, while ``cr`` is column-parallel, so the
+gate ``sigmoid(xr @ cr)`` is split on d: the gate is all-gathered over
+``model`` (its gradient psum-scattered back: each rank's is partial) and
+multiplies each rank's partial value, and the product takes the ``btd``
+reduction (under ``seq_parallel`` a psum-scatter, as every row-parallel
+output).  The token shift reads the previous position of the
+full-sequence ``btd_full`` input.  The serving state: ``wkv`` splits its
+heads over ``model``, the shift tails stay whole on every model rank.
+Where the heads do not divide ``model`` the layer runs whole on every
+model rank, its weights gathered.
+
+whisper (audio): the encoder's blocks run under the dense rules,
+non-causal, on the frames (sharded with the batch; the sinusoidal
+positions added to whole rows); its output, whole on every model rank,
+enters through ``btd_full``'s cut once (a copy, or under ``seq_parallel``
+an all-gather), so its gradient, partial per model rank where the heads
+split, is summed over ``model`` once for every layer's cross K/V
+projections.  Under ``seq_parallel`` the frame count must divide
+``model`` (1,500 on 16 does not: ``ValueError``).  Each decoder layer's
+cross-attention (``xattn``) runs as self-attention does, non-causal
+against the encoder output.  The decoder's sinusoidal positions, and
+pixtral's (vlm) patch embeddings in place of the prefix rows, are added
+after the vocab-parallel embedding's ``btd`` reduction, each rank's rows
+at their own positions under ``seq_parallel``.  Serving keeps two cache
+layouts in one whisper model: the self K/V by ``kv_layout(max_len)``, the
+cross K/V (written once at prefill from the encoder output) by
+``kv_layout(n_frames)``.
+
 FSDP: each layer's weight shards are all-gathered over their FSDP axes
 inside the (remat'd) layer function, so no gathered weight outlives its
 layer under ``remat`` full / dots; the gathers' backward psum-scatters
@@ -76,8 +116,7 @@ step and serves the embedding and, tied, the head.
 Every rank's loss is its rows' cross-entropy sum over the global token
 count; under Megatron's convention each is seeded with one, and the sum
 over the batch axes is the loss; the MoE load-balance term, formed from
-global sums, is whole on every rank and counted once.  The ssm, audio and
-vlm families raise naming their ROADMAP.md item.
+global sums, is whole on every rank and counted once.
 
 Serving (``prefill`` / ``decode``, no gradient) runs the same layers,
 gathers and TP collectives on a cache laid out by
@@ -108,25 +147,25 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MoE
+from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.ctx import sharding_rules, tp_matmul, wider
 from repro_torch.parallel.matmul_2p5d import matmul_2p5d
 from repro_torch.parallel.sharding import batch_axes, entry_axes
 
-FAMILIES = ("dense", "moe", "hybrid")
-# the ROADMAP.md Queue A items that add the other families' sharded steps
-NEXT_ITEM = {"ssm": "15e", "audio": "15f", "vlm": "15g"}
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+# whisper's encoder blocks: attention without a mask, then a dense MLP
+ENCODER_KIND = dict(T.ENCODER_KIND, causal=False)
+# rwkv6's leaves that act whole on every model rank (their gradients
+# summed over ``model``) and those each rank takes its channels' slice of
+RWKV_SUMMED = ("mu_rkvg", "mu_w", "decay_w1", "mu_c")
+RWKV_SLICED = ("decay_base", "bonus_u", "ln_x_w")
 
 
 def check_supported(cfg, mesh) -> None:
-    """Raise for a family or a mesh the sharded runtime does not run."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: a sharded step for the {cfg.family!r} family is "
-            f"ROADMAP.md Queue A item {NEXT_ITEM.get(cfg.family, '15e')}; "
-            f"the sharded runtime runs {FAMILIES}")
+    """Raise for MoE's spgemm impl or a mesh the sharded runtime does not
+    run."""
     if cfg.moe is not None and cfg.moe.impl == "spgemm":
         raise NotImplementedError(
             f"{cfg.name}: MoE impl 'spgemm' on a mesh is ROADMAP.md Queue A "
@@ -181,6 +220,13 @@ class DecoderRuntime:
                          + (("model",) if self.seq_split else ()))
         self._layer_fn = T._remat_layer(self._layer, remat)
         self.layout = None if max_len is None else self.kv_layout(max_len)
+        enc = cfg.encoder
+        # the cross K/V cache's layout (whisper: the frames')
+        self.x_layout = (None if enc is None or max_len is None
+                         else self.kv_layout(enc.n_frames))
+        if enc is not None and self.seq_split and enc.n_frames % self.m:
+            raise ValueError(f"seq_parallel: {enc.n_frames} frames over "
+                             f"model {self.m}")
 
     # ---- layout transitions (the activation table's cut points) --------
     # Each method below names the collective of one cut point; the forward
@@ -231,6 +277,16 @@ class DecoderRuntime:
                 "shared": "shared_in" in spec
                 and spec["shared_in"][-1] == "model"}
 
+    def rwkv_tp(self, spec) -> bool:
+        """Whether an rwkv6 layer runs on its channels over ``model`` (the
+        column- and row-parallel weights split there and the heads divide
+        it); otherwise whole on every model rank."""
+        cols = [spec[k][-1] for k in ("wr", "wk", "wv", "wg", "decay_w2",
+                                      "ck", "cr")]
+        rows = [spec[k][0] for k in ("wo", "cv")]
+        h = R.rwkv_dims(self.cfg)[0]
+        return all(e == "model" for e in cols + rows) and h % self.m == 0
+
     @staticmethod
     def mamba_tp(spec) -> bool:
         """Whether a mamba layer runs on its channels over ``model`` (its
@@ -280,21 +336,77 @@ class DecoderRuntime:
                 out.append(F.embedding(t, w))
         return self._run(self.btd_op(self.embed_tp), out)
 
-    def _layer(self, cfg, kind, p, x, spec, positions):
+    def _inputs(self, tok, tokens, patches=None) -> list:
+        """The decoder's input rows: the embedding (``_embed``), then
+        pixtral's patch embeddings in place of the prefix rows and the
+        sinusoidal positions where the model has no rope, each rank's rows
+        at their own positions (its chunk of the sequence under
+        ``seq_parallel``)."""
+        cfg = self.cfg
+        x = self._embed(tok, tokens)
+        s = tokens[0].shape[1]
+        if cfg.frontend == "vision" and patches is not None:
+            if patches[0].shape[1] > s:
+                raise ValueError(f"{patches[0].shape[1]} patch embeddings "
+                                 f"for a {s}-token prompt: the prompt must "
+                                 "hold the prefix")
+        else:
+            patches = None
+        out = []
+        for r, xr in enumerate(x):
+            lo = self.mi[r] * xr.shape[1] if self.seq_split else 0
+            if patches is not None:
+                hi = min(patches[r].shape[1], lo + xr.shape[1])
+                if hi > lo:
+                    xr = torch.cat([patches[r][:, lo:hi].to(xr.dtype),
+                                    xr[:, hi - lo:]], dim=1)
+            if not cfg.rope:
+                pe = L.sinusoidal_positions(s, cfg.d_model, device=xr.device)
+                xr = xr + pe[lo:lo + xr.shape[1]].to(xr.dtype)
+            out.append(xr)
+        return out
+
+    def _encode(self, params, frames, layer) -> list:
+        """whisper's encoder on every rank's rows of frames (B, F, d):
+        sinusoidal positions, the blocks (``layer``: ``_layer``, or under
+        training its remat'd form), the final norm; its output whole on
+        every model rank through ``btd_full``'s cut, once for every
+        decoder layer's cross K/V."""
+        cfg, enc, spec = self.cfg, params["encoder"], self.p_spec["encoder"]
+        f = frames[0].shape[1]
+        x = []
+        for fr in frames:
+            pe = L.sinusoidal_positions(f, cfg.d_model, device=fr.device)
+            x.append(fr + pe.to(fr.dtype))
+        x = self._run(self.btd_op(False), x)
+        none = [None] * len(x)
+        for p, sp in zip(enc["blocks"], spec["blocks"]):
+            x, _ = layer(cfg, ENCODER_KIND, p, x, sp, none)
+        x = self._norm(enc["final_norm"], x)
+        return self._run(self.full_op(self.attn_tp), x)
+
+    def _layer(self, cfg, kind, p, x, spec, positions, enc=None):
         """One layer over every rank (``cfg`` is unused: the signature is
         ``transformer._remat_layer``'s): (x, the MoE layer's per-rank
         ``balance_stats`` or None)."""
         with sharding_rules(self.rules):  # the recompute runs outside
-            return self._layer_body(kind, p, x, spec, positions)
+            return self._layer_body(kind, p, x, spec, positions, enc=enc)
 
-    def _layer_body(self, kind, p, x, spec, positions, cache=None):
-        """One layer: its mixer's residual, then its MLP's or MoE's; with
-        ``cache`` (serving) each rank writes the prompt's K/V or its
-        channels' recurrent states into its part of it."""
+    def _layer_body(self, kind, p, x, spec, positions, cache=None,
+                    enc=None):
+        """One layer: its mixer's residual (rwkv6: both of its residuals),
+        with the encoder output ``enc`` whisper's cross-attention, then
+        its MLP's or MoE's; with ``cache`` (serving) each rank writes the
+        prompt's K/V (and the cross K/V) or its channels' recurrent states
+        into its part of it."""
+        if kind["mixer"] == "rwkv6":
+            return self._rwkv_res(p, spec, x, cache), None
         if kind["mixer"] == "mamba":
             x = self._mamba_res(p, spec, x, cache)
         else:
             x = self._attn_layer(kind, p, spec, x, positions, cache)
+            if enc is not None:
+                x = self._cross_res(p, spec, x, enc, cache)
         return self._ffn_res(kind, p, spec, x)
 
     def _attn_layer(self, kind, p, spec, x, positions, cache=None):
@@ -308,11 +420,32 @@ class DecoderRuntime:
             q, k, v = A.qkv_proj(self.cfg_attn, w, xr, positions[r])
             if cache is not None:
                 self._write_prompt(cache, r, k, v)
-            o = A.chunked_attention(q, k, v, causal=True,
+            o = A.chunked_attention(q, k, v, causal=kind.get("causal", True),
                                     window=kind.get("window"),
                                     softcap=cfg.attn_softcap)
             ys.append(A.out_proj(self.cfg_attn, w, o))
         return self._attn_res(p, x, ys)
+
+    def _cross_res(self, p, spec, x, enc, cache=None) -> list:
+        """whisper's cross-attention residual (the ``xattn/*`` rules, as
+        self-attention's; no post-norm): non-causal against the encoder
+        output ``enc``; with ``cache`` each rank writes its part of the
+        cross K/V."""
+        pa = {k: self._gather(v, spec["xattn"][k], self.attn_keep)
+              for k, v in p["xattn"].items()}
+        xq = self._run(self.full_op(self.attn_tp), self._norm(p["ln_x"], x))
+        ys = []
+        for r, xr in enumerate(xq):
+            w = {k: v[r] for k, v in pa.items()}
+            q = A.cross_q(self.cfg_attn, w, xr)
+            k, v = A.cross_kv(self.cfg_attn, w, enc[r])
+            if cache is not None:
+                self._write_prompt(cache, r, k, v, ("xk", "xv"),
+                                   self.x_layout)
+            o = A.chunked_attention(q, k, v, causal=False)
+            ys.append(A.out_proj(self.cfg_attn, w, o))
+        y = self._reduced(self.btd_op(self.attn_tp), ys)
+        return [a + b for a, b in zip(x, y)]
 
     def _attn_res(self, p, x, ys) -> list:
         """The attention residual from the ranks' out-projections."""
@@ -482,6 +615,65 @@ class DecoderRuntime:
             y = self._norm(p["post_ln1"], y)
         return [a + b for a, b in zip(x, y)]
 
+    def _rwkv_res(self, p, spec, x, cache=None, decode: bool = False):
+        """rwkv6's two residuals (``rwkv_tp``), time mix then channel mix;
+        with ``cache`` each rank starts from and writes back its shift
+        tails and its heads' wkv state (all read before any is written:
+        ranks of one device share the whole tails), else from zero
+        (training)."""
+        cfg, mesh = self.cfg, self.mesh
+        sp = spec["rwkv"]
+        tp = self.rwkv_tp(sp)
+        pw = {k: self._gather(v, sp[k], ("model",) if tp else ())
+              for k, v in p["rwkv"].items()}
+        if tp:
+            for k in RWKV_SUMMED:
+                pw[k] = C.copy(mesh, pw[k], "model")
+            for k in RWKV_SLICED:
+                pw[k] = C.split(mesh, pw[k], "model", dim=0)
+        ws = [{k: v[r] for k, v in pw.items()} for r in range(mesh.size)]
+        xa = self._run(self.full_op(tp), self._norm(p["ln1"], x))
+        if cache is not None:
+            states = [{k: cache[k][r] for k in cache}
+                      for r in range(mesh.size)]
+        else:  # zero, the wkv state on the rank's heads
+            states = [R.init_rwkv_state(cfg, xr.shape[0], xr.dtype,
+                                        device=xr.device) for xr in xa]
+            for st, w in zip(states, ws):
+                st["wkv"] = st["wkv"][:, :w["bonus_u"].shape[0]]
+        time_mix, channel_mix = ((R.decode_rwkv_time_mix,
+                                  R.decode_rwkv_channel_mix) if decode else
+                                 (R.apply_rwkv_time_mix,
+                                  R.apply_rwkv_channel_mix))
+        ys = []
+        for r, xr in enumerate(xa):
+            y, states[r] = time_mix(cfg, ws[r], xr, states[r])
+            ys.append(y)
+        y = self._reduced(self.btd_op(tp), ys)
+        x = [a + b for a, b in zip(x, y)]
+        xc = self._run(self.full_op(tp), self._norm(p["rwkv_ln2"], x))
+        gates, values = [], []
+        for r, xr in enumerate(xc):
+            prev = states[r]["shift_c"].to(xr.dtype)
+            if decode:
+                g, v = R.channel_parts(ws[r], xr[:, 0], prev)
+                g, v = g[:, None], v[:, None]
+            else:
+                g, v = R.channel_parts(ws[r], xr, torch.cat(
+                    [prev[:, None], xr[:, :-1]], 1))
+            states[r]["shift_c"] = xr[:, -1]
+            gates.append(g)
+            values.append(v)
+        if tp:  # the gate whole on every rank, its gradient partial
+            gates = C.all_gather(mesh, gates, "model", dim=-1, grad="sum")
+        y = self._reduced(self.btd_op(tp), [g * v for g, v in
+                                            zip(gates, values)])
+        if cache is not None:
+            for r, st in enumerate(states):
+                for k, t in st.items():
+                    cache[k][r].copy_(t)
+        return [a + b for a, b in zip(x, y)]
+
     def _ce_chunk(self, xs, ws, ts) -> list:
         """Summed cross-entropy of one chunk of positions on every rank."""
         cfg, mesh = self.cfg, self.mesh
@@ -517,7 +709,8 @@ class DecoderRuntime:
                 for m, s in zip(top, tot)]
 
     def local_losses(self, params, tokens, targets, n_tokens: int, *,
-                     aux_coef: float = 0.01) -> tuple[list, list, list]:
+                     aux_coef: float = 0.01, frame_embeds=None,
+                     patch_embeds=None) -> tuple[list, list, list]:
         """(losses, ce, aux), one per rank: ``ce`` the rank's share of the
         mean cross-entropy (its rows' sum over ``n_tokens``, the global
         batch's), ``aux`` the MoE load-balance loss of the global batch
@@ -525,26 +718,32 @@ class DecoderRuntime:
         aux`` (the sum of ``ce`` over the batch axes plus ``aux_coef *
         aux`` once is the loss).  ``params``: the port's tree with a list
         of per-rank tensors at every leaf; ``tokens`` / ``targets``:
-        per-rank (rows, S) lists.  Runs under the rules (and each layer
-        installs them again for its recompute)."""
+        per-rank (rows, S) lists; ``frame_embeds`` (whisper) / ``patch_embeds``
+        (pixtral): per-rank (rows, F or n, d) lists.  Runs under the rules
+        (and each layer installs them again for its recompute)."""
         with sharding_rules(self.rules):
-            ce, aux = self._local_losses(params, tokens, targets, n_tokens)
+            ce, aux = self._local_losses(params, tokens, targets, n_tokens,
+                                         frame_embeds, patch_embeds)
         return [c + aux_coef * a for c, a in zip(ce, aux)], ce, aux
 
-    def _local_losses(self, params, tokens, targets, n_tokens):
+    def _local_losses(self, params, tokens, targets, n_tokens, frames,
+                      patches):
         cfg, mesh, spec = self.cfg, self.mesh, self.p_spec
         emb = params["embed"]
         tok = self._gather(emb["tok"], spec["embed"]["tok"], self.tok_keep)
-        x = self._embed(tok, tokens)
+        x = self._inputs(tok, tokens, patches)
         s = tokens[0].shape[1]
         positions = [torch.arange(s, device=t.device) for t in tokens]
         # a recompute reruns the whole layer, its last reduction too, so
         # the collectives a step runs do not hang on what autograd saves
         stats = []
         with set_checkpoint_early_stop(False):
+            enc = (self._encode(params, frames, self._layer_fn)
+                   if cfg.encoder is not None and frames is not None
+                   else None)
             for kind, p, sp in zip(self.kinds, params["blocks"],
                                    spec["blocks"]):
-                x, st = self._layer_fn(cfg, kind, p, x, sp, positions)
+                x, st = self._layer_fn(cfg, kind, p, x, sp, positions, enc)
                 if st is not None:
                     stats.append(st)
         x = self._run(self.full_op(self.head_tp),
@@ -600,11 +799,13 @@ class DecoderRuntime:
             raise ValueError("serving runs the reference's serving rules: "
                              "no sequence parallelism, no 2.5D head")
 
-    def _write_prompt(self, cache, r, k, v) -> None:
+    def _write_prompt(self, cache, r, k, v, names=("k", "v"),
+                      layout=None) -> None:
         """Rank ``r``'s part of a prompt's K/V (positions [0, S)) into its
-        cache: its heads, or its chunk of the positions."""
-        ck, cv = cache["k"][r], cache["v"][r]
-        if self.layout != "seq":
+        cache (``names``: the self K/V, or whisper's cross K/V under their
+        own layout): its heads, or its chunk of the positions."""
+        ck, cv = cache[names[0]][r], cache[names[1]][r]
+        if (layout or self.layout) != "seq":
             T._update_kv(ck, cv, k, v, 0)
             return
         chunk = ck.shape[2]
@@ -631,28 +832,37 @@ class DecoderRuntime:
             logits = C.all_gather(self.mesh, logits, "model", dim=2)
         return logits
 
-    def _embed_rows(self, params, tokens) -> list:
+    def _token_table(self, params) -> list:
         emb = params["embed"]
-        tok = self._gather(emb["tok"], self.p_spec["embed"]["tok"],
-                           self.tok_keep)
-        return self._embed(tok, tokens)
+        return self._gather(emb["tok"], self.p_spec["embed"]["tok"],
+                            self.tok_keep)
 
     @torch.no_grad()
-    def prefill(self, params, tokens, cache) -> list:
-        """Run the prompt (per-rank (rows, S) ``tokens``), write its K/V
-        into ``cache`` (the port's cache tree with per-rank tensors at its
-        leaves, laid out by ``cache_specs``) in place, and return every
-        rank's logits of the last position (rows, 1, V)."""
+    def prefill(self, params, tokens, cache, *, frame_embeds=None,
+                patch_embeds=None) -> list:
+        """Run the prompt (per-rank (rows, S) ``tokens``; whisper's frames
+        and pixtral's patches per-rank lists as in ``local_losses``), write
+        its K/V (and with frames the cross K/V) into ``cache`` (the port's
+        cache tree with per-rank tensors at its leaves, laid out by
+        ``cache_specs``) in place, and return every rank's logits of the
+        last position (rows, 1, V)."""
         self._check_serving()
+        cfg = self.cfg
         with sharding_rules(self.rules):
-            x = self._embed_rows(params, tokens)
+            x = self._inputs(self._token_table(params), tokens, patch_embeds)
             s = tokens[0].shape[1]
             positions = [torch.arange(s, device=t.device) for t in tokens]
+            enc = None
+            if cfg.encoder is not None and frame_embeds is not None:
+                if frame_embeds[0].shape[1] != cfg.encoder.n_frames:
+                    raise ValueError(f"{frame_embeds[0].shape[1]} frames for "
+                                     f"a cache of {cfg.encoder.n_frames}")
+                enc = self._encode(params, frame_embeds, self._layer)
             for kind, p, sp, c in zip(self.kinds, params["blocks"],
                                       self.p_spec["blocks"],
                                       cache["blocks"]):
                 x, _ = self._layer_body(kind, p, x, sp, positions,
-                                        cache=c)
+                                        cache=c, enc=enc)
             return self._logits(params, [xi[:, -1:] for xi in x])
 
     @torch.no_grad()
@@ -663,8 +873,13 @@ class DecoderRuntime:
         V)."""
         self._check_serving()
         position = int(position)
+        cfg = self.cfg
         with sharding_rules(self.rules):
-            x = self._embed_rows(params, tokens)
+            x = self._embed(self._token_table(params), tokens)
+            if not cfg.rope:  # the sinusoidal embedding at the position
+                x = [xr + L.sinusoidal_at(torch.tensor(
+                    [position], device=xr.device), cfg.d_model).to(
+                        xr.dtype)[:, None, :] for xr in x]
             rope = [torch.tensor([position], device=t.device)
                     for t in tokens]
             for kind, p, sp, c in zip(self.kinds, params["blocks"],
@@ -674,11 +889,40 @@ class DecoderRuntime:
             return self._logits(params, x)
 
     def _decode_layer(self, kind, p, x, spec, cache, rope, position):
+        if kind["mixer"] == "rwkv6":
+            return self._rwkv_res(p, spec, x, cache, decode=True)
         if kind["mixer"] == "mamba":
             x = self._mamba_res(p, spec, x, cache, decode=True)
         else:
             x = self._attn_decode(kind, p, spec, x, cache, rope, position)
+            if "xk" in cache:  # zeros unless a prefill with frames filled it
+                x = self._cross_decode(p, spec, x, cache)
         return self._ffn_res(kind, p, spec, x)[0]
+
+    def _cross_decode(self, p, spec, x, cache) -> list:
+        """whisper's cross-attention residual for one token against the
+        cross K/V in its layout (every frame valid)."""
+        pa = {k: self._gather(v, spec["xattn"][k], self.attn_keep)
+              for k, v in p["xattn"].items()}
+        xq = self._run(self.full_op(self.attn_tp), self._norm(p["ln_x"], x))
+        ws = [{k: v[r] for k, v in pa.items()} for r in range(len(xq))]
+        n = self.cfg.encoder.n_frames
+        seq = self.x_layout == "seq"
+        qs, parts = [], []
+        for r, xr in enumerate(xq):
+            q = A.cross_q(self.cfg_attn, ws[r], xr)
+            ck, cv = cache["xk"][r], cache["xv"][r]
+            if seq:
+                qs.append(q)
+                parts.append(A.decode_partial(
+                    q, ck, cv, n, key_offset=self.mi[r] * ck.shape[2]))
+            else:
+                qs.append(A.decode_attention(q, ck, cv, n))
+        if seq:
+            qs = self._combine(qs, parts)
+        ys = [A.out_proj(self.cfg_attn, w, o) for w, o in zip(ws, qs)]
+        y = self._reduced(self.btd_op(self.attn_tp), ys)
+        return [a + b for a, b in zip(x, y)]
 
     def _attn_decode(self, kind, p, spec, x, cache, rope, position):
         cfg = self.cfg
@@ -729,9 +973,11 @@ class DecoderRuntime:
 
     # ---- bytes per rank ---------------------------------------------------
 
-    def loss_bytes(self, shapes, *, rows: int, seq: int) -> float:
+    def loss_bytes(self, shapes, *, rows: int, seq: int,
+                   frames: bool = True) -> float:
         """Bytes per rank that one forward and backward of
-        ``local_losses`` moves on ``rows`` per rank of ``seq`` tokens:
+        ``local_losses`` moves on ``rows`` per rank of ``seq`` tokens
+        (whisper's with its frames through the encoder when ``frames``):
         the collectives the cut-point methods above name, priced by
         ``ACT_BYTES`` on ``shapes`` (``sharding.param_shapes``).  The
         layers' forward collectives run twice under remat full / dots (the
@@ -770,26 +1016,46 @@ class DecoderRuntime:
             gathers(shapes["embed"]["tok"], spec["embed"]["tok"],
                     self.tok_keep),
             op(self.btd_op(self.embed_tp), act * e)])
-        def residual(tp, keep, p, sp):
-            """A sub-layer's weight gathers, input and output."""
-            return [gathers(leaf, sp[k], keep) for k, leaf in p.items()] + [
-                op(self.full_op(tp), act * e), op(self.btd_op(tp), act * er)]
 
-        layers = []
-        for kind, p, sp in zip(self.kinds, shapes["blocks"], spec["blocks"]):
+        def residual(tp, keep, p, sp, n=act):
+            """A sub-layer's weight gathers, input and output (``n``
+            elements of a (rows, S, d) activation)."""
+            return [gathers(leaf, sp[k], keep) for k, leaf in p.items()] + [
+                op(self.full_op(tp), n * e), op(self.btd_op(tp), n * er)]
+
+        def block(kind, p, sp, n=act):
+            """One block's (forward, backward) parts."""
+            if kind["mixer"] == "rwkv6":
+                return self._rwkv_bytes(p, sp, residual, op, norms, n, e)
             if kind["mixer"] == "mamba":
-                layers += self._mamba_bytes(p["mamba"], sp["mamba"],
-                                            residual, rows * seq, er)
+                parts = self._mamba_bytes(p["mamba"], sp["mamba"],
+                                          residual, rows * seq, er)
             else:
-                layers += residual(self.attn_tp, self.attn_keep, p["attn"],
-                                   sp["attn"])
+                parts = residual(self.attn_tp, self.attn_keep, p["attn"],
+                                 sp["attn"], n)
+            if enc and "xattn" in p:
+                parts += residual(self.attn_tp, self.attn_keep, p["xattn"],
+                                  sp["xattn"]) + norms(p, ("ln_x",))
             if kind["moe"]:
-                layers += self._moe_bytes(p["moe"], sp["moe"], gathers, op,
-                                          rows, seq, e, er)
+                parts += self._moe_bytes(p["moe"], sp["moe"], gathers, op,
+                                         rows, seq, e, er)
             else:
-                layers += residual("model" in sp["mlp"]["w_in"],
-                                   self.mlp_keep, p["mlp"], sp["mlp"])
-            layers += norms(p, ("ln1", "ln2", "post_ln1", "post_ln2"))
+                parts += residual("model" in sp["mlp"]["w_in"],
+                                  self.mlp_keep, p["mlp"], sp["mlp"], n)
+            return parts + norms(p, ("ln1", "ln2", "post_ln1", "post_ln2"))
+
+        enc = frames and cfg.encoder is not None
+        layers = []
+        if enc:  # the encoder's blocks, its final norm and its output
+            n_enc = rows * cfg.encoder.n_frames * cfg.d_model
+            for p, sp in zip(shapes["encoder"]["blocks"],
+                             spec["encoder"]["blocks"]):
+                layers += block(ENCODER_KIND, p, sp, n_enc)
+            f, b = total(norms(shapes["encoder"], ("final_norm",))
+                         + [op(self.full_op(self.attn_tp), n_enc * e)])
+            fwd, bwd = fwd + f, bwd + b
+        for kind, p, sp in zip(self.kinds, shapes["blocks"], spec["blocks"]):
+            layers += block(kind, p, sp)
         f, b = total(layers)
         fwd += f * (2 if self.remat in ("full", "dots") else 1)
         bwd += b
@@ -817,6 +1083,22 @@ class DecoderRuntime:
         if self.head_tp:
             ce_f += 2 * rep * rows * chunk * 4 * 3  # the max, sumexp, gold
         return fwd + bwd + seq // chunk * (2 * ce_f + ce_b)
+
+    def _rwkv_bytes(self, p, sp, residual, op, norms, n: int, e: int) -> list:
+        """An rwkv6 block's (forward, backward) bytes (``_rwkv_res``): the
+        weight gathers, both residuals' input and output, the norms, and
+        on its channels the summed leaves' copies, the sliced leaves'
+        splits and the channel mix's gate all-gather."""
+        tp = self.rwkv_tp(sp["rwkv"])
+        keep = ("model",) if tp else ()
+        parts = residual(tp, keep, p["rwkv"], sp["rwkv"], n)
+        parts += residual(tp, keep, {}, {}, n)  # the channel mix
+        if tp:
+            parts += [op("copy", _nbytes(p["rwkv"][k])) for k in RWKV_SUMMED]
+            parts += [op("split", _nbytes(p["rwkv"][k]))
+                      for k in RWKV_SLICED]
+            parts.append(op("gather_sum", n * e))
+        return parts + norms(p, ("ln1", "rwkv_ln2"))
 
     def _mamba_bytes(self, p, sp, residual, tokens: int, er: int) -> list:
         """A mamba layer's (forward, backward) bytes: ``residual``'s, and

@@ -22,7 +22,8 @@ so nothing is computed and nothing is allocated.  Over one call it counts:
 * the top ops by FLOPs and by bytes (op and output shape);
 * the ops of an eager body: a custom op whose implementation is PyTorch
   code, not a kernel (mamba's chunk of the selective scan,
-  ``models/mamba.py``, one op so that a trace of thousands of chunks on
+  ``models/mamba.py``, and rwkv6's chunk of the wkv recurrence,
+  ``models/rwkv6.py``, each one op so that a trace of thousands of chunks on
   hundreds of ranks stays quick), counts the ops of its body — traced
   once per input shape in a nested tracer, its FLOPs, bytes and op count
   added at every call, its temporaries added to the live bytes for the
@@ -75,14 +76,18 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core import transport as TR
 from repro_torch.models import mamba as _MB
+from repro_torch.models import rwkv6 as _RW
 
 aten = torch.ops.aten
 
-# custom ops whose implementation is an eager body (``_MB._chunk_op``):
-# the tracer counts the body's ops
+# custom ops whose implementation is an eager body (mamba's and rwkv6's
+# chunk of the recurrence): the tracer counts the body's ops
 BODIES = {
     torch.ops.repro_torch.mamba_chunk.default: _MB._chunk_body,
     torch.ops.repro_torch.mamba_chunk_bwd.default: _MB._chunk_back_body,
+    torch.ops.repro_torch.rwkv_wkv_chunk.default: _RW._wkv_chunk_body,
+    torch.ops.repro_torch.rwkv_wkv_chunk_bwd.default:
+        _RW._wkv_chunk_back_body,
 }
 
 # queries of a tensor's metadata: no kernel, no bytes

@@ -376,8 +376,9 @@ def test_launcher_moe_rehearsal_cold_and_warm(tmp_path):
 def test_sharding_context_on_one_device():
     """Without rules ``shard_act`` is the identity and the ep impl is tp
     (one device, as in the reference); with rules installed resharding
-    raises naming its ROADMAP item, and ``tp_reduce_dtype`` sets the
-    down-projection's output dtype, as ``preferred_element_type`` does."""
+    one tensor raises (the sharded runtime lays out per-rank lists), and
+    ``tp_reduce_dtype`` sets the down-projection's output dtype, as
+    ``preferred_element_type`` does."""
     from repro.parallel import ctx as RC
     from repro_torch.parallel import ctx as C
 
@@ -387,7 +388,8 @@ def test_sharding_context_on_one_device():
     assert C.shard_act(t, "btd") is t
     with C.sharding_rules(C.ShardingRules(table={"moe_dispatch": "spec"})):
         assert C.current_rules().spec("moe_dispatch") == "spec"
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError,
+                           match="one tensor cannot be resharded"):
             M.apply_moe(cfg, p, t)
     assert C.current_rules() is None
     tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,

@@ -36,6 +36,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
@@ -365,6 +366,48 @@ def test_moe_and_hybrid_traces_count_the_real_cpu_step(name, dims, names):
         moved == count
 
 
+@pytest.mark.parametrize("dims,names", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_audio_and_vlm_traces_count_the_real_cpu_step(arch, dims, names):
+    """whisper's sharded training step with its frames through the encoder
+    and pixtral's with its patches: the fake trace counts what the real
+    one counts, its FLOPs are ``FlopCounterMode``'s over the real step and
+    its wire bytes ``step_bytes`` (the encoder's and the cross-attention's
+    collectives included)."""
+    cfg = get_arch(arch).reduced()
+    mesh = M.make_mesh(dims, names, "cpu")
+    shape = ShapeConfig("t", 32, 4, "train")
+    opt = AdamWConfig(lr=3e-3)
+    options = ST.StepOptions(remat="full", loss_chunk=16)
+    params = T.init_params(cfg, 0, device="cpu")
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=4, seed=0))
+    n, name = ((cfg.encoder.n_frames, "frame_embeds") if cfg.encoder
+               else (cfg.n_patches, "patch_embeds"))
+    rng = np.random.default_rng(0)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (4, n, cfg.d_model)).astype(np.float32))
+    step = ST.build_train_step(cfg, shape, opt=opt, options=options,
+                               device="cpu", mesh=mesh)
+    batch = dict(make_global_batch(data, 0, mesh), **{
+        name: SH.shard(mesh, embeds, SH.batch_spec(mesh, *embeds.shape))})
+    TR.reset_bytes()
+    with FlopCounterMode(display=False) as fc:
+        step(*ST.init_sharded(cfg, mesh, params, opt, options), batch)
+    moved = TR.bytes_moved()
+    _, real = HC.trace(step, *ST.init_sharded(cfg, mesh, params, opt,
+                                              options), batch)
+    p, s = ST.init_sharded(cfg, mesh, params, opt, options)
+    with FakeTensorMode() as fm:
+        _, fake = HC.trace(step, _fake(fm, p), _fake(fm, s), _fake(fm, batch))
+    count = ST.step_bytes(cfg, mesh, shape, options, opt)
+    assert fake.flops == real.flops == fc.get_total_flops() > 0
+    assert fake.hbm_bytes == real.hbm_bytes > 0
+    assert fake.n_ops == real.n_ops
+    assert fake.collective_wire_bytes == real.collective_wire_bytes == \
+        moved == count
+
+
 def test_mamba_chunk_op_counts_its_body():
     """A traced mamba chunk counts its eager body's ops, FLOPs and bytes
     (traced once per shape): the same as the body traced op by op."""
@@ -384,6 +427,34 @@ def test_mamba_chunk_op_counts_its_body():
     with FlopCounterMode(display=False) as fc:
         MB._chunk_op(*args)
     assert fc.get_total_flops() == body.flops
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_rwkv_chunk_op_counts_its_body(backward):
+    """A traced rwkv6 wkv chunk (and its backward) counts its eager body's
+    ops, FLOPs and bytes: the same as the body traced op by op."""
+    from repro_torch.models import rwkv6 as RW
+
+    gen = torch.Generator().manual_seed(0)
+    t, b, h, hd = 8, 2, 3, 4
+    shapes = [(t, b, h, hd)] * 4 + [(h, hd), (b, h, hd, hd)]
+    if backward:
+        shapes += [(t, b, h, hd), (b, h, hd, hd)]
+    args = [torch.randn(sh, generator=gen) for sh in shapes]
+    op, body = ((RW._wkv_chunk_back_op, RW._wkv_chunk_back_body) if backward
+                else (RW._wkv_chunk_op, RW._wkv_chunk_body))
+    _, via_op = HC.trace(lambda *a: op(*a), *args)
+    _, eager = HC.trace(lambda *a: body(*a), *args)
+    # the forward's matmul reshapes its (B, h, 1, hd) product by
+    # ``_unsafe_view``: priced as a copy op by op, a view inside the op
+    views = sum(v for k, v in eager.top_memory.items()
+                if "_unsafe_view" in k)
+    assert via_op.flops == eager.flops > 0
+    assert via_op.hbm_bytes == eager.hbm_bytes - views > 0
+    assert via_op.n_ops == eager.n_ops
+    with FlopCounterMode(display=False) as fc:
+        op(*args)
+    assert fc.get_total_flops() == eager.flops
 
 
 @pytest.mark.parametrize("shape", [
@@ -618,35 +689,40 @@ def test_moe_and_hybrid_cells_are_ok(arch, shape_id):
 
 
 def test_unported_families_fail_naming_their_item(tmp_path, capsys):
-    mesh = _meta_mesh((2, 2), ("data", "model"))
+    """MoE's spgemm impl on a mesh fails naming its item; the ssm, audio
+    and vlm families trace ``ok`` (reduced, on a 2 x 2 mesh of abstract
+    ranks; rwkv6 in one chunk of 256 tokens, whisper with its frames
+    through the encoder), rwkv6 its long_500k cell too, and the entry
+    point records whisper's long_500k cell skipped and exits 0."""
+    mesh = M.Mesh(("data", "model"), (2, 2), (torch.device("meta"),) * 4,
+                  abstract=True)
     with pytest.raises(NotImplementedError, match="15c.2"):
         DR.run_cell("deepseek_moe_16b", "decode_32k", "single",
                     ST.StepOptions(), cfg=get_arch("deepseek-moe-16b")
-                    .reduced(), mesh=mesh, verbose=False,
-                    moe_impl="spgemm")
+                    .reduced(), mesh=_meta_mesh((2, 2), ("data", "model")),
+                    verbose=False, moe_impl="spgemm")
+    cells = [("rwkv6_7b", "train_4k"), ("rwkv6_7b", "long_500k"),
+             ("whisper_large_v3", "prefill_32k"),
+             ("pixtral_12b", "decode_32k")]
+    for arch, shape_id in cells:
+        cfg = get_arch(arch).reduced()
+        if cfg.rwkv is not None:
+            cfg = dataclasses.replace(cfg, rwkv=dataclasses.replace(
+                cfg.rwkv, chunk=256))
+        rec = DR.run_cell(arch, shape_id, "single",
+                          ST.StepOptions(loss_chunk=1024), cfg=cfg,
+                          mesh=mesh, verbose=False)
+        assert rec["ok"] and not rec.get("skipped"), (arch, shape_id, rec)
+        assert rec["roofline"]["flops_per_device"] > 0
     argv = sys.argv
-    sys.argv = ["dryrun", "--arch", "rwkv6-7b", "--shape", "prefill_32k",
-                "--mesh", "single", "--out", str(tmp_path)]
+    sys.argv = ["dryrun", "--arch", "whisper-large-v3", "--shape",
+                "long_500k", "--mesh", "single", "--out", str(tmp_path)]
     try:
         with pytest.raises(SystemExit) as exit_:
             DR.main()
     finally:
         sys.argv = argv
-    assert exit_.value.code == 1
-    rec = json.loads((tmp_path / "rwkv6_7b__prefill_32k__single.json")
+    assert exit_.value.code == 0
+    rec = json.loads((tmp_path / "whisper_large_v3__long_500k__single.json")
                      .read_text())
-    assert not rec["ok"] and "NotImplementedError" in rec["error"]
-    assert "15e" in rec["error"]
-    sys.argv = ["dryrun", "--arch", "whisper-large-v3", "pixtral-12b",
-                "--shape", "decode_32k", "--mesh", "single", "--out",
-                str(tmp_path)]
-    try:
-        with pytest.raises(SystemExit) as exit_:
-            DR.main()
-    finally:
-        sys.argv = argv
-    assert exit_.value.code == 1
-    for arch, item in (("whisper_large_v3", "15f"), ("pixtral_12b", "15g")):
-        rec = json.loads((tmp_path / f"{arch}__decode_32k__single.json")
-                         .read_text())
-        assert not rec["ok"] and item in rec["error"], arch
+    assert rec["ok"] and rec["skipped"]

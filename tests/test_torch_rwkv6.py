@@ -207,3 +207,82 @@ def test_init_matches_reference_layout(dtype):
     assert {k: (tuple(v.shape), v.dtype) for k, v in st.items()} == {
         k: (tuple(v.shape), v.dtype) for k, v in jst.items()}
     assert not any(t.any() for t in st.values())
+
+
+def _loop(r, k, v, w, u, s0):
+    """The token loop the time mix ran before the chunk op: ``_wkv_step``
+    on each token's views, (outputs (T, B, h, hd), the last state)."""
+    st, outs = s0, []
+    for t in range(r.shape[0]):
+        st, o = R._wkv_step(st, r[t][..., None, :], k[t][..., :, None],
+                            v[t][..., None, :], w[t][..., :, None],
+                            u[None, :, :, None])
+        outs.append(o[..., 0, :])
+    return torch.stack(outs), st
+
+
+def _wkv_inputs(t=24, b=2, h=3, hd=8, seed=11):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.05, 0.95, (t, b, h, hd))
+                         .astype(np.float32))
+    return [f(t, b, h, hd), f(t, b, h, hd), f(t, b, h, hd), w, f(h, hd),
+            f(b, h, hd, hd)]
+
+
+def test_wkv_chunk_equals_the_token_loop_bit_for_bit():
+    """``rwkv_wkv_chunk`` (and its op) in f32: the token loop's outputs
+    and last state exactly, from a nonzero entry state."""
+    ins = _wkv_inputs()
+    want = _loop(*ins)
+    for run in (R.rwkv_wkv_chunk, R._wkv_chunk_op):
+        got = run(*ins)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def test_wkv_chunk_gradient_matches_autograd_through_the_loop():
+    """Three chunks of 8 through ``rwkv_wkv_chunk`` (each backward
+    recomputing its states and running the reverse recurrence) against
+    autograd through the token loop, every input's gradient (r, k, v, the
+    decay, the bonus, the entry state) within 1e-5 of its largest entry."""
+    ins = _wkv_inputs()
+    rng = np.random.default_rng(12)
+    gy = torch.from_numpy(rng.standard_normal(ins[0].shape)
+                          .astype(np.float32))
+    gs = torch.from_numpy(rng.standard_normal(ins[5].shape)
+                          .astype(np.float32))
+    a = [t.clone().requires_grad_() for t in ins]
+    st, ys = a[5], []
+    for c0 in range(0, a[0].shape[0], 8):
+        y, st = R.rwkv_wkv_chunk(*(t[c0:c0 + 8] for t in a[:4]), a[4], st)
+        ys.append(y)
+    got = torch.autograd.grad((torch.cat(ys) * gy).sum() + (st * gs).sum(),
+                              a)
+    b = [t.clone().requires_grad_() for t in ins]
+    y, st = _loop(*b)
+    want = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), b)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_time_mix_saves_no_per_token_state():
+    """Under autograd the time mix saves one (B, h, hd, hd) state a chunk
+    (its entry state), not the token loop's state and update a token."""
+    cfg = get_arch("rwkv6-7b").reduced()
+    _, _, _, p = _params("float32")
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    h, hd, _ = R.rwkv_dims(cfg)
+    s = 64
+    x = torch.randn(B, s, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    st = R.init_rwkv_state(cfg, B, torch.float32, device="cpu")
+    states = []
+
+    def pack(t):
+        if tuple(t.shape) == (B, h, hd, hd):
+            states.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        R.apply_rwkv_time_mix(cfg, p, x, st)
+    assert 0 < len(states) <= s // cfg.rwkv.chunk

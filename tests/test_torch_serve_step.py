@@ -18,9 +18,10 @@ the ranks' rows) and the gathered cache within 1e-4 after the prefill and
 after each decode step.  A config whose heads do not divide ``model``
 runs attention whole on every model rank with the cache's sequence split
 over ``model`` (the decode steps crossing from one rank's chunk into the
-next) or, where the sequence does not divide either, whole.  The ssm,
-audio and vlm families, and MoE's spgemm impl on a mesh, raise naming
-their ROADMAP.md item.
+next) or, where the sequence does not divide either, whole.  MoE's
+spgemm impl on a mesh raises naming its ROADMAP.md item; the ssm, audio
+and vlm families serve (their parity: ``tests/test_torch_sharded_ssm.py``,
+``_audio.py``, ``_vlm.py``).
 """
 from __future__ import annotations
 
@@ -114,7 +115,11 @@ def test_one_device_steps_match_reference(arch, dtype):
 
 
 def _sharded_vs_one_device(cfg, dims, names, prompt=PROMPT, depth=DEPTH,
-                           batch=BATCH):
+                           batch=BATCH, embeds=None):
+    """The sharded prefill and decode steps against the one-device steps,
+    logits within 1e-4 and greedy tokens equal (``embeds``: whisper's
+    frames / pixtral's patches, name -> rows a sample, drawn with numpy
+    and given to both prefills); returns the cache's specs."""
     mesh = M.make_mesh(dims, names, "cpu")
     shape = ShapeConfig("s", depth, batch, "prefill")
     params = T.init_params(cfg, 0, device="cpu")
@@ -130,8 +135,13 @@ def _sharded_vs_one_device(cfg, dims, names, prompt=PROMPT, depth=DEPTH,
     cache = S.init_sharded_cache(cfg, mesh, batch, depth)
     rows = SH.batch_spec(mesh, batch, 1, cfg.vocab)
     toks = torch.from_numpy(_tokens(cfg.vocab, (batch, prompt)))
-    want, cache1 = pre1(params, cache1, {"tokens": toks})
-    got, cache = pre(sharded, cache, {"tokens": toks})
+    rng = np.random.default_rng(3)
+    inputs = {"tokens": toks, **{
+        name: torch.from_numpy(rng.standard_normal(
+            (batch, n, cfg.d_model)).astype(np.float32))
+        for name, n in (embeds or {}).items()}}
+    want, cache1 = pre1(params, cache1, inputs)
+    got, cache = pre(sharded, cache, inputs)
     steps = [(got, want)]
     for i in range(N_DECODE):
         nxt = torch.argmax(want[:, -1], -1)[:, None]
@@ -140,8 +150,10 @@ def _sharded_vs_one_device(cfg, dims, names, prompt=PROMPT, depth=DEPTH,
         steps.append((got, want))
     for i, (got, want) in enumerate(steps):
         assert isinstance(got, SH.Shards)
-        _close(SH.unshard(mesh, got, rows), want.numpy(), TOL["float32"],
-               f"step {i} logits")
+        got = SH.unshard(mesh, got, rows)
+        _close(got, want.numpy(), TOL["float32"], f"step {i} logits")
+        assert torch.equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1)), (
+            f"step {i}: greedy tokens differ")
     gathered = SH.unshard_tree(mesh, cache, c_spec)
     for g, w in zip(leaves(gathered), leaves(cache1)):
         _close(g, w.numpy(), TOL["float32"], "cache")
@@ -207,22 +219,37 @@ def test_runtime_layout_is_cache_specs(arch, axes):
 
 @pytest.mark.parametrize("arch,item", [
     ("deepseek-moe-16b", "15c.2"), ("llama4-maverick-400b-a17b", "15c.2"),
-    ("jamba-v0.1-52b", "15c.2"), ("rwkv6-7b", "15e"),
-    ("whisper-large-v3", "15f"), ("pixtral-12b", "15g")])
+    ("jamba-v0.1-52b", "15c.2"), ("rwkv6-7b", None),
+    ("whisper-large-v3", None), ("pixtral-12b", None)])
 def test_other_families_raise_their_item(arch, item):
-    """The families the sharded runtime does not serve, and MoE's spgemm
-    impl on a mesh (the MoE and hybrid families run under tp / ep /
-    dense: ``tests/test_torch_sharded_moe.py``,
-    ``tests/test_torch_sharded_hybrid.py``), raise naming their item."""
+    """MoE's spgemm impl on a mesh raises naming its item (the MoE and
+    hybrid families run under tp / ep / dense:
+    ``tests/test_torch_sharded_moe.py``,
+    ``tests/test_torch_sharded_hybrid.py``); the ssm, audio and vlm
+    families build and serve a prompt of 16 tokens and one decode step
+    (finite logits over the whole vocabulary)."""
     cfg = get_arch(arch).reduced()
-    if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, impl="spgemm"))
     mesh = M.make_mesh((2, 2), ("data", "model"), "cpu")
     shape = ShapeConfig("s", DEPTH, BATCH, "prefill")
-    for build in (S.build_prefill_step, S.build_serve_step):
-        with pytest.raises(NotImplementedError, match=item):
-            build(cfg, shape, device="cpu", mesh=mesh)
+    if item is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="spgemm"))
+        for build in (S.build_prefill_step, S.build_serve_step):
+            with pytest.raises(NotImplementedError, match=item):
+                build(cfg, shape, device="cpu", mesh=mesh)
+        return
+    pre, (p_sds, _, _) = S.build_prefill_step(cfg, shape, device="cpu",
+                                              mesh=mesh)
+    dec, _ = S.build_serve_step(cfg, shape, device="cpu", mesh=mesh)
+    params = SH.shard_tree(mesh, T.init_params(cfg, 0, device="cpu"),
+                           tree_map(lambda x: x.spec, p_sds))
+    cache = S.init_sharded_cache(cfg, mesh, BATCH, DEPTH)
+    toks = torch.from_numpy(_tokens(cfg.vocab, (BATCH, 16)))
+    logits, cache = pre(params, cache, {"tokens": toks})
+    logits, cache = dec(params, cache, toks[:, -1:], 16)
+    rows = SH.unshard(mesh, logits, SH.batch_spec(mesh, BATCH, 1, cfg.vocab))
+    assert rows.shape == (BATCH, 1, cfg.vocab)
+    assert bool(torch.isfinite(rows).all())
 
 
 @pytest.mark.parametrize("window,softcap", [(None, None), (5, None),

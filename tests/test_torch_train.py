@@ -148,11 +148,16 @@ def test_loss_fn_matches_reference(arch):
             1.0, abs(float(want))), (arch, float(got), float(want))
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-4b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-4b", "gemma2-27b",
+                                  "rwkv6-7b", "whisper-large-v3",
+                                  "pixtral-12b"])
 def test_gradients_match_jax_grad(arch):
     """Every parameter's gradient against ``jax.grad`` of the reference's
-    loss: olmo (tied table, non-parametric norms), qwen1.5 (qkv bias) and
-    gemma2 (sliding window, attention and final softcaps, post-norms)."""
+    loss: olmo (tied table, non-parametric norms), qwen1.5 (qkv bias),
+    gemma2 (sliding window, attention and final softcaps, post-norms),
+    rwkv6 (the wkv chunk op's reverse recurrence, two chunks), whisper
+    (the encoder and cross-attention, from frames) and pixtral (the patch
+    prefix): the one-device base the sharded steps are held to."""
     jcfg, jp, cfg, p = _models(arch)
     batch = _batch(cfg, seed=2)
     (jl, _), jg = jax.value_and_grad(
