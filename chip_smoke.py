@@ -272,7 +272,21 @@ Phases, each raising on failure:
     steps' own distance from it, and the same weights in f32 on the ranks
     within 1e-4 of the twin, or twice what weights one ulp off move the
     twin where that is more; flash launches one per rank and attention
-    call, prefill s and decode ms.
+    call, prefill s and decode ms;
+29. the examples: the twins of the JAX package's five drivers
+    (``repro_torch.examples``) through their ``main`` at its defaults
+    (``train_lm`` at ``--steps TRAIN_LM_STEPS``), both kernels' counts
+    set to 0 just before each call and read just after, each call's
+    seconds and counts printed:
+    ``linear_scaling_dft`` (the static 2.5D chain, then ``--tuning-db``
+    cold and warm: trials cold, none warm), ``quickstart``,
+    ``tensor_contraction`` (the tuner's choice of backend decides whether
+    the block-SpGEMM kernel runs), ``serve_batch`` (the flash kernel once
+    per layer for its prefill round and once per layer for the
+    teacher-forced forward) and ``train_lm`` (``TRAIN_LM_STEPS`` steps of
+    the 8-layer d 768 olmo-family model on 2 x 2 ranks: flash forward 4
+    ranks x layers x steps x 2, backward x 3; the loss falls by more than
+    1), each ending with its ``"<name> OK"``.
 
 Timed phases print the card's SM and memory clocks and temperature
 before and after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -1628,7 +1642,7 @@ def phase_tuner(torch, B, E, TR, K, S, plan, mesh_mod, tuner, purify,
         times.append((tile.g_r, tile.g_c, ms))
         print(f"[14] 14.4 group {tile.g_r} x {tile.g_c}"
               + (" (default)" if g is None else "")
-              + f": {gm.groups.shape[0]} active groups, {ms:.4f} ms, max "
+              + f": {int((gm.groups >= 0).sum())} active groups, {ms:.4f} ms, max "
               f"|err| vs plain {err:.3e}", flush=True)
         if not good:
             raise AssertionError(f"group {g}: max |err| {err}")
@@ -4690,6 +4704,89 @@ def phase_families2(torch, np, T, FA, get_arch, mesh_mod, card: str) -> dict:
     return dict(fwd_launches=fwd_total, bwd_launches=bwd_total)
 
 
+# phase 29's train_lm steps: the fewest at which the driver's learning
+# check passes on the H100 (losses 10.5672, 9.8002, 8.9875 against the
+# check's 9.5672; ``scripts/train_lm_steps.py``).  Its default of 200
+# steps adds about 70 s of host-bound steps, which a slower host does not
+# leave room for in this run's time budget.
+TRAIN_LM_STEPS = 3
+
+
+def phase_examples(torch, K, FA, plan) -> dict:
+    """Phase 29 (see the module docstring): each example twin's ``main``
+    at its defaults (``train_lm`` at ``TRAIN_LM_STEPS`` steps), both
+    kernels' counts set to 0 just before each call and read just after;
+    returns the launches of all the calls and each call's seconds."""
+    import tempfile
+
+    from repro_torch.examples import (
+        linear_scaling_dft,
+        quickstart,
+        serve_batch,
+        tensor_contraction,
+        train_lm,
+    )
+
+    out = dict(spgemm_launches=0, fwd_launches=0, bwd_launches=0, s={})
+
+    def call(label, mod, argv=()):
+        K.launches = FA.launches = FA.bwd_launches = FA.copies = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = mod.main(list(argv))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = dict(spgemm=K.launches, fwd=FA.launches, bwd=FA.bwd_launches,
+                 copies=FA.copies)
+        print(f"[29] {label}: {sec:.2f} s, block_spgemm launches "
+              f"{n['spgemm']}, flash forward {n['fwd']}, backward "
+              f"{n['bwd']}, flash input copies {n['copies']}", flush=True)
+        if rc != 0 or n["copies"]:
+            raise AssertionError(f"{label}: exit {rc}, {n['copies']} copies")
+        out["s"][label] = sec
+        out["spgemm_launches"] += n["spgemm"]
+        out["fwd_launches"] += n["fwd"]
+        out["bwd_launches"] += n["bwd"]
+        return n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the checkpoints train_lm writes into a fresh temporary directory
+        # go with this one
+        saved, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            call("linear_scaling_dft", linear_scaling_dft)
+            db = os.path.join(tmp, "tuning_db.json")
+            trials = []
+            for when in ("cold", "warm"):
+                call(f"linear_scaling_dft --tuning-db ({when})",
+                     linear_scaling_dft, ["--tuning-db", db])
+                trials.append(plan.cache_stats()["tuner_trials"])
+            print(f"[29] linear_scaling_dft --tuning-db: trials cold "
+                  f"{trials[0]}, warm {trials[1]}", flush=True)
+            if not (trials[0] > 0 and trials[1] == 0):
+                raise AssertionError(f"tuner trials cold / warm {trials}")
+            call("quickstart", quickstart)
+            call("tensor_contraction", tensor_contraction)
+            cfg = serve_batch.config()
+            n = call("serve_batch", serve_batch)
+            # one prefill round, and the teacher-forced forward: each runs
+            # the kernel once per layer (decode attends without it)
+            if (n["fwd"], n["bwd"]) != (2 * cfg.n_layers, 0):
+                raise AssertionError(f"serve_batch flash {n} (want "
+                                     f"{2 * cfg.n_layers} forward)")
+            cfg = train_lm.config()
+            n = call("train_lm", train_lm, ["--steps", str(TRAIN_LM_STEPS)])
+            # 4 ranks x layers x steps x (2 forward: remat recomputes it,
+            # 3 backward), as phase 25 counts them
+            want = (4 * cfg.n_layers * TRAIN_LM_STEPS * 2,
+                    4 * cfg.n_layers * TRAIN_LM_STEPS * FA.BWD_KERNELS)
+            if (n["fwd"], n["bwd"]) != want:
+                raise AssertionError(f"train_lm flash {n} (want {want})")
+        finally:
+            tempfile.tempdir = saved
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4787,6 +4884,7 @@ def main() -> int:
                       mesh_mod, smi)
     families2 = _timed(28, phase_families2, torch, np, T, FA, get_arch,
                        mesh_mod, smi)
+    examples = _timed(29, phase_examples, torch, K, FA, plan)
 
     kernels = [dict(
         name="block_spgemm", route="cuda",
@@ -4794,7 +4892,8 @@ def main() -> int:
         replaces="src/repro/kernels/block_spgemm.py:217",
         launches=(launches + sharded_launches + dbcsr_launches
                   + tuner_launches + tensor["launches"] + moe_launches
-                  + serve_launches + jamba_launches),
+                  + serve_launches + jamba_launches
+                  + examples["spgemm_launches"]),
         max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -4807,27 +4906,28 @@ def main() -> int:
                   + whisper_flash + pixtral_flash + trained["fwd_launches"]
                   + sharded_train["fwd_launches"]
                   + served_2x2["fwd_launches"] + families["fwd_launches"]
-                  + families2["fwd_launches"]),
+                  + families2["fwd_launches"] + examples["fwd_launches"]),
         max_abs_err=f["max_abs_err"],
         ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
         bound_by=f["bound_by"], library_ms=f["library_ms"],
         bwd_launches=trained["bwd_launches"]
         + sharded_train["bwd_launches"] + families["bwd_launches"]
-        + families2["bwd_launches"],
+        + families2["bwd_launches"] + examples["bwd_launches"],
         bwd_ms=fb["bwd_ms"],
         bwd_plain_ms=fb["bwd_plain_ms"], bwd_bound_ms=fb["bwd_bound_ms"],
         bwd_library_ms=fb["bwd_library_ms"],
         bwd_max_abs_err=fb["bwd_max_abs_err"], bwd_dkdv_ms=fb["bwd_dkdv_ms"],
         bwd_dq_ms=fb["bwd_dq_ms"],
     )]
-    print(f"[29] all phases passed in {time.perf_counter() - t0:.1f} s; "
+    print(f"[30] all phases passed in {time.perf_counter() - t0:.1f} s; "
           f"block_spgemm launches {launches} (single-device purification) "
           f"+ {sharded_launches} (sharded) + {dbcsr_launches} (phase 13's "
           f"four chains) + {tuner_launches} (phase 14's two tuned chains) "
           f"+ {tensor['launches']} (phase 15's contraction) + "
           f"{moe_launches} (phase 16's MoE layer) + {serve_launches} "
           f"(phase 17's spgemm serving) + {jamba_launches} (phase 18's "
-          f"jamba spgemm serving); flash launches "
+          f"jamba spgemm serving) + {examples['spgemm_launches']} (phase "
+          f"29's examples); flash launches "
           f"{served['flash_launches']} (phase 7) + {serve_flash} (phase "
           f"17's two serving runs) + {jamba_flash} (phase 18's two jamba "
           f"serving runs) + {whisper_flash} (phase 20's whisper prefill) + "
@@ -4848,7 +4948,11 @@ def main() -> int:
           f"on 2 x 2 ranks, backward {families['bwd_launches']}) + "
           f"{families2['fwd_launches']} (phase 28's ssm, audio and vlm "
           f"families on 2 x 2 ranks and the one-device serving steps, "
-          f"backward {families2['bwd_launches']}); phase "
+          f"backward {families2['bwd_launches']}) + "
+          f"{examples['fwd_launches']} (phase 29's examples, backward "
+          f"{examples['bwd_launches']}: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in examples["s"].items())
+          + "); phase "
           f"19's rwkv6 serving launches neither; jamba's MoE shape: kernel "
           f"{jamba_kernel['ms']:.4f} ms, bound "
           f"{jamba_kernel['bound_ms']:.4f} ms, grouped bmm "

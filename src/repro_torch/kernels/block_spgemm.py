@@ -201,7 +201,9 @@ def tile_candidates(bs_r: int, bs_c: int,
 def group_masks(stacks: ProductStacks, *, ni: int, nk: int, nj: int,
                 g_r: int, g_c: int) -> GroupMasks:
     """Per-group k masks of a product list, on the list's device (any
-    device; one sync, for the groups with a survivor).
+    device; no sync), and the groups with a survivor in increasing order,
+    then -1 up to every group's count (the kernel's CTAs of a -1 exit at
+    once).
 
     One accumulating ``index_add_`` of ``valid << bit`` over the whole
     list: each (group, k, bit) occurs at most once among the valid
@@ -219,7 +221,8 @@ def group_masks(stacks: ProductStacks, *, ni: int, nk: int, nj: int,
                                        (ia % g_r) * g_c + ij % g_c)
         flat.index_add_(0, group * nk + stacks.ik, bit)
     masks = flat.view(n_gr * n_gc, nk)
-    groups = torch.nonzero(masks.any(1)).squeeze(1).to(torch.int32)
+    groups = torch.nonzero_static(masks.any(1), size=n_gr * n_gc,
+                                  fill_value=-1).squeeze(1).to(torch.int32)
     return GroupMasks(masks, groups, g_r, g_c)
 
 
@@ -389,8 +392,11 @@ def block_spgemm_stacks(
     if dev.type != "cuda":
         raise ValueError(f"block_spgemm runs on cpu or cuda tensors, not "
                          f"{dev}")
-    nk, bs_r = a_blocks.shape[1], a_blocks.shape[2]
-    tile = kernel_tile(bs_r, b_blocks.shape[3], group=group)
+    nk, bs_r, bs_c = a_blocks.shape[1], a_blocks.shape[2], b_blocks.shape[3]
+    tile = kernel_tile(bs_r, bs_c, group=group)
+    if stacks.capacity == 0:  # no product: no group, no launch
+        return torch.zeros((ni, nj, bs_r, bs_c), dtype=a_blocks.dtype,
+                           device=dev)
     gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r, g_c=tile.g_c)
     a_blocks, b_blocks = (t if rowmajor_blocks(t) else t.contiguous()
                           for t in (a_blocks, b_blocks))

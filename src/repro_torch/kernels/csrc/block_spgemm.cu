@@ -24,7 +24,8 @@
 // B_{k,j} blocks once, and every thread multiplies them into its registers,
 // so each staged block serves the whole group: work per word read rises
 // about G-fold and the L2 reads at full fill fall about 4x.  No atomics:
-// every output block has one writer; groups without a survivor get no CTA.
+// every output block has one writer; groups without a survivor get no CTA
+// (the wrapper lists them as -1 past the active ones: those CTAs exit).
 //
 // Threads.  128 threads as 16 x 8, each owning a 6-row x 12-column register
 // micro-tile of a 96 x 96 panel.  Block rows sit in the panel at a stride
@@ -165,6 +166,7 @@ __global__ void __launch_bounds__(NT, 4) group_kernel(
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int n_gc = (nj + g_c - 1) / g_c;
   const int64_t g = groups[blockIdx.x];
+  if (g < 0) return;  // padding past the active groups
   const int gi = (int)(g / n_gc), gj = (int)(g % n_gc);
   const int row0 = (blockIdx.y / n_sub_c) * PANEL;  // sub-tile of a block above 96
   const int col0 = (blockIdx.y % n_sub_c) * PANEL;
@@ -299,7 +301,8 @@ __global__ void __launch_bounds__(NT, 4) group_kernel(
 // sa_i, sa_k / sb_k, sb_j: the strides of A's / B's block grids in elements
 // (each block row-major and contiguous; C contiguous).  masks: (n_groups, nk)
 // int32, bit (i % g_r) * g_c + j % g_c of group (i / g_r) * n_gc + j / g_c at
-// k set for each surviving product; groups: the n_active groups with one.
+// k set for each surviving product; groups: the n_active groups with one,
+// or those followed by -1 entries (CTAs that exit at once).
 // g_r / g_c: blocks per group, stride_r / stride_c: panel rows / cols per
 // block (a multiple of 6), n_sub_r / n_sub_c: 96-wide sub-tiles per block
 // (blocks above 96), all as chosen by kernels/block_spgemm.py::kernel_tile.

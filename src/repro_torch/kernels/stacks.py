@@ -119,8 +119,9 @@ def compact_pair_mask(pair_ok: torch.Tensor, *, capacity: int) -> ProductStacks:
     """Compact a (ni, nk, nj) filter cube into a ``ProductStacks`` list on
     the cube's device.
 
-    ``torch.nonzero`` of the (i, j, k)-ordered cube gives the reference's
-    order: output tiles consecutive, k-runs contiguous.  If more than
+    ``torch.nonzero_static`` of the (i, j, k)-ordered cube gives the
+    reference's order: output tiles consecutive, k-runs contiguous, and the
+    list's length is ``capacity`` without a device sync.  If more than
     ``capacity`` products survive the excess is dropped, as in the
     reference — callers supply a sound capacity (``bucket_capacity`` of
     ``product_count``).
@@ -131,13 +132,13 @@ def compact_pair_mask(pair_ok: torch.Tensor, *, capacity: int) -> ProductStacks:
         z = torch.zeros((0,), dtype=torch.int32, device=dev)
         return ProductStacks(z, z, z, z, z, z, z)
     okt = pair_ok.to(torch.bool).permute(0, 2, 1).reshape(-1)
-    flat = torch.nonzero(okt).squeeze(1)[:capacity]
-    n = flat.shape[0]
-    valid = torch.arange(capacity, device=dev) < n
-    if n < capacity:
-        # padding repeats the last real triple (or triple 0 when none survive)
-        last = flat[-1:] if n else flat.new_zeros(1)
-        flat = torch.cat([flat, last.expand(capacity - n)])
+    # the n listed products first, then the fill 0
+    flat = torch.nonzero_static(okt, size=capacity, fill_value=0).squeeze(1)
+    n = okt.sum().clamp(max=capacity)
+    slot = torch.arange(capacity, device=dev)
+    valid = slot < n
+    # padding repeats the last real triple (or triple 0 when none survive)
+    flat = flat[torch.minimum(slot, (n - 1).clamp(min=0))]
     ia = flat // (nj * nk)
     ij = (flat // nk) % nj
     ik = flat % nk

@@ -18,8 +18,9 @@ free); ``--arch jamba-v0.1-52b --reduced`` and ``--arch rwkv6-7b
 --reduced`` rehearse on the CPU.  Their prompts must be a multiple of the
 mixer's chunk (256 at full width, 8 reduced) once longer than it.  jamba
 at full depth (51.45 B parameters, 95.8 GiB in bf16) needs more than one
-card, as llama4 does (sharded serving: ROADMAP.md Queue A); one card serves it
-at full width and 16 of its 32 layers.
+card, as llama4 does (sharded serving of every family:
+``launch.steps.build_prefill_step`` / ``build_serve_step(..., mesh=)``);
+one card serves it at full width and 16 of its 32 layers.
 
 whisper-large-v3 and pixtral-12b serve text-only prompts, as the
 reference's launcher serves them: whisper's decoder without frames (its

@@ -325,6 +325,9 @@ def init_sharded(cfg: ArchConfig, mesh, params: Any, opt: AdamWConfig,
     one residual per rank."""
     p_shape, o_shape, p_spec, o_spec = abstract_state(cfg, mesh, opt,
                                                       options)
+    # in the specs' key order, which the step's leaf lists follow: a tree
+    # carried across from the JAX package (``interop``) has its keys sorted
+    params = tree_map(lambda _, x: x, p_spec, params)
     sharded = SH.shard_tree(mesh, params, p_spec)
     state = {name: tree_map(lambda x, s: SH.zeros(mesh, x.shape, s, x.dtype),
                             o_shape[name], o_spec[name])

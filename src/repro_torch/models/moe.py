@@ -423,17 +423,68 @@ def _dispatch_bsm(xt: torch.Tensor, mask: torch.Tensor, tpb: int):
     return B.BlockSparseMatrix(blocks=blocks, mask=mask, norms=norms)
 
 
+_CLIPS: dict = {}  # (envelope signature, device) -> its mask_a there
+
+
+def _envelope_clip(env, dev: torch.device) -> torch.Tensor:
+    """``env.mask_a`` on ``dev``, copied there once per envelope (a serving
+    stream reuses one envelope for every decode step)."""
+    key = (env.signature, str(dev))
+    clip = _CLIPS.get(key)
+    if clip is None:
+        if len(_CLIPS) >= 64:
+            _CLIPS.clear()
+        clip = _CLIPS[key] = torch.from_numpy(
+            np.array(env.mask_a, bool)).to(dev)
+    return clip
+
+
+def _expert_products(mask: torch.Tensor, cap: int, backend: str):
+    """``mult(a_blocks, w)``: A's (nb, E, tb, d_in) blocks times the
+    block-diagonal bank of ``w`` (E, d_in, d_out), block (i, e) by W_e
+    where ``mask`` is set — ``engine.multiply(A, diag_expert_bsm(w),
+    backend=backend, stack_capacity=cap).blocks`` bit for bit.  A layer's
+    three expert products share A's pattern, so the pair cube, the
+    product list and the kernel's group list (about 50 launches a
+    multiply) are made once for all three, with no host sync."""
+    from repro_torch.kernels import block_spgemm as K
+    from repro_torch.kernels.stacks import compact_pair_mask, resolve_capacity
+
+    nb, e = mask.shape
+    eye = torch.eye(e, dtype=torch.bool, device=mask.device)
+    ok = mask[:, :, None] & eye[None]
+    stacks = compact_pair_mask(ok, capacity=resolve_capacity(cap, ok.numel()))
+    kernel = backend == "cuda" and mask.device.type == "cuda"
+    groups: dict = {}  # one group list per kernel layout
+
+    def mult(a_blocks: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        b_blocks = w.unsqueeze(0).expand((e,) + tuple(w.shape))
+        if not kernel or stacks.capacity == 0:
+            return K.block_spgemm_stacks_plain(a_blocks, b_blocks, stacks,
+                                               ni=nb, nj=e)
+        tile = K.kernel_tile(a_blocks.shape[2], w.shape[2])
+        gm = groups.get(tile)
+        if gm is None:
+            gm = groups[tile] = K.group_masks(
+                stacks, ni=nb, nk=e, nj=e, g_r=tile.g_r, g_c=tile.g_c)
+        return K.block_spgemm_groups(a_blocks, b_blocks, gm, ni=nb, nj=e)
+
+    return mult
+
+
 def _apply_spgemm(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e):
-    """Expert dispatch as block-sparse SpGEMM through ``engine.multiply``.
+    """Expert dispatch as block-sparse SpGEMM.
 
     Tokens are grouped into blocks of ``moe.token_block``; the routing
     decision becomes an (nb_tok, E) dispatch BSM A whose occupied blocks
     replicate the token block across its routed expert columns, and the
     three expert matmuls (in / gate / out) run A against block-diagonal
-    weight banks.  The combine gathers each token's K expert outputs back
-    with the router weights, so the result equals the dense oracle up to
-    summation order (no drops) whenever the ambient envelope covers the
-    pattern.
+    weight banks: ``engine.multiply``'s products, through it for the
+    ``dense`` backend and on one shared product list for the compacted
+    ones (``_expert_products``).  The combine gathers each token's K
+    expert outputs back with the router weights, so the result equals the
+    dense oracle up to summation order (no drops) whenever the ambient
+    envelope covers the pattern.
     """
     from repro_torch.core import bsm as B
     from repro_torch.core import engine as core_engine
@@ -471,37 +522,50 @@ def _apply_spgemm(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e):
     if env is not None:
         # clip the dispatch to the envelope so its capacity is sound;
         # clipped routed choices are the serving drop stat
-        clip = torch.from_numpy(np.array(env.mask_a, bool)).to(dev)
+        clip = _envelope_clip(env, dev)
         mask = mask & clip
         keep = clip[blk[:, None], te]
+        if cap is None:
+            cap = env.local_capacity()
     dropped = (valid[:, None] & ~keep).sum().to(torch.int32)
 
     backend = spec.backend if spec is not None and spec.backend else (
         "cuda" if dev.type == "cuda" else "stacks")
-    if cap is None and env is None:
+    if cap is None:
         # structural bound: every block row occupies at most min(tb*K, E)
         # expert columns, and diagonal B gives one product per block
         cap = bucket_capacity(nb * min(tpb * k, e))
-    aliased = backend in ("cuda", "stacks")
+    gated = cfg.mlp in ("swiglu", "geglu")
 
-    def mult(a_bsm, w_bank):
-        return core_engine.multiply(
-            a_bsm, diag_expert_bsm(w_bank, aliased=aliased), backend=backend,
-            stack_capacity=cap, envelope=env)
+    if backend in ("cuda", "stacks"):
+        # the compacted backends read the listed blocks only: A as the
+        # token blocks broadcast over the expert columns (a stride-0 view)
+        mult = _expert_products(mask, cap, backend)
+        a = xt.reshape(nb, 1, tpb, d).expand(nb, e, tpb, d)
+        h = mult(a, p["w_in"])  # (nb, E) blocks of (tb, de)
+        hb = _gate(cfg, mult(a, p["w_gate"]) if gated else None, h)
+        del a, h
+        # act(0) = 0 for gelu / silu, so unlisted blocks stay zero
+        out = mult(hb, p["w_out"])  # (nb, E) x (tb, d)
+    else:
+        # The envelope covers both operands by construction (A is clipped
+        # to it above, and the bank's mask is its eye), so its capacity
+        # goes in directly: ``multiply(envelope=env)`` would check that
+        # cover on the host, two device-to-host copies a multiply.
+        def mult(a_bsm, w_bank):
+            return core_engine.multiply(
+                a_bsm, diag_expert_bsm(w_bank, aliased=False),
+                backend=backend, stack_capacity=cap).blocks
 
-    a = _dispatch_bsm(xt, mask, tpb)
-    h = mult(a, p["w_in"])  # (nb, E) blocks of (tb, de)
-    g = mult(a, p["w_gate"]) if cfg.mlp in ("swiglu", "geglu") else None
-    del a
-    hb = _gate(cfg, None if g is None else g.blocks, h.blocks)
-    h_mask = h.mask
-    del h, g
-    # act(0) = 0 for gelu / silu, so unlisted blocks stay zero; make_bsm
-    # re-zeroes and refreshes the norms, as the reference does
-    out = mult(B.make_bsm(hb, h_mask), p["w_out"])  # (nb, E) x (tb, d)
+        a = _dispatch_bsm(xt, mask, tpb)
+        h = mult(a, p["w_in"])
+        hb = _gate(cfg, mult(a, p["w_gate"]) if gated else None, h)
+        del a, h
+        # make_bsm re-zeroes and refreshes the norms, as the reference does
+        out = mult(B.make_bsm(hb, mask), p["w_out"])
     del hb
-    y = out.blocks[blk[:, None], te, (torch.arange(tt, device=dev)
-                                      % tpb)[:, None]]  # (tt, K, d)
+    y = out[blk[:, None], te, (torch.arange(tt, device=dev)
+                               % tpb)[:, None]]  # (tt, K, d)
     w = (tw * keep.to(tw.dtype)).to(y.dtype)
     y = (y * w[..., None]).sum(1)[:t]
     return y.reshape(b, s, d), dropped

@@ -195,7 +195,8 @@ def test_tile_runs_cover_the_valid_list(capacity):
     """The kernel's walk (the per-group k masks) covers the valid entries
     of the list: each once, as one bit of one group's mask at its k, and
     nothing else — padding and the entries a tight capacity dropped appear
-    nowhere; the active groups are exactly those with a bit."""
+    nowhere; the active groups are exactly those with a bit, in order,
+    then -1 up to every group's count."""
     _, _, ok = _operands(5, 5, 6, 4, (2, 2, 2), 0.5)
     n = int(ok.sum())
     cap = {"exact": bucket_capacity(n), "padded": 4 * bucket_capacity(n),
@@ -209,8 +210,10 @@ def test_tile_runs_cover_the_valid_list(capacity):
                       st.ij.numpy()[valid]))
     got = _bits(gm, 5, 4)
     assert sorted(got) == want and len(set(got)) == len(got)
-    np.testing.assert_array_equal(
-        gm.groups.numpy(), np.flatnonzero(gm.masks.numpy().any(1)))
+    active = np.flatnonzero(gm.masks.numpy().any(1))
+    want = np.full(gm.masks.shape[0], -1)
+    want[:active.size] = active
+    np.testing.assert_array_equal(gm.groups.numpy(), want)
 
 
 @pytest.mark.parametrize("bs_r,bs_c", [(4, 4), (8, 8), (23, 23), (24, 24),
@@ -245,6 +248,8 @@ def _walk_group_masks(a, b, gm, ni, nj):
     c = torch.zeros((ni, nj, bs_r, bs_c), dtype=torch.float32)
     masks = gm.masks.numpy()
     for g in gm.groups.tolist():
+        if g < 0:  # padding past the active groups
+            break
         gi, gj = divmod(g, n_gc)
         for k in np.flatnonzero(masks[g]):
             m = int(masks[g, k])
@@ -311,8 +316,9 @@ def test_group_masks_hold_each_valid_product_once(case):
     assert sorted(got) == want and len(set(got)) == len(got)
     assert all(i < ni and j < nj for i, _, j in got)  # ragged edges unset
     n_groups = -(-ni // t.g_r) * -(-nj // t.g_c)
+    assert gm.groups.numel() == n_groups
     if case == "empty_groups":
-        assert 0 < gm.groups.numel() < n_groups
+        assert 0 < int((gm.groups >= 0).sum()) < n_groups
 
 
 @pytest.mark.parametrize("case", MASK_CASES)

@@ -1,11 +1,14 @@
 """The ssm family on a mesh of ranks (``parallel/runtime.py``): rwkv6-7b
 reduced (f32, d 128, four heads of 32, chunk 8): trained on meshes
-2 x 2, 1 x 2 and 2 x 1 x 2, served on those and on 1 x 4, and whole on
-1 x 8 (four heads do not divide eight model ranks).  Trained on 1 x 4
-(one head a rank), the third step's grad norm is 1.5e-4 off the
-one-device step's, inside the one-device step's own spread from a
-one-ulp start (6.5e-4) but past this file's fixed 1e-4, so that mesh is
-not among the training cases.
+2 x 2, 1 x 2, 2 x 1 x 2 and 1 x 4, served on those, and whole on 1 x 8
+(four heads do not divide eight model ranks).  Trained on 1 x 4 (one head
+a rank), the third step's grad norm is 1.5e-4 of itself off the
+one-device step's: past this file's fixed 1e-4 but inside the one-device
+step's own spread from a one-ulp start (6.5e-4; a step without the sum
+over ``model`` below misses at the first step by 5.1e-4 while that
+spread is 1.4e-6), so that case's metrics are held to 1e-4 or
+twice that spread (``_run_case(..., witness=True)``, the rule of
+``tests/test_torch_sharded_step.py``'s chaotic runs).
 
 Training: three sharded steps against the port's one-device step
 (``tests/test_torch_sharded_step.py``'s ``_run_case``: loss, ce and the
@@ -63,12 +66,26 @@ def test_sharded_step_matches_one_device(arch, dims, opts, monkeypatch):
     SS._run_case(_cfg(), dims, opts, monkeypatch)
 
 
+def test_sharded_step_one_head_a_rank(monkeypatch):
+    """1 x 4: one head a model rank, held by the one-ulp witness."""
+    SS._run_case(_cfg(), (1, 4), dict(remat="none"), monkeypatch,
+                 witness=True)
+
+
 def test_without_the_model_sum_the_step_misses(monkeypatch):
     """decay_w1 and the mu factors used whole on each model rank with no
     sum of their gradients over ``model``: the step misses."""
     monkeypatch.setattr(RT, "RWKV_SUMMED", ())
     with pytest.raises(AssertionError):
         SS._run_case(_cfg(), (1, 2), dict(remat="none"), monkeypatch)
+
+
+def test_without_the_model_sum_one_head_a_rank_misses(monkeypatch):
+    """The planted fault also fails the 1 x 4 case under its witness."""
+    monkeypatch.setattr(RT, "RWKV_SUMMED", ())
+    with pytest.raises(AssertionError):
+        SS._run_case(_cfg(), (1, 4), dict(remat="none"), monkeypatch,
+                     witness=True)
 
 
 @pytest.mark.parametrize("dims,names", SV.MESHES + [
