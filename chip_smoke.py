@@ -4704,7 +4704,7 @@ def phase_families2(torch, np, T, FA, get_arch, mesh_mod, card: str) -> dict:
     return dict(fwd_launches=fwd_total, bwd_launches=bwd_total)
 
 
-# phase 29's train_lm steps: the fewest at which the driver's learning
+# phase 29's train_lm steps: the fewest at which the example's learning
 # check passes on the H100 (losses 10.5672, 9.8002, 8.9875 against the
 # check's 9.5672; ``scripts/train_lm_steps.py``).  Its default of 200
 # steps adds about 70 s of host-bound steps, which a slower host does not

@@ -14,7 +14,7 @@ layer at full width on 8 and on 2 x 256 tokens; it saves every output
 and drop count.  ``compare`` prints ``BITEQUAL`` when two such files
 hold the same arrays bit for bit.  ``phases`` runs ``TREE``'s
 ``chip_smoke.py`` phases 17 and 18 (MoE serving at full width) and
-prints each one's seconds.  Two checkouts compared in one session see
+prints each one's seconds.  Two checkouts compared in one invocation see
 the same card and host.
 """
 from __future__ import annotations

@@ -6,7 +6,7 @@ steps at which its learning check passes.
 Runs ``repro_torch.examples.train_lm.run`` at its defaults (the
 olmo-family model of 8 layers x d 768 on 2 x 2 ranks, seed 0) and prints
 one JSON line: every step's loss and the fewest steps N whose run passes
-the driver's check, ``min(losses[:N][-10:]) < losses[0] - 1.0``.  The
+the example's learning check, ``min(losses[:N][-10:]) < losses[0] - 1.0``.  The
 optimizer's learning rate is constant, so an N-step run takes the first N
 steps of this one.
 """
