@@ -1,0 +1,2 @@
+"""% of the traced window in which no operation ran on the device."""
+from perfbench.readers import idle_share as read  # noqa: F401
