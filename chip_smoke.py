@@ -913,7 +913,9 @@ def _profile_window(torch, fn, group=_kernel_group,
     groups = dict.fromkeys(names, 0.0)
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a span's device range (``repro_torch.obs``) is no kernel
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = e.device_time_total
         groups[group(e.key)] += us / 1e3
@@ -2096,7 +2098,8 @@ def _span_profile(torch, fn, spans: dict) -> tuple[float, dict, int]:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in spans]  # the spans' own device ranges
+              and e.name not in spans  # the spans' own device ranges
+              and not getattr(e, "is_user_annotation", False)]
     groups = dict.fromkeys(["flash", "flash_bwd", "matmul",
                             *spans.values(), "other"], 0.0)
     for e in device:

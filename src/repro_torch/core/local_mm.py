@@ -38,6 +38,7 @@ from repro_torch.kernels.stacks import (
     product_count,
     resolve_capacity,
 )
+from repro_torch.obs import span
 
 BACKENDS = ("dense", "stacks", "cuda")
 
@@ -225,24 +226,28 @@ def local_filtered_mm(
     """
     global calls
     calls += 1
-    ni, nk = a_blocks.shape[:2]
-    nj = b_blocks.shape[1]
-    ok = pair_filter(a_mask, a_norms, b_mask, b_norms, threshold)
-    if backend == "cuda":
-        from repro_torch.kernels import ops as kops
+    with span("repro.local_mm.multiply"):
+        ni, nk = a_blocks.shape[:2]
+        nj = b_blocks.shape[1]
+        with span("repro.local_mm.list_build"):
+            ok = pair_filter(a_mask, a_norms, b_mask, b_norms, threshold)
+        if backend == "cuda":
+            from repro_torch.kernels import ops as kops
 
-        c_blocks = kops.block_spgemm(a_blocks, b_blocks, ok,
-                                     capacity=stack_capacity, group=tile)
-    elif backend == "stacks":
-        if stack_capacity is None:
-            cap = bucket_capacity(product_count(ok))
+            c_blocks = kops.block_spgemm(a_blocks, b_blocks, ok,
+                                         capacity=stack_capacity, group=tile)
+        elif backend == "stacks":
+            with span("repro.local_mm.list_build"):
+                if stack_capacity is None:
+                    cap = bucket_capacity(product_count(ok))
+                else:
+                    cap = resolve_capacity(stack_capacity, ni * nk * nj)
+                stacks = compact_pair_mask(ok, capacity=cap)
+            c_blocks = stacks_mm(a_blocks, b_blocks, stacks, ni=ni, nj=nj)
+        elif backend == "dense":
+            c_blocks = _dense_mm(a_blocks, b_blocks, ok)
         else:
-            cap = resolve_capacity(stack_capacity, ni * nk * nj)
-        stacks = compact_pair_mask(ok, capacity=cap)
-        c_blocks = stacks_mm(a_blocks, b_blocks, stacks, ni=ni, nj=nj)
-    elif backend == "dense":
-        c_blocks = _dense_mm(a_blocks, b_blocks, ok)
-    else:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    c_mask = ok.any(dim=1)
+            raise ValueError(f"unknown backend {backend!r}; one of "
+                             f"{BACKENDS}")
+        c_mask = ok.any(dim=1)
     return c_blocks, c_mask

@@ -65,6 +65,7 @@ from repro_torch.core import transport as T
 from repro_torch.core.bsm import block_norms
 from repro_torch.core.engine import _envelope_transport, multiply
 from repro_torch.core.local_mm import local_filtered_mm
+from repro_torch.obs import span
 
 
 @dataclass
@@ -516,16 +517,18 @@ def sign_iteration(
                                   stack_capacity=stack_capacity,
                                   envelope=env, transport=transport,
                                   tile=tile)
-        xb, xm, xn, res_d, occ_d = sweep(xb, xm, xn, ib, im)
+        with span("repro.signiter.sweep"):
+            xb, xm, xn, res_d, occ_d = sweep(xb, xm, xn, ib, im)
         pending.append((res_d, occ_d))
         if it % sync_every == 0 or it == max_iter:
             syncs += 1
-            for res_d, occ_d in pending:
-                r = float(res_d)
-                res_trace.append(r)
-                occ_trace.append(float(occ_d))
-                if r < tol:
-                    converged = True
+            with span("repro.signiter.sync"):
+                for res_d, occ_d in pending:
+                    r = float(res_d)
+                    res_trace.append(r)
+                    occ_trace.append(float(occ_d))
+                    if r < tol:
+                        converged = True
             pending = []
             if converged:
                 break

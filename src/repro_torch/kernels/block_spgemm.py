@@ -51,6 +51,7 @@ from repro_torch.kernels.stacks import (
     product_count,
     resolve_capacity,
 )
+from repro_torch.obs import span
 
 launches = 0  # kernel launches since the last reset (a plain counter)
 
@@ -295,19 +296,21 @@ def block_spgemm_groups(
     for name, t in (("masks", gm.masks), ("groups", gm.groups)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    out = torch.zeros((ni, nj, bs_r, bs_c), dtype=a_blocks.dtype, device=dev)
-    n_active = gm.groups.shape[0]
-    if n_active == 0:
-        return out
-    launch = _launcher()
-    with torch.cuda.device(dev):
-        err = launch(
-            a_blocks.data_ptr(), b_blocks.data_ptr(), out.data_ptr(),
-            gm.masks.data_ptr(), gm.groups.data_ptr(), n_active,
-            *a_blocks.stride()[:2], *b_blocks.stride()[:2], ni, nk, nj,
-            bs_r, bs_k, bs_c, *tile, _DTYPE_CODE[a_blocks.dtype],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    with span("repro.block_spgemm.launch"):
+        out = torch.zeros((ni, nj, bs_r, bs_c), dtype=a_blocks.dtype,
+                          device=dev)
+        n_active = gm.groups.shape[0]
+        if n_active == 0:
+            return out
+        launch = _launcher()
+        with torch.cuda.device(dev):
+            err = launch(
+                a_blocks.data_ptr(), b_blocks.data_ptr(), out.data_ptr(),
+                gm.masks.data_ptr(), gm.groups.data_ptr(), n_active,
+                *a_blocks.stride()[:2], *b_blocks.stride()[:2], ni, nk, nj,
+                bs_r, bs_k, bs_c, *tile, _DTYPE_CODE[a_blocks.dtype],
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
                            f"{err} (groups={n_active}, blocks=({bs_r}, {bs_k},"
@@ -397,7 +400,9 @@ def block_spgemm_stacks(
     if stacks.capacity == 0:  # no product: no group, no launch
         return torch.zeros((ni, nj, bs_r, bs_c), dtype=a_blocks.dtype,
                            device=dev)
-    gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r, g_c=tile.g_c)
+    with span("repro.local_mm.list_build"):
+        gm = group_masks(stacks, ni=ni, nk=nk, nj=nj, g_r=tile.g_r,
+                         g_c=tile.g_c)
     a_blocks, b_blocks = (t if rowmajor_blocks(t) else t.contiguous()
                           for t in (a_blocks, b_blocks))
     return block_spgemm_groups(a_blocks, b_blocks, gm, ni=ni, nj=nj)
@@ -424,11 +429,12 @@ def block_spgemm(
     nj = b_blocks.shape[1]
     if tuple(pair_ok.shape) != (ni, nk, nj):
         raise ValueError(f"pair_ok {tuple(pair_ok.shape)} != {(ni, nk, nj)}")
-    if capacity is None:
-        cap = bucket_capacity(product_count(pair_ok))
-    else:
-        cap = resolve_capacity(capacity, ni * nk * nj)
-    stacks = compact_pair_mask(pair_ok, capacity=cap)
+    with span("repro.local_mm.list_build"):
+        if capacity is None:
+            cap = bucket_capacity(product_count(pair_ok))
+        else:
+            cap = resolve_capacity(capacity, ni * nk * nj)
+        stacks = compact_pair_mask(pair_ok, capacity=cap)
     c = block_spgemm_stacks(a_blocks, b_blocks, stacks, ni=ni, nj=nj,
                             group=group)
     c_mask = pair_ok.to(torch.bool).any(dim=1)

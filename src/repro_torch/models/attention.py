@@ -25,6 +25,7 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.layers import _normal, apply_rope
+from repro_torch.obs import span
 from repro_torch.parallel.ctx import tp_matmul
 
 NEG_INF = FA.NEG_INF
@@ -114,9 +115,11 @@ def chunked_attention(
     grad enabled the backward runs the flash backward kernels (CUDA) or
     the plain backward (CPU).
     """
-    return FA.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap, scale=scale, q_chunk=q_chunk,
-                              kv_chunk=kv_chunk, q_offset=q_offset)
+    with span("repro.attention"):
+        return FA.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                  q_offset=q_offset)
 
 
 def decode_scores(
@@ -173,11 +176,12 @@ def decode_attention(
     and the result cast to q's dtype, as the reference's.
     """
     b, h, _, d = q.shape
-    s, _ = decode_scores(q, k_cache, length, window=window,
-                         softcap=softcap, scale=scale)
-    p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p.to(v_cache.dtype), v_cache)
-    return out.reshape(b, h, 1, d).to(q.dtype)
+    with span("repro.attention"):
+        s, _ = decode_scores(q, k_cache, length, window=window,
+                             softcap=softcap, scale=scale)
+        p = torch.softmax(s, dim=-1)
+        out = torch.matmul(p.to(v_cache.dtype), v_cache)
+        return out.reshape(b, h, 1, d).to(q.dtype)
 
 
 def decode_partial(

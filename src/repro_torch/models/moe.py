@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig, MoEConfig
+from repro_torch.obs import span
 
 
 def moe_dims(cfg: ArchConfig) -> tuple[int, int]:
@@ -465,8 +466,9 @@ def _expert_products(mask: torch.Tensor, cap: int, backend: str):
         tile = K.kernel_tile(a_blocks.shape[2], w.shape[2])
         gm = groups.get(tile)
         if gm is None:
-            gm = groups[tile] = K.group_masks(
-                stacks, ni=nb, nk=e, nj=e, g_r=tile.g_r, g_c=tile.g_c)
+            with span("repro.moe.dispatch"):
+                gm = groups[tile] = K.group_masks(
+                    stacks, ni=nb, nk=e, nj=e, g_r=tile.g_r, g_c=tile.g_c)
         return K.block_spgemm_groups(a_blocks, b_blocks, gm, ni=nb, nj=e)
 
     return mult
@@ -497,77 +499,85 @@ def _apply_spgemm(cfg: ArchConfig, p, x: torch.Tensor, top_w, top_e):
     tpb = moe.token_block
     t = b * s
     dev = x.device
-    xt = x.reshape(t, d)
-    te = top_e.reshape(t, k)
-    tw = top_w.reshape(t, k)
-    pad = (-t) % tpb
-    if pad:
-        xt = F.pad(xt, (0, 0, 0, pad))
-        te = F.pad(te, (0, 0, 0, pad))
-        tw = F.pad(tw, (0, 0, 0, pad))
-    tt = t + pad
-    nb = tt // tpb
-    valid = torch.arange(tt, device=dev) < t
-    mask = dispatch_block_mask(te, e, tpb, valid=valid)  # (nb, E)
+    with span("repro.moe.dispatch"):
+        xt = x.reshape(t, d)
+        te = top_e.reshape(t, k)
+        tw = top_w.reshape(t, k)
+        pad = (-t) % tpb
+        if pad:
+            xt = F.pad(xt, (0, 0, 0, pad))
+            te = F.pad(te, (0, 0, 0, pad))
+            tw = F.pad(tw, (0, 0, 0, pad))
+        tt = t + pad
+        nb = tt // tpb
+        valid = torch.arange(tt, device=dev) < t
+        mask = dispatch_block_mask(te, e, tpb, valid=valid)  # (nb, E)
 
-    spec = current_dispatch_spec()
-    env = spec.envelope if spec is not None else None
-    cap = spec.stack_capacity if spec is not None else None
-    if env is not None and tuple(np.asarray(env.mask_a).shape) != (nb, e):
-        # prefill vs decode grid mismatch: the structural bound, since the
-        # spec's capacity is its envelope's and would drop products here
-        env, cap = None, None
-    blk = torch.arange(tt, device=dev) // tpb
-    keep = torch.ones((tt, k), dtype=torch.bool, device=dev)
-    if env is not None:
-        # clip the dispatch to the envelope so its capacity is sound;
-        # clipped routed choices are the serving drop stat
-        clip = _envelope_clip(env, dev)
-        mask = mask & clip
-        keep = clip[blk[:, None], te]
+        spec = current_dispatch_spec()
+        env = spec.envelope if spec is not None else None
+        cap = spec.stack_capacity if spec is not None else None
+        if env is not None and tuple(np.asarray(env.mask_a).shape) != (nb, e):
+            # prefill vs decode grid mismatch: the structural bound, since
+            # the spec's capacity is its envelope's and would drop products
+            # here
+            env, cap = None, None
+        blk = torch.arange(tt, device=dev) // tpb
+        keep = torch.ones((tt, k), dtype=torch.bool, device=dev)
+        if env is not None:
+            # clip the dispatch to the envelope so its capacity is sound;
+            # clipped routed choices are the serving drop stat
+            clip = _envelope_clip(env, dev)
+            mask = mask & clip
+            keep = clip[blk[:, None], te]
+            if cap is None:
+                cap = env.local_capacity()
+        dropped = (valid[:, None] & ~keep).sum().to(torch.int32)
+
+        backend = spec.backend if spec is not None and spec.backend else (
+            "cuda" if dev.type == "cuda" else "stacks")
         if cap is None:
-            cap = env.local_capacity()
-    dropped = (valid[:, None] & ~keep).sum().to(torch.int32)
+            # structural bound: every block row occupies at most
+            # min(tb*K, E) expert columns, and diagonal B gives one product
+            # per block
+            cap = bucket_capacity(nb * min(tpb * k, e))
+        gated = cfg.mlp in ("swiglu", "geglu")
+        compacted = backend in ("cuda", "stacks")
+        if compacted:
+            # the compacted backends read the listed blocks only: A as the
+            # token blocks broadcast over the expert columns (a stride-0
+            # view)
+            mult = _expert_products(mask, cap, backend)
+            a = xt.reshape(nb, 1, tpb, d).expand(nb, e, tpb, d)
+        else:
+            # The envelope covers both operands by construction (A is
+            # clipped to it above, and the bank's mask is its eye), so its
+            # capacity goes in directly: ``multiply(envelope=env)`` would
+            # check that cover on the host, two device-to-host copies a
+            # multiply.
+            def mult(a_bsm, w_bank):
+                return core_engine.multiply(
+                    a_bsm, diag_expert_bsm(w_bank, aliased=False),
+                    backend=backend, stack_capacity=cap).blocks
 
-    backend = spec.backend if spec is not None and spec.backend else (
-        "cuda" if dev.type == "cuda" else "stacks")
-    if cap is None:
-        # structural bound: every block row occupies at most min(tb*K, E)
-        # expert columns, and diagonal B gives one product per block
-        cap = bucket_capacity(nb * min(tpb * k, e))
-    gated = cfg.mlp in ("swiglu", "geglu")
+            a = _dispatch_bsm(xt, mask, tpb)
 
-    if backend in ("cuda", "stacks"):
-        # the compacted backends read the listed blocks only: A as the
-        # token blocks broadcast over the expert columns (a stride-0 view)
-        mult = _expert_products(mask, cap, backend)
-        a = xt.reshape(nb, 1, tpb, d).expand(nb, e, tpb, d)
+    with span("repro.moe.experts"):
         h = mult(a, p["w_in"])  # (nb, E) blocks of (tb, de)
         hb = _gate(cfg, mult(a, p["w_gate"]) if gated else None, h)
         del a, h
-        # act(0) = 0 for gelu / silu, so unlisted blocks stay zero
-        out = mult(hb, p["w_out"])  # (nb, E) x (tb, d)
-    else:
-        # The envelope covers both operands by construction (A is clipped
-        # to it above, and the bank's mask is its eye), so its capacity
-        # goes in directly: ``multiply(envelope=env)`` would check that
-        # cover on the host, two device-to-host copies a multiply.
-        def mult(a_bsm, w_bank):
-            return core_engine.multiply(
-                a_bsm, diag_expert_bsm(w_bank, aliased=False),
-                backend=backend, stack_capacity=cap).blocks
-
-        a = _dispatch_bsm(xt, mask, tpb)
-        h = mult(a, p["w_in"])
-        hb = _gate(cfg, mult(a, p["w_gate"]) if gated else None, h)
-        del a, h
-        # make_bsm re-zeroes and refreshes the norms, as the reference does
-        out = mult(B.make_bsm(hb, mask), p["w_out"])
-    del hb
-    y = out[blk[:, None], te, (torch.arange(tt, device=dev)
-                               % tpb)[:, None]]  # (tt, K, d)
-    w = (tw * keep.to(tw.dtype)).to(y.dtype)
-    y = (y * w[..., None]).sum(1)[:t]
+        if compacted:
+            # act(0) = 0 for gelu / silu, so unlisted blocks stay zero
+            out = mult(hb, p["w_out"])  # (nb, E) x (tb, d)
+        else:
+            # make_bsm re-zeroes and refreshes the norms, as the reference
+            # does
+            out = mult(B.make_bsm(hb, mask), p["w_out"])
+        del hb
+    with span("repro.moe.combine"):
+        y = out[blk[:, None], te, (torch.arange(tt, device=dev)
+                                   % tpb)[:, None]]  # (tt, K, d)
+        w = (tw * keep.to(tw.dtype)).to(y.dtype)
+        y = (y * w[..., None]).sum(1)[:t]
     return y.reshape(b, s, d), dropped
 
 
@@ -582,10 +592,11 @@ def apply_moe(cfg: ArchConfig, p, x: torch.Tensor, *,
     """
     moe = cfg.moe
     e, _ = moe_dims(cfg)
-    logits = x.float() @ p["router"]
-    top_w, top_e, probs = router_probs(moe, logits)
-    aux = load_balance_loss(probs, top_e, e)
-    top_w = top_w.to(x.dtype)
+    with span("repro.moe.route"):
+        logits = x.float() @ p["router"]
+        top_w, top_e, probs = router_probs(moe, logits)
+        aux = load_balance_loss(probs, top_e, e)
+        top_w = top_w.to(x.dtype)
 
     dropped = torch.zeros((), dtype=torch.int32, device=x.device)
     if moe.impl == "dense":
@@ -599,7 +610,8 @@ def apply_moe(cfg: ArchConfig, p, x: torch.Tensor, *,
         raise ValueError(f"unknown moe impl {moe.impl!r}")
 
     if moe.n_shared:
-        y = y + _shared_ffn(cfg, p, x)
+        with span("repro.moe.shared"):
+            y = y + _shared_ffn(cfg, p, x)
     count_drops(top_e.numel(), dropped)
     if collect_stats:
         stats = {"dropped": dropped,

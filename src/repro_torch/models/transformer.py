@@ -67,6 +67,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import rwkv6 as R
+from repro_torch.obs import span
 
 Params = dict[str, Any]
 
@@ -475,9 +476,10 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     it (from the cache's, zero in a fresh cache), return the last
     position's logits (B, 1, V) and the (updated) cache.  ``patch_embeds``
     and ``frame_embeds`` as in ``forward``."""
-    x, _ = _run_blocks(cfg, params, tokens, cache, patch_embeds,
-                       frame_embeds)
-    logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
+    with span("repro.model.prefill"):
+        x, _ = _run_blocks(cfg, params, tokens, cache, patch_embeds,
+                           frame_embeds)
+        logits = L.logits_matmul(cfg, params["embed"], x[:, -1:])
     return logits, cache
 
 
@@ -500,12 +502,14 @@ def decode_step(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     level): an int / 0-d tensor for all slots, or a (B,) tensor of
     per-slot levels (continuous batching refills slots mid-stream).
     """
-    pv = torch.as_tensor(position, device=tokens.device)
-    x = _embed_step(cfg, params, tokens, pv)
-    rope_pos = pv[:, None] if pv.dim() else pv.reshape(1)
-    for kind, p, c in zip(layer_kinds(cfg), params["blocks"],
-                          cache["blocks"]):
-        x = _apply_block_decode(cfg, kind, p, x, c, position, rope_pos,
-                                pv + 1)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return L.logits_matmul(cfg, params["embed"], x), cache
+    with span("repro.model.decode_step"):
+        pv = torch.as_tensor(position, device=tokens.device)
+        x = _embed_step(cfg, params, tokens, pv)
+        rope_pos = pv[:, None] if pv.dim() else pv.reshape(1)
+        for kind, p, c in zip(layer_kinds(cfg), params["blocks"],
+                              cache["blocks"]):
+            x = _apply_block_decode(cfg, kind, p, x, c, position, rope_pos,
+                                    pv + 1)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        logits = L.logits_matmul(cfg, params["embed"], x)
+    return logits, cache

@@ -54,6 +54,7 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.models import moe as MoE
 from repro_torch.models import transformer as T
+from repro_torch.obs import span
 
 
 @dataclass(frozen=True)
@@ -191,17 +192,18 @@ class ServingEngine:
             return 0
         _sync(self.device)
         t0 = time.perf_counter()
-        fresh = T.init_cache(self.cfg, self.batch, self.max_len,
-                             device=self.device)
-        logits, fresh = self._prefill(self._tokens(toks), fresh)
-        first = self._sample(logits)
-        idx = torch.tensor(slots, device=self.device)
-        for live, new in zip(cache["blocks"], fresh["blocks"]):
-            for name in live:
-                live[name][idx] = new[name][idx]
-        next_tok[idx] = first[idx]
-        pos_dev[idx] = plen
-        _sync(self.device)
+        with span("repro.serve.refill"):
+            fresh = T.init_cache(self.cfg, self.batch, self.max_len,
+                                 device=self.device)
+            logits, fresh = self._prefill(self._tokens(toks), fresh)
+            first = self._sample(logits)
+            idx = torch.tensor(slots, device=self.device)
+            for live, new in zip(cache["blocks"], fresh["blocks"]):
+                for name in live:
+                    live[name][idx] = new[name][idx]
+            next_tok[idx] = first[idx]
+            pos_dev[idx] = plen
+            _sync(self.device)
         prefills.append({"step": step, "slots": len(slots),
                          "wall_s": time.perf_counter() - t0})
         return len(slots)
@@ -256,10 +258,12 @@ class ServingEngine:
                 step = max(step + 1, queue[0].arrival if queue else step + 1)
                 continue
             t1 = time.perf_counter()
-            logits, cache = self._decode(next_tok[:, None], cache, pos_dev)
-            sampled = self._sample(logits)
-            host_prev = next_tok.tolist()  # waits for the device
-            _sync(self.device)
+            with span("repro.serve.decode"):
+                logits, cache = self._decode(next_tok[:, None], cache,
+                                             pos_dev)
+                sampled = self._sample(logits)
+                host_prev = next_tok.tolist()  # waits for the device
+                _sync(self.device)
             t2 = time.perf_counter()
             # the token decoded THIS step is the one that was in next_tok
             for i in occupied:
